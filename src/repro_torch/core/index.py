@@ -1,0 +1,159 @@
+"""High-level ANN index API (PyTorch port of ``repro.core.index``).
+
+    spec = RetrievalSpec(distance="kl", builder="nndescent", ef_search=96)
+    idx = ANNIndex.build(X, spec=spec)      # X on the card (or the CPU)
+    dists, ids, n_evals, hops = idx.searcher()(Q)
+
+This slice builds with NN-descent and searches with the batched engine
+under the original distance.  The other builders, engines and modes of
+``repro`` raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core.batched_beam import make_step_searcher, select_entries
+from repro_torch.core.nndescent import build_nndescent
+from repro_torch.core.spec import RetrievalSpec
+
+_ITEM_SWGRAPH = "ROADMAP items M5 and M7 (beam_search.py, swgraph.py, build_engine.py)"
+_ITEM_RERANK = "ROADMAP item M8 (symmetrize.py policies, filter_refine.py rerank)"
+_ITEM_ONLINE = "ROADMAP item M11 (online.py)"
+_ITEM_SCHEDULER = "ROADMAP item M12 (scheduler.py)"
+
+
+def check_supported(spec: RetrievalSpec) -> None:
+    if spec.builder == "swgraph":
+        raise NotImplementedError(f"builder='swgraph' is not ported yet: {_ITEM_SWGRAPH}")
+    if spec.engine == "reference":
+        raise NotImplementedError(f"engine='reference' is not ported yet: {_ITEM_SWGRAPH}")
+    if spec.needs_rerank:
+        raise NotImplementedError(
+            f"search_policy {str(spec.search_policy)!r} (rerank) is not ported yet: "
+            f"{_ITEM_RERANK}")
+    if spec.capacity is not None:
+        raise NotImplementedError(f"capacity / online mutation is not ported yet: {_ITEM_ONLINE}")
+
+
+@dataclasses.dataclass
+class ANNIndex:
+    """A built neighborhood-graph index over a database X."""
+
+    X: torch.Tensor
+    neighbors: torch.Tensor  # (n, M) int32
+    dist: object  # original distance
+    search_dist: object  # distance guiding the beam (equals dist in this slice)
+    query_sym: str
+    entries: Optional[torch.Tensor] = None  # (E,) int32 beam entry points
+    build_info: dict = dataclasses.field(default_factory=dict)
+    build_dist: object = None  # index-time distance
+    spec: RetrievalSpec = dataclasses.field(default_factory=RetrievalSpec)
+
+    @classmethod
+    def build(cls, X, dist=None, *, spec: Optional[RetrievalSpec] = None,
+              generator: Optional[torch.Generator] = None) -> "ANNIndex":
+        """Build an index from a ``RetrievalSpec``.
+
+        Args:
+            X: (n, m) float32 database on the device the index should live on.
+            dist: optional explicit base distance; otherwise ``spec.distance``.
+            spec: the scenario (defaults to ``RetrievalSpec()``).
+            generator: ``torch.Generator`` on X's device for the NN-descent
+                and entry-point draws (a fixed seed 0 when omitted).
+        """
+        spec = spec if spec is not None else RetrievalSpec()
+        check_supported(spec)
+        if dist is None:
+            dist = spec.base_distance()
+        if generator is None:
+            generator = torch.Generator(device=X.device).manual_seed(0)
+        build_dist = spec.build_policy.bind(dist)
+        search_dist = dist
+
+        neighbors, degrees = build_nndescent(
+            build_dist, X, generator, K=spec.NN, iters=spec.nnd_iters, M_out=spec.M_max,
+        )
+        entries = select_entries(search_dist, X, n_entries=spec.n_entries, generator=generator)
+        return cls(
+            X=X,
+            neighbors=neighbors,
+            dist=dist,
+            search_dist=search_dist,
+            query_sym=str(spec.search_policy),
+            entries=entries,
+            build_info=make_build_info(spec, degrees),
+            build_dist=build_dist,
+            spec=spec,
+        )
+
+    # ----------------------------------------------------------------- search
+
+    def _check_search_policy(self, spec: Optional[RetrievalSpec]):
+        if spec is not None and str(spec.search_policy) != self.query_sym:
+            raise ValueError(
+                f"spec.search_policy {str(spec.search_policy)!r} does not match this "
+                f"index's bound search policy {self.query_sym!r}; rebuild with "
+                f"ANNIndex.build(X, spec=spec) to change the search scenario")
+
+    def searcher(self, k: Optional[int] = None, ef_search: Optional[int] = None,
+                 k_c: Optional[int] = None, engine: Optional[str] = None,
+                 frontier: Optional[int] = None, *, adaptive: Optional[bool] = None,
+                 patience: Optional[int] = None, spec: Optional[RetrievalSpec] = None):
+        """Return ``search(Q) -> (dists, ids, n_evals, hops)``.
+
+        Knobs resolve spec-first: explicit arguments override ``spec``
+        (default: the spec the index was built with).
+        """
+        self._check_search_policy(spec)
+        spec = spec if spec is not None else self.spec
+        k = spec.k if k is None else k
+        ef_search = spec.ef_search if ef_search is None else ef_search
+        engine = spec.engine if engine is None else engine
+        frontier = spec.frontier if frontier is None else frontier
+        adaptive = spec.adaptive if adaptive is None else adaptive
+        patience = spec.patience if patience is None else patience
+        if engine == "reference":
+            raise NotImplementedError(f"engine='reference' is not ported yet: {_ITEM_SWGRAPH}")
+        if engine != "batched":
+            raise ValueError(f"unknown engine {engine!r}; known: batched, reference")
+        if k_c is not None or self.query_sym != "none":
+            raise NotImplementedError(f"rerank (k_c) is not ported yet: {_ITEM_RERANK}")
+        ef = max(ef_search, k)
+        return make_step_searcher(self.dist, self.neighbors, self.X, ef, k,
+                                  entries=self.entries, frontier=frontier,
+                                  adaptive=adaptive, patience=patience)
+
+    def search(self, Q, k: Optional[int] = None, ef_search: Optional[int] = None,
+               k_c: Optional[int] = None, engine: Optional[str] = None,
+               frontier: Optional[int] = None):
+        """One-shot ``searcher(...)(Q)`` with the same knob resolution."""
+        return self.searcher(k, ef_search, k_c, engine=engine, frontier=frontier)(Q)
+
+    def scheduler(self, *args, **kwargs):
+        raise NotImplementedError(f"the slot scheduler is not ported yet: {_ITEM_SCHEDULER}")
+
+    def ensure_online(self, capacity: Optional[int] = None):
+        raise NotImplementedError(f"online mutation is not ported yet: {_ITEM_ONLINE}")
+
+
+def make_build_info(spec: RetrievalSpec, degrees) -> dict:
+    """``build_info`` with the keys ``repro`` records for an NN-descent build."""
+    return dict(
+        builder=spec.builder,
+        build_engine="nndescent",
+        wave=None,
+        index_sym=str(spec.build_policy),
+        query_sym=str(spec.search_policy),
+        index_sym_resolved=str(spec.build_policy),
+        query_sym_resolved=str(spec.search_policy),
+        NN=spec.NN,
+        ef_construction=spec.ef_construction,
+        mean_degree=float(degrees.float().mean()),
+        spec=spec.to_dict(),
+        spec_fingerprint=spec.fingerprint(),
+    )

@@ -1,0 +1,151 @@
+"""Retrieval serving driver (PyTorch port of ``repro.launch.serve``, static batches).
+
+Builds an NN-descent index over LDA-like histograms, answers the held-out
+queries in fixed batches through the batched beam engine, and scores them
+against an exact scan:
+
+    python -m repro_torch.launch.serve --n-db 20000 --dim 32 --queries 256 --batch 64
+
+It runs on the card unless ``--device cpu`` is given.  The continuous,
+churn, QoS and sharded serving paths of ``repro`` are not in this slice.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.brute_force import knn_scan
+from repro_torch.core.distances import get_distance
+from repro_torch.core.index import ANNIndex
+from repro_torch.core.metrics import recall_at_k, speedup_model
+from repro_torch.core.spec import RetrievalSpec
+from repro_torch.data.synthetic import lda_like_histograms, split_queries
+from repro_torch.kernels.frontier_gather import frontier_scores
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def build_and_serve(*, spec: RetrievalSpec | None = None, distance: str = "kl",
+                    n_db: int = 20_000, dim: int = 32, n_queries: int = 256,
+                    batch: int = 64, k: int = 10, ef_search: int = 96, frontier: int = 4,
+                    n_entries: int = 4, alpha: float = 0.08, seed: int = 0,
+                    device="cuda", verbose: bool = True) -> dict:
+    """Build, warm, serve ``n_queries`` in batches of ``batch``, score.
+
+    ``spec`` is the whole scenario when given (its distance, k, ef_search
+    and frontier override the loose arguments); the other arguments are the
+    workload.  Returns the stats dict: build seconds, recall@k against
+    ``knn_scan``, distance-evaluation reduction, per-query and per-batch
+    latency percentiles, queries per second, and the frontier-gather kernel
+    launches made by the build and by the timed batches (0 on the CPU).
+    """
+    dev = resolve_device(device)
+    if spec is None:
+        # the same scenario repro's serve driver records for these flags
+        spec = RetrievalSpec(
+            distance=distance, build_policy="none", builder="nndescent",
+            build_engine="wave", wave=64, NN=15, ef_construction=100,
+            n_entries=n_entries, capacity=None, k=k, ef_search=ef_search,
+            engine="batched", frontier=frontier, slots=48, sched_frontier=12,
+            adaptive=False, steps_per_sync=4,
+        )
+    else:
+        distance, k, ef_search, frontier = spec.distance, spec.k, spec.ef_search, spec.frontier
+    rng = np.random.default_rng(seed)
+    data = lda_like_histograms(rng, n_db + n_queries, dim, alpha=alpha, device=dev)
+    Q, rest = split_queries(data, n_queries, rng)
+    X = rest[:n_db]
+    dist = get_distance(distance)
+    generator = torch.Generator(device=dev).manual_seed(seed)
+
+    launches0 = frontier_scores.launches
+    t0 = time.perf_counter()
+    idx = ANNIndex.build(X, dist, spec=spec, generator=generator)
+    _sync(dev)
+    build_s = time.perf_counter() - t0
+    build_launches = frontier_scores.launches - launches0
+
+    search = idx.searcher(k, ef_search, engine="batched", frontier=frontier, adaptive=False)
+    # warm every batch shape served (full batches plus a ragged tail)
+    search(Q[:batch])
+    if n_queries % batch:
+        search(Q[:n_queries % batch])
+    _sync(dev)
+
+    _, true_ids = knn_scan(dist, Q, X, k)
+
+    launches0 = frontier_scores.launches
+    lat, batch_s, evals, all_ids = [], [], [], []
+    t_all = time.perf_counter()
+    for lo in range(0, n_queries, batch):
+        qb = Q[lo:lo + batch]
+        t0 = time.perf_counter()
+        _, ids, n_evals, _ = search(qb)
+        _sync(dev)
+        batch_s.append(time.perf_counter() - t0)
+        lat.append(batch_s[-1] / qb.shape[0])
+        evals.append(n_evals.cpu().numpy())
+        all_ids.append(ids.cpu().numpy())
+    serve_s = time.perf_counter() - t_all
+    search_launches = frontier_scores.launches - launches0
+
+    recall = recall_at_k(np.concatenate(all_ids), true_ids)
+    stats = {
+        "device": str(dev),
+        "build_s": build_s,
+        "engine": "batched",
+        "served": n_queries,
+        "recall@k": recall,
+        "eval_reduction": speedup_model(n_db, np.concatenate(evals)),
+        "qps": n_queries / serve_s,
+        "p50_latency_ms": 1e3 * float(np.percentile(lat, 50)),
+        "p99_latency_ms": 1e3 * float(np.percentile(lat, 99)),
+        "p50_batch_ms": 1e3 * float(np.percentile(batch_s, 50)),
+        "p99_batch_ms": 1e3 * float(np.percentile(batch_s, 99)),
+        "build_kernel_launches": build_launches,
+        "search_kernel_launches": search_launches,
+        "mean_degree": idx.build_info["mean_degree"],
+        "spec": spec.to_dict(),
+        "spec_fingerprint": spec.fingerprint(),
+    }
+    if verbose:
+        print(f"[serve] dist={distance} n={n_db} dim={dim} -> "
+              f"{ {k_: v for k_, v in stats.items() if k_ != 'spec'} }")
+    return stats
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; the default cuda raises when no card is present")
+    ap.add_argument("--distance", default="kl")
+    ap.add_argument("--n-db", type=int, default=20_000)
+    ap.add_argument("--dim", type=int, default=32)
+    ap.add_argument("--queries", type=int, default=256)
+    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--ef", type=int, default=96, dest="ef_search")
+    ap.add_argument("--frontier", type=int, default=4,
+                    help="beam candidates expanded per lock-step")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--spec", default=None,
+                    help="RetrievalSpec JSON (a path or the JSON text); it replaces "
+                         "--distance/--ef/--frontier")
+    args = ap.parse_args(argv)
+    spec = RetrievalSpec.from_json(args.spec) if args.spec else None
+    return build_and_serve(spec=spec, distance=args.distance, n_db=args.n_db, dim=args.dim,
+                           n_queries=args.queries, batch=args.batch,
+                           ef_search=args.ef_search, frontier=args.frontier,
+                           seed=args.seed, device=args.device)
+
+
+if __name__ == "__main__":
+    print(json.dumps({k: v for k, v in main().items() if k != "spec"}))

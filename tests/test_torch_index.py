@@ -1,0 +1,239 @@
+"""Port parity for the slice as a whole: index, spec, ground truth, serving.
+
+* A ``repro``-built index carried across by ``index_from_jax`` returns the
+  same ids, eval counts and hops as ``repro``'s own searcher.
+* The port's own NN-descent build (its own random draws) recalls within
+  0.005 of ``repro``'s build on the same data.
+* ``knn_scan`` ids are exactly equal; ``RetrievalSpec`` JSON and
+  fingerprints are byte-identical.
+* The serve entry point runs end to end on the CPU when asked to.
+* Nothing in ``src/repro_torch/`` or ``chip_smoke.py`` imports JAX or ``repro``.
+"""
+
+import ast
+import pathlib
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.core import ANNIndex, get_distance, knn_scan, recall_at_k
+from repro.core import spec as jspec
+from repro.data.synthetic import lda_like_histograms, split_queries
+from repro_torch import default_device, resolve_device
+from repro_torch.convert import index_from_jax
+from repro_torch.core import brute_force as tbf
+from repro_torch.core import distances as td
+from repro_torch.core import metrics as tmetrics
+from repro_torch.core import spec as tspec
+from repro_torch.core.index import ANNIndex as TIndex
+from repro_torch.launch import serve as tserve
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+N_DB, N_Q, DIM, K = 2000, 200, 16, 10
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.fixture(scope="module")
+def data():
+    X = lda_like_histograms(jax.random.PRNGKey(0), N_DB + N_Q, DIM)
+    Q, db = split_queries(X, N_Q, jax.random.PRNGKey(1))
+    return Q, db
+
+
+@pytest.fixture(scope="module")
+def jax_index(data):
+    _, db = data
+    spec = jspec.RetrievalSpec(distance="kl", builder="nndescent", frontier=4)
+    return ANNIndex.build(db, spec=spec, key=jax.random.PRNGKey(2))
+
+
+@pytest.fixture(scope="module")
+def truth(data):
+    Q, db = data
+    return np.asarray(knn_scan(get_distance("kl"), Q, db, K)[1])
+
+
+def test_index_from_jax_returns_the_same_ids(data, jax_index):
+    Q, _ = data
+    arrays = {a: np.asarray(getattr(jax_index, a)) for a in ("X", "neighbors", "entries")}
+    tidx = index_from_jax(arrays, jax_index.spec.to_dict(), device="cpu")
+    assert tidx.build_info.keys() == jax_index.build_info.keys()
+    assert tidx.build_info["spec_fingerprint"] == jax_index.build_info["spec_fingerprint"]
+    want = [np.asarray(a) for a in jax_index.searcher()(Q)]
+    got = [a.numpy() for a in tidx.searcher()(_t(Q))]
+    for name, g, w in zip(("ids", "evals", "hops"), got[1:], want[1:]):
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-6, atol=1e-6)
+    # one-shot search resolves the same knobs
+    np.testing.assert_array_equal(tidx.search(_t(Q[:8]))[1].numpy(), want[1][:8])
+
+
+def test_own_build_recalls_like_repro(data, jax_index, truth):
+    Q, db = data
+    want = recall_at_k(np.asarray(jax_index.searcher()(Q)[1]), truth)
+    tidx = TIndex.build(_t(db), spec=tspec.RetrievalSpec.from_dict(jax_index.spec.to_dict()),
+                        generator=torch.Generator().manual_seed(2))
+    assert tidx.build_info.keys() == jax_index.build_info.keys()
+    for key in ("builder", "build_engine", "wave", "index_sym", "query_sym", "NN",
+                "ef_construction", "spec", "spec_fingerprint"):
+        assert tidx.build_info[key] == jax_index.build_info[key], key
+    got = tmetrics.recall_at_k(tidx.searcher()(_t(Q))[1], truth)
+    assert got >= 0.9
+    assert abs(got - want) <= 0.005, (got, want)
+
+
+@pytest.mark.parametrize("name", ["kl", "itakura_saito", "renyi_0.25", "l2", "negdot"])
+def test_knn_scan_ids_exact(name, data):
+    Q, db = data
+    want_d, want_i = knn_scan(get_distance(name), Q[:64], db, K, chunk=512)
+    got_d, got_i = tbf.knn_scan(td.get_distance(name), _t(Q[:64]), _t(db), K, chunk=512)
+    assert got_i.dtype == torch.int32
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), rtol=1e-5, atol=1e-5)
+    g2 = tbf.ground_truth(td.get_distance(name), _t(Q[:64]), _t(db), K)[1]
+    np.testing.assert_array_equal(g2.numpy(), np.asarray(want_i))
+
+
+def test_synthetic_histograms_and_split():
+    from repro_torch.data import synthetic as ts
+
+    for make in (ts.random_histograms, lambda r, n, d, device: ts.lda_like_histograms(
+            r, n, d, alpha=0.08, device=device)):
+        X = make(np.random.default_rng(3), 500, 24, device="cpu")
+        assert X.dtype == torch.float32 and X.shape == (500, 24)
+        assert float(X.min()) >= 1e-6 * 0.99
+        torch.testing.assert_close(X.sum(1), torch.ones(500), rtol=0, atol=1e-5)
+        torch.testing.assert_close(make(np.random.default_rng(3), 500, 24, device="cpu"), X)
+    Q, rest = ts.split_queries(X, 40, np.random.default_rng(0))
+    assert Q.shape == (40, 24) and rest.shape == (460, 24)
+    # a permutation: every row lands in exactly one side
+    both = torch.cat([Q, rest]).numpy()
+    assert len({r.tobytes() for r in both}) == len({r.tobytes() for r in X.numpy()})
+
+
+def test_metrics_match():
+    from repro.core import metrics as jm
+
+    rng = np.random.default_rng(0)
+    found = rng.integers(-1, 30, (12, 10))
+    true = rng.integers(0, 30, (12, 10))
+    assert tmetrics.recall_at_k(torch.from_numpy(found), true) == jm.recall_at_k(found, true)
+    evals = rng.integers(50, 400, 12)
+    assert tmetrics.speedup_model(5000, torch.from_numpy(evals)) == jm.speedup_model(5000, evals)
+
+
+SPECS = [
+    {},
+    {"distance": "renyi_0.25", "ef_search": 64, "frontier": 4},
+    {"builder": "swgraph", "build_engine": "sequential", "M_max": 24, "wave": 16},
+    {"build_policy": "blend(0.25)", "search_policy": "min", "k_c": 40, "adaptive": True},
+]
+
+
+@pytest.mark.parametrize("changes", SPECS, ids=["default", "renyi", "swgraph", "policies"])
+def test_spec_json_and_fingerprint_byte_identical(changes):
+    j = jspec.RetrievalSpec(**changes)
+    t = tspec.RetrievalSpec(**changes)
+    assert t.to_json() == j.to_json()
+    assert t.fingerprint() == j.fingerprint()
+    assert tspec.RetrievalSpec.from_json(j.to_json()) == t
+    assert tspec.RetrievalSpec.from_dict(t.to_dict()).replace(k=12).k == 12
+
+
+def test_spec_validation_matches():
+    for bad in ({"builder": "hnsw"}, {"engine": "x"}, {"ef_search": 0}, {"k_c": 3},
+                {"build_policy": "blend(2)"}):
+        with pytest.raises(ValueError):
+            jspec.RetrievalSpec(**bad)
+        with pytest.raises(ValueError):
+            tspec.RetrievalSpec(**bad)
+    with pytest.raises(ValueError):
+        tspec.RetrievalSpec.from_dict({"nope": 1})
+
+
+@pytest.mark.parametrize("text", ["none", "avg", "min", "reverse", "l2", "natural", "max",
+                                  "blend(0.25)", "rankblend(0.5)", "rankblend(0.5,2.0)",
+                                  "learned(0123456789ab)"])
+def test_policy_round_trip_and_bind(text):
+    t = tspec.DistancePolicy.parse(text)
+    j = jspec.DistancePolicy.parse(text)
+    assert str(t) == str(j) == text
+    assert tspec.DistancePolicy.parse(str(t)) == t
+    assert t.is_none == j.is_none == (text == "none")
+    base = td.get_distance("kl")
+    if t.is_none:
+        assert t.bind(base) is base
+    else:
+        with pytest.raises(NotImplementedError, match="M8"):
+            t.bind(base)
+
+
+def test_unported_paths_raise_naming_their_roadmap_item(data):
+    _, db = data
+    X = _t(db)[:200]
+    for changes, item in [({"builder": "swgraph"}, "M7"), ({"engine": "reference"}, "M5"),
+                          ({"capacity": 400}, "M11"), ({"search_policy": "min"}, "M8")]:
+        with pytest.raises(NotImplementedError, match=item):
+            TIndex.build(X, spec=tspec.RetrievalSpec(**changes))
+    idx = TIndex.build(X, spec=tspec.RetrievalSpec(NN=8, nnd_iters=2))
+    with pytest.raises(NotImplementedError, match="M12"):
+        idx.scheduler()
+    with pytest.raises(NotImplementedError, match="M5"):
+        idx.searcher(engine="reference")
+    with pytest.raises(NotImplementedError, match="M8"):
+        idx.searcher(k_c=20)
+    with pytest.raises(NotImplementedError, match="M11"):
+        idx.ensure_online()
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        default_device()
+    with pytest.raises(RuntimeError):
+        tserve.build_and_serve(n_db=100, n_queries=8)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_serve_main_on_cpu():
+    stats = tserve.main(["--device", "cpu", "--n-db", "2000", "--queries", "96",
+                         "--batch", "32", "--ef", "64", "--frontier", "4", "--seed", "1"])
+    assert stats["device"] == "cpu"
+    assert stats["served"] == 96
+    assert stats["recall@k"] >= 0.9
+    assert stats["eval_reduction"] > 1.0
+    assert stats["build_kernel_launches"] == stats["search_kernel_launches"] == 0
+    assert stats["spec"]["builder"] == "nndescent"
+
+
+def test_serve_main_takes_a_spec():
+    spec = tspec.RetrievalSpec(distance="renyi_0.25", NN=10, nnd_iters=4, ef_search=48,
+                               frontier=2)
+    stats = tserve.main(["--device", "cpu", "--n-db", "800", "--queries", "32",
+                         "--batch", "32", "--spec", spec.to_json()])
+    assert stats["spec"] == spec.to_dict()
+    assert stats["spec_fingerprint"] == spec.fingerprint()
+    assert stats["recall@k"] >= 0.9
+
+
+def _imports(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_repro():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    for f in files:
+        for mod in _imports(f):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), f"{f.relative_to(ROOT)} imports {mod}"
