@@ -6,41 +6,68 @@
 Every phase is fatal on failure; nothing is caught and passed over.
 
 1. card: CUDA must be present; prints the card's name and power limit.
-2. build: ``nvcc`` builds the frontier-gather kernel from
-   ``src/repro_torch/kernels/csrc/`` (build time and the ptxas report printed).
-3. check: the kernel against its plain PyTorch version on the card for kl,
-   itakura_saito, renyi_0.25, l2 and negdot, at the search shape
-   and NN-descent shapes of both configurations below (NN-descent on a
-   row subset), m'=128, with -1 padding: rtol = atol = 1e-5 and equal inf
-   positions.
+2. build: ``nvcc`` builds the three kernels from ``src/repro_torch/kernels/csrc/``,
+   one process per source, all started together (build time and the ptxas
+   reports printed).
+3. check: each kernel against its plain PyTorch version on the card, rtol =
+   atol = 1e-5 and equal inf positions (bf16 reps: 2e-2).  frontier_scores:
+   kl, itakura_saito, renyi_0.25, l2 and negdot at the search and NN-descent
+   shapes, m'=128, -1 padding.  distance_matrix: kl, itakura_saito,
+   renyi_0.25, renyi_2, l2 and negdot at 128x4096x{8,32,128}, 512x8192x128,
+   a ragged 33x300x64, m'=512 and 2,100, a bf16 case and the build_sharded
+   stitch shape (20,000 x 64, m'=32).  gather_scores: the same distances at
+   (64, 30, 128), (64, 240, 128) with -1 padding and the wave builder's
+   reverse-edge shape (960, 1, 32), and ``ops.beam_gather_scores``.
 4. serve defaults: n=20,000, d=32, KL, NN-descent, ef 96, frontier 4, k 10,
    256 queries in batches of 64 through ``launch.serve.build_and_serve``;
    recall@10 >= 0.90.
-5. main path at full size: n=1,000,000 LDA-like histograms (d=128,
-   alpha=0.08), 1,024 held-out queries in batches of 64, through the same
-   entry point, with the graph degree doubled (NN 30) and ef 512.  The
-   launch count is set to 0 just before and read just after; build and
-   search must both have launched the kernel, and recall@10 against
-   ``knn_scan`` must exceed 0.5.
-6. timing: the kernel per launch at the search-step and NN-descent-round
-   shapes of both configurations, over the full-size database, beside its
-   bound and the plain version's time.  ``ms`` is device time from the
-   profiler's kernel records; ``event_ms`` is CUDA events around
-   back-to-back calls, which also counts the host's launch gaps.
-7. profile: device time by kernel and the device's idle share for one
-   full-size build and one search batch (``torch.profiler``).
-8. graph quality at full size, NN 15 against NN 30: the share of each
-   node's true NN nearest neighbours that the NN-descent graph holds, and
-   search recall@10 at ef 96 and 512.
+5. SW-graph at the serve defaults: the same entry point with
+   ``builder="swgraph"`` (wave 64, NN 15, ef_construction 100); recall@10
+   >= 0.98 (the JAX driver reaches 0.9898 at these flags); the launch counts
+   are set to 0 just before and read just after: the build must launch
+   frontier_scores and gather_scores, the search frontier_scores.
+6. SW-graph at d=128 (the paper's Wiki-d width): first n=20,000, recall@10
+   >= 0.70 (the JAX driver reaches 0.7156); the per-wave time of that build
+   picks the largest n of 10^6, 200,000, 100,000 and 50,000 whose build fits
+   SWGRAPH_BUILD_BUDGET_S; at that n, recall@10 at ef 96 and 512 beside an
+   NN-descent build (the full cell's NN 30) on the same data.  No floor.
+7. sequential and reference paths: ``build_swgraph`` at n=2,000, d=16,
+   NN 8, ef_construction 40 against ``build_swgraph_wave`` at W=1 (equal
+   adjacency); a batch of 64 through the reference engine against the
+   batched engine at frontier 1 from entry 0 under kl (equal ids, n_evals
+   and hops).
+8. build_sharded at world size 1 in a one-rank NCCL group, n=20,000, d=32:
+   distance_matrix must launch (counts set to 0 just before), every cross
+   link is -1, and the local part equals ``build_swgraph_wave`` on the same
+   rows.
+9. main path at full size: n=1,000,000 LDA-like histograms (d=128,
+   alpha=0.08), 1,024 held-out queries in batches of 64, NN-descent with the
+   graph degree doubled (NN 30) and ef 512.  The launch counts are set to 0
+   just before and read just after; build and search must both have
+   launched frontier_scores, and recall@10 against ``knn_scan`` must
+   exceed 0.5.
+10. timing: each kernel per launch beside its bound, the plain version's
+    time and, for distance_matrix, ``torch.matmul`` with TF32 off (the
+    product without the epilogue).  ``ms`` is device time from the
+    profiler's kernel records; ``event_ms`` is CUDA events around
+    back-to-back calls, which also counts the host's launch gaps.
+11. profile: device time by kernel and the device's idle share for one
+    full-size NN-descent build, one search batch and one SW-graph wave
+    build (``torch.profiler``).
+12. graph quality of the NN-descent cell, NN 15 against NN 30, at
+    n = GRAPH_QUALITY_N: the share of each node's true NN nearest neighbours
+    that the graph holds, and search recall@10 at ef 96 and 512.
 
-The last three lines are the card line, a JSON object with the kernel's
+The last three lines are the card line, a JSON object with the kernels'
 numbers, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import pathlib
+import socket
 import subprocess
 import sys
 import time
@@ -57,6 +84,17 @@ DISTANCES = ["kl", "itakura_saito", "renyi_0.25", "l2", "negdot"]
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 N_FULL, D_FULL, Q_FULL, BATCH = 1_000_000, 128, 1024, 64
+KERNEL_SOURCES = ("frontier_gather", "distance_matrix", "gather_topk")
+DM_DISTANCES = DISTANCES[:3] + ["renyi_2"] + DISTANCES[3:]
+# (B, N, m'): bench_kernels.py's SHAPES, a ragged tile, m' on both sides of
+# the TPU kernel's block_k (2048), and build_sharded's stitch at the serve data
+DM_CHECK_SHAPES = [(128, 4096, 8), (128, 4096, 32), (128, 4096, 128), (512, 8192, 128),
+                   (33, 300, 64), (64, 1000, 512), (64, 1000, 2100), (20_000, 64, 32)]
+# (B, M, m'): a search step, a frontier block, the wave build's reverse edges
+GS_CHECK_SHAPES = [(64, 30, 128), (64, 240, 128), (960, 1, 32)]
+SWGRAPH_NS = (1_000_000, 200_000, 100_000, 50_000)
+SWGRAPH_BUILD_BUDGET_S = 150.0
+GRAPH_QUALITY_N = 1_000_000
 
 # (B, R): search step = batch x frontier*M, NN-descent round = rows x (K*K + K + 8)
 CHECK_SHAPES = [(64, 120), (4096, 248), (64, 240), (2048, 938)]
@@ -178,6 +216,51 @@ def profile_device(fn, label: str) -> None:
         log(f"  {ms:10.3f} ms  {count:6d} x  {key[:90]}")
 
 
+def dm_bound(B: int, N: int, m: int, itemsize: int = 4):
+    """Least time of one (B, N, m') distance-matrix call: (ms, "bytes" | "operations").
+
+    Bytes: both reps and biases read once, the (B, N) float32 output written
+    once.  Operations: 2 B N m' at the float32 rate (the kernel's type).
+    """
+    nbytes = itemsize * (B + N) * m + 4 * (B + N) + 4 * B * N
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = 2.0 * B * N * m / H100_FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_close(label, got, want, tol, pad=None):
+    """Hold a kernel's output to its plain version; returns the max abs error."""
+    torch.cuda.synchronize()
+    inf_want = torch.isinf(want) if pad is None else pad
+    if not torch.equal(torch.isinf(got), inf_want):
+        raise AssertionError(f"{label}: inf positions differ")
+    torch.testing.assert_close(got, want, **tol)
+    fin = ~inf_want
+    diff = (got[fin] - want[fin]).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    rel = float((diff / want[fin].abs().clamp(min=1e-30)).max()) if diff.numel() else 0.0
+    log(f"check {label}: max abs err {err:.3e}, max rel err {rel:.3e}")
+    return err
+
+
+class Laps:
+    """Wall seconds of each phase, logged as it ends."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def __call__(self, phase: str) -> None:
+        now = time.perf_counter()
+        log(f"phase {phase}: {now - self.t:.1f} s")
+        self.t = now
+
+
+def free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -187,41 +270,57 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    import torch.distributed as tdist
+
+    from repro_torch.core.batched_beam import make_step_searcher
+    from repro_torch.core.beam_search import make_batched_searcher
     from repro_torch.core.brute_force import knn_scan
+    from repro_torch.core.build_engine import build_sharded, build_swgraph_wave
     from repro_torch.core.distances import get_distance
-    from repro_torch.core.metrics import recall_at_k
-    from repro_torch.data.synthetic import lda_like_histograms, split_queries
-    from repro_torch.kernels import build
-    from repro_torch.kernels.frontier_gather import frontier_scores
-    from repro_torch.kernels.ref import gather_scores_ref
-    from repro_torch.launch.serve import build_and_serve
     from repro_torch.core.index import ANNIndex
+    from repro_torch.core.metrics import recall_at_k
     from repro_torch.core.spec import RetrievalSpec
+    from repro_torch.core.swgraph import build_swgraph
+    from repro_torch.data.synthetic import lda_like_histograms, split_queries
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.distance_matrix import distance_matrix
+    from repro_torch.kernels.frontier_gather import frontier_scores
+    from repro_torch.kernels.gather_topk import gather_scores
+    from repro_torch.kernels.ref import distance_matrix_ref, exact_float32_matmul, gather_scores_ref
+    from repro_torch.launch.serve import build_and_serve
 
     # the serve scenario with the graph degree doubled (NN 30, M 60) and ef 512:
     # at NN 15 the NN-descent graph holds few of each node's true neighbours
-    # at n = 1e6, d = 128, and recall@10 stays below the 0.5 floor (phase 8
+    # at n = 1e6, d = 128, and recall@10 stays below the 0.5 floor (phase 12
     # measures both; PERF.md)
     full_spec = RetrievalSpec(distance="kl", builder="nndescent", NN=30, ef_search=512,
                               frontier=4, wave=64, slots=48, sched_frontier=12,
                               steps_per_sync=4)
+    sw_spec = full_spec.replace(builder="swgraph", NN=15, ef_search=96)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     t_start = time.perf_counter()
+    lap = Laps()
     card = card_line()
     log(f"card: {card}")
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    # -- 2. build ---------------------------------------------------------------
+    # -- 2. build: one nvcc per source, all started together ---------------------------
     t0 = time.perf_counter()
-    build.load("frontier_gather")
-    log(f"build frontier_gather: {time.perf_counter() - t0:.3f} s")
-    print(build.build_log("frontier_gather").strip(), flush=True)
+    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        list(pool.map(build.build, KERNEL_SOURCES))
+    for name in KERNEL_SOURCES:
+        build.load(name)
+    log(f"build {', '.join(KERNEL_SOURCES)}: {time.perf_counter() - t0:.3f} s")
+    for name in KERNEL_SOURCES:
+        print(build.build_log(name).strip(), flush=True)
 
-    # -- 3. kernel vs plain version ------------------------------------------------
+    lap("2 build")
+
+    # -- 3. each kernel against its plain version --------------------------------------
     rng = np.random.default_rng(0)
     gen = torch.Generator(device="cuda").manual_seed(0)
     X_chk = lda_like_histograms(rng, 200_000, D_FULL, device="cuda")
@@ -236,19 +335,56 @@ def main() -> int:
             ids = random_ids(gen, B, R, X_chk.shape[0])
             got = frontier_scores(ids, q_rep, q_bias, x_rep, x_bias, dist.post_id, dist.c0)
             want = gather_scores_ref(ids, q_rep, x_rep, q_bias, x_bias, dist.post_id, dist.c0)
-            torch.cuda.synchronize()
-            if not torch.equal(torch.isinf(got), ids < 0):
-                raise AssertionError(f"{name} {B}x{R}: inf positions differ from the padding")
-            torch.testing.assert_close(got, want, **TOL)
-            fin = ids >= 0
-            err = float((got[fin] - want[fin]).abs().max())
-            rel = float(((got[fin] - want[fin]).abs() / want[fin].abs().clamp(min=1e-30)).max())
-            max_err[(name, B, R)] = err
-            log(f"check {name:13s} B={B:5d} R={R:4d}: max abs err {err:.3e}, "
-                f"max rel err {rel:.3e}")
+            max_err[("frontier_scores", name, B, R)] = check_close(
+                f"frontier_scores {name} B={B} R={R}", got, want, TOL, pad=ids < 0)
+    del x_rep, x_bias
+    for name in DM_DISTANCES:
+        dist = get_distance(name)
+        for B, N, m in DM_CHECK_SHAPES:
+            data = lda_like_histograms(rng, B + N, m, device="cuda")
+            Q, X = data[:B], data[B:]
+            got = ops.query_distance_matrix(dist, Q, X)
+            want = distance_matrix_ref(dist.prep_right(Q), dist.prep_left(X),
+                                       dist.bias_right(Q), dist.bias_left(X), dist.post_id,
+                                       dist.c0)
+            max_err[("distance_matrix", name, B, N, m)] = check_close(
+                f"distance_matrix {name} {B}x{N}x{m}", got, want, TOL)
+        # bf16 reps: float32 out, held to 2e-2 as the JAX kernel is
+        data = lda_like_histograms(rng, 128 + 4096, 128, device="cuda")
+        Q, X = data[:128], data[128:]
+        reps = (dist.prep_right(Q).bfloat16(), dist.prep_left(X).bfloat16(),
+                dist.bias_right(Q).float(), dist.bias_left(X).float())
+        check_close(f"distance_matrix {name} 128x4096x128 bf16",
+                    distance_matrix(*reps, dist.post_id, dist.c0),
+                    distance_matrix_ref(*reps, dist.post_id, dist.c0), dict(rtol=2e-2, atol=2e-2))
+        x_rep = dist.prep_left(X_chk).contiguous()
+        x_bias = dist.bias_left(X_chk).contiguous()
+        for B, M, m in GS_CHECK_SHAPES:
+            if m == D_FULL:
+                xr, xb = x_rep, x_bias
+                Q = X_chk[torch.randint(0, X_chk.shape[0], (B,), generator=gen, device="cuda")]
+            else:
+                X = lda_like_histograms(rng, 20_000, m, device="cuda")
+                xr, xb = dist.prep_left(X).contiguous(), dist.bias_left(X).contiguous()
+                Q = X[torch.randint(0, X.shape[0], (B,), generator=gen, device="cuda")]
+            q_rep, q_bias = dist.prep_right(Q).contiguous(), dist.bias_right(Q).contiguous()
+            ids = random_ids(gen, B, M, xr.shape[0])
+            got = gather_scores(ids, q_rep, q_bias, xr, xb, dist.post_id, dist.c0)
+            want = gather_scores_ref(ids, q_rep, xr, q_bias, xb, dist.post_id, dist.c0)
+            max_err[("gather_scores", name, B, M, m)] = check_close(
+                f"gather_scores {name} B={B} M={M} m'={m}", got, want, TOL, pad=ids < 0)
+        ids = random_ids(gen, 64, 30, 20_000)
+        Q = X_chk[:64]
+        got = ops.beam_gather_scores(dist, ids, Q, X_chk[:20_000])
+        want = gather_scores_ref(ids, dist.prep_right(Q), dist.prep_left(X_chk[:20_000]),
+                                 dist.bias_right(Q), dist.bias_left(X_chk[:20_000]),
+                                 dist.post_id, dist.c0)
+        check_close(f"ops.beam_gather_scores {name}", got, want, TOL, pad=ids < 0)
     del X_chk, x_rep, x_bias
 
-    # -- 4. serve defaults -----------------------------------------------------------
+    lap("3 check")
+
+    # -- 4. serve defaults (NN-descent) -------------------------------------------------
     small = build_and_serve(n_db=20_000, dim=32, n_queries=256, batch=64, ef_search=96,
                             frontier=4, device="cuda", verbose=False)
     log("serve defaults n=20000 d=32: " + json.dumps(
@@ -256,11 +392,139 @@ def main() -> int:
     if small["recall@k"] < 0.90:
         raise AssertionError(f"recall@10 {small['recall@k']} < 0.90 at the serve defaults")
 
-    # -- 5. the main path at full size ----------------------------------------------
-    frontier_scores.launches = 0
+    lap("4 serve defaults")
+
+    # -- 5. SW-graph at the serve defaults ------------------------------------------------
+    ops.reset_launch_counts()
+    sw_small = build_and_serve(n_db=20_000, dim=32, n_queries=256, batch=64, ef_search=96,
+                               builder="swgraph", wave=64, frontier=4, device="cuda",
+                               verbose=False)
+    sw_launches = ops.launch_counts()
+    log("swgraph serve defaults n=20000 d=32: " + json.dumps(
+        {k: v for k, v in sw_small.items() if k != "spec"}))
+    log(f"swgraph path launches: {sw_launches}")
+    built_k = sw_small["kernel_launches"]["build"]
+    if not (built_k["frontier_scores"] > 0 and built_k["gather_scores"] > 0
+            and sw_small["kernel_launches"]["search"]["frontier_scores"] > 0):
+        raise AssertionError(f"kernels not launched on the SW-graph path: {sw_launches}")
+    if sw_small["recall@k"] < 0.98:
+        raise AssertionError(f"SW-graph recall@10 {sw_small['recall@k']} < 0.98 at the "
+                             f"serve defaults")
+
+    lap("5 swgraph serve defaults")
+
+    # -- 6. SW-graph at d = 128 -------------------------------------------------------------
+    sw128 = build_and_serve(n_db=20_000, dim=D_FULL, n_queries=256, batch=64, ef_search=96,
+                            builder="swgraph", wave=64, frontier=4, device="cuda",
+                            verbose=False)
+    waves_20k = -(-(20_000 - 1) // 64)
+    per_wave_s = sw128["build_s"] / waves_20k
+    log("swgraph n=20000 d=128: " + json.dumps(
+        {k: v for k, v in sw128.items() if k != "spec"}))
+    log(f"swgraph d=128 build: {per_wave_s * 1e3:.3f} ms per wave of 64 ({waves_20k} waves)")
+    if sw128["recall@k"] < 0.70:
+        raise AssertionError(f"SW-graph recall@10 {sw128['recall@k']} < 0.70 at n=20000, d=128")
+    # later waves search a larger prefix: allow 1.25x the measured per-wave time
+    n_sw = next((n for n in SWGRAPH_NS
+                 if 1.25 * per_wave_s * (n - 1) / 64 <= SWGRAPH_BUILD_BUDGET_S), None)
+    if n_sw is None:
+        raise AssertionError(f"no SW-graph size fits {SWGRAPH_BUILD_BUDGET_S} s at "
+                             f"{per_wave_s:.3f} s per wave")
+    log(f"swgraph large-n cut: n={n_sw} (predicted build "
+        f"{1.25 * per_wave_s * (n_sw - 1) / 64:.1f} s; budget {SWGRAPH_BUILD_BUDGET_S} s)")
+    rng = np.random.default_rng(1)
+    data = lda_like_histograms(rng, n_sw + 512, D_FULL, device="cuda")
+    Q_sw, rest = split_queries(data, 512, rng)
+    X_sw = rest[:n_sw]
+    del data, rest
+    kl = get_distance("kl")
+    _, true_sw = knn_scan(kl, Q_sw, X_sw, 10)
+    for spec in (sw_spec, full_spec):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx = ANNIndex.build(X_sw, spec=spec,
+                             generator=torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        line = {"builder": spec.builder, "NN": spec.NN, "n": n_sw, "d": D_FULL,
+                "build_s": time.perf_counter() - t0}
+        if spec.builder == "swgraph":
+            line["ms_per_wave"] = 1e3 * line["build_s"] / (-(-(n_sw - 1) // 64))
+        for ef in (96, 512):
+            found = torch.cat([idx.searcher(ef_search=ef)(Q_sw[lo:lo + BATCH])[1]
+                               for lo in range(0, 512, BATCH)])
+            line[f"recall@10_ef{ef}"] = recall_at_k(found, true_sw)
+        log("builder at large n: " + json.dumps(line))
+        del idx
+    del X_sw, Q_sw
+
+    lap("6 swgraph d=128")
+
+    # -- 7. sequential builder and reference engine ------------------------------------------
+    rng = np.random.default_rng(2)
+    data = lda_like_histograms(rng, 2_000 + 64, 16, device="cuda")
+    X_seq, Q_seq = data[:2_000], data[2_000:]
+    t0 = time.perf_counter()
+    adj_seq, _ = build_swgraph(kl, X_seq, NN=8, ef_construction=40)
+    torch.cuda.synchronize()
+    t_seq = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    adj_w1, _ = build_swgraph_wave(kl, X_seq, NN=8, ef_construction=40, wave=1)
+    torch.cuda.synchronize()
+    t_w1 = time.perf_counter() - t0
+    same = float((adj_seq == adj_w1).float().mean())
+    log(f"sequential vs W=1 n=2000 d=16: {t_seq:.3f} s vs {t_w1:.3f} s, "
+        f"equal entries {same:.6f}")
+    if not torch.equal(adj_seq, adj_w1):
+        raise AssertionError("W=1 wave build differs from the sequential build on the card")
+    ref = make_batched_searcher(kl, adj_seq, X_seq, 48, 10, entry=0)(Q_seq)
+    bat = make_step_searcher(kl, adj_seq, X_seq, 48, 10,
+                             entries=torch.zeros((1,), dtype=torch.int32, device="cuda"),
+                             frontier=1)(Q_seq)
+    log("reference vs batched (frontier 1, entry 0): ids equal "
+        f"{float((ref[1] == bat[1]).float().mean()):.6f}, n_evals equal "
+        f"{float((ref[2] == bat[2]).float().mean()):.6f}, hops equal "
+        f"{float((ref[3] == bat[3]).float().mean()):.6f}")
+    for label, a, b in zip(("ids", "n_evals", "hops"), ref[1:], bat[1:]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"reference and batched engines differ in {label}")
+
+    lap("7 sequential and reference")
+
+    # -- 8. build_sharded in a one-rank NCCL group ---------------------------------------------
+    rng = np.random.default_rng(0)  # the serve-default data
+    data = lda_like_histograms(rng, 20_000 + 256, 32, device="cuda")
+    _, rest = split_queries(data, 256, rng)
+    X_sh = rest[:20_000]
+    torch.cuda.set_device(0)
+    tdist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                             world_size=1)
+    try:
+        ops.reset_launch_counts()
+        stitched = build_sharded(kl, X_sh, NN=15, builder="wave", wave=64, cross_links=4,
+                                 sample_per_shard=64,
+                                 generator=torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        sharded_launches = ops.launch_counts()
+    finally:
+        tdist.destroy_process_group()
+    log(f"build_sharded world 1 n=20000 d=32: shape {tuple(stitched.shape)}, "
+        f"launches {sharded_launches}")
+    if sharded_launches["distance_matrix"] < 1:
+        raise AssertionError("build_sharded did not launch distance_matrix")
+    if not bool((stitched[:, -4:] == -1).all()):
+        raise AssertionError("a one-shard build made a cross link")
+    local, _ = build_swgraph_wave(kl, X_sh, NN=15, wave=64)
+    if not torch.equal(stitched[:, :-4], local):
+        raise AssertionError("build_sharded's local part differs from build_swgraph_wave")
+    del data, rest
+
+    lap("8 build_sharded")
+
+    # -- 9. the NN-descent main path at full size --------------------------------------------
+    ops.reset_launch_counts()
     full = build_and_serve(spec=full_spec, n_db=N_FULL, dim=D_FULL, n_queries=Q_FULL,
                            batch=BATCH, alpha=0.08, device="cuda", verbose=False)
-    launches = frontier_scores.launches
+    launches = ops.launch_counts()["frontier_scores"]
     log("main path n=1000000 d=128: " + json.dumps(
         {k: v for k, v in full.items() if k != "spec"}))
     log(f"main path launches: {launches} (build {full['build_kernel_launches']}, timed "
@@ -270,13 +534,15 @@ def main() -> int:
     if not full["recall@k"] > 0.5:
         raise AssertionError(f"recall@10 {full['recall@k']} <= 0.5 at n=1e6")
 
-    # -- 6. timing at the main path's shapes ---------------------------------------------
+    lap("9 main path")
+
+    # -- 10. timing at the paths' shapes ----------------------------------------------------
     rng = np.random.default_rng(0)  # the data build_and_serve drew for the same seed
     data = lda_like_histograms(rng, N_FULL + Q_FULL, D_FULL, device="cuda")
     Q, rest = split_queries(data, Q_FULL, rng)
     X = rest[:N_FULL]
     del data, rest
-    dist = get_distance("kl")
+    dist = kl
     x_rep, x_bias = dist.prep_left(X).contiguous(), dist.bias_left(X).contiguous()
     qa_rep, qa_bias = dist.prep_right(X).contiguous(), dist.bias_right(X).contiguous()
 
@@ -309,15 +575,81 @@ def main() -> int:
         row["plain_event_ms"] = time_ms(plain, sub, 64 if sets > 1 else 5)
         if rows < B:
             row["kernel_ms_same_rows"] = device_ms(kernel, sub, 20)
+        if (B, R) == (64, 240):
+            # gather_scores: the same function, one warp per cell, on the same ids
+            gs = lambda ids, q_rep, q_bias: gather_scores(  # noqa: E731
+                ids, q_rep, q_bias, x_rep, x_bias, dist.post_id, dist.c0)
+            gs_row = {"shape": "search block B=64 M=240 m'=128 (frontier_scores' ids)",
+                      "B": B, "R": R, "ms": device_ms(gs, args, reps),
+                      "ms_again": device_ms(gs, args, reps), "event_ms": time_ms(gs, args, reps),
+                      "bound_ms": b_ms, "bound_by": b_by, "plain_ms": row["plain_ms"],
+                      "frontier_scores_ms": row["ms"]}
         timings.append(row)
         log(f"time {label}: " + json.dumps(row))
         del args, sub
 
-    # -- 7. profile one full-size build and one search batch -----------------------------
+    # gather_scores at its own path's shape: the wave build's reverse edges,
+    # 960 (owner, candidate) cells at the serve data's m' = 32
+    X32 = X_sh
+    xr32, xb32 = dist.prep_left(X32).contiguous(), dist.bias_left(X32).contiguous()
+    qr32, qb32 = dist.prep_right(X32).contiguous(), dist.bias_right(X32).contiguous()
+    rev_args = []
+    for _ in range(32):
+        owners = torch.randint(0, X32.shape[0], (960,), generator=gen, device="cuda")
+        rev_args.append((random_ids(gen, 960, 1, X32.shape[0], pad=0.0),
+                         qr32[owners].contiguous(), qb32[owners].contiguous()))
+
+    def gs_rev(ids, q_rep, q_bias):
+        return gather_scores(ids, q_rep, q_bias, xr32, xb32, dist.post_id, dist.c0)
+
+    def gs_rev_plain(ids, q_rep, q_bias):
+        return gather_scores_ref(ids, q_rep, xr32, q_bias, xb32, dist.post_id, dist.c0)
+
+    b_ms, b_by, _ = bound(rev_args[0][0], 32)
+    gs_path = {"shape": "wave-build reverse edges B=960 M=1 m'=32", "B": 960, "R": 1,
+               "ms": device_ms(gs_rev, rev_args, 320), "event_ms": time_ms(gs_rev, rev_args, 320),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "plain_ms": device_ms(gs_rev_plain, rev_args, 64),
+               "plain_event_ms": time_ms(gs_rev_plain, rev_args, 64)}
+    log("time gather_scores " + json.dumps(gs_path))
+    log("time gather_scores " + json.dumps(gs_row))
+
+    # distance_matrix: build_sharded's stitch (its path), a knn_scan chunk, 512 rows
+    dm_rows = []
+    stitch = (X_sh.shape[0], 64, 32)
+    for label, (B, N, m), src_q, src_x in [
+            ("build_sharded stitch", stitch, X_sh, X_sh[:64]),
+            ("knn_scan chunk", (1024, 8192, D_FULL), Q, X[:8192]),
+            ("bench_kernels", (512, 8192, D_FULL), Q[:512], X[8192:16384])]:
+        q_rep, x_rep_t = dist.prep_right(src_q).contiguous(), dist.prep_left(src_x).contiguous()
+        q_b, x_b = dist.bias_right(src_q).contiguous(), dist.bias_left(src_x).contiguous()
+        args = [(q_rep, x_rep_t, q_b, x_b)]
+        dm = lambda a, b, c, d: distance_matrix(a, b, c, d, dist.post_id, dist.c0)  # noqa: E731
+        dm_plain = lambda a, b, c, d: distance_matrix_ref(  # noqa: E731
+            a, b, c, d, dist.post_id, dist.c0)
+
+        def library(a, b, c, d):
+            with exact_float32_matmul():
+                return torch.matmul(a, b.T)
+
+        b_ms, b_by = dm_bound(B, N, m)
+        row = {"shape": f"{label} {B}x{N}x{m}", "B": B, "N": N, "m": m,
+               "ms": device_ms(dm, args, 50), "ms_again": device_ms(dm, args, 50),
+               "event_ms": time_ms(dm, args, 50), "bound_ms": b_ms, "bound_by": b_by,
+               "plain_ms": device_ms(dm_plain, args, 50),
+               "plain_event_ms": time_ms(dm_plain, args, 50),
+               "library_ms": device_ms(library, args, 50),
+               "library_event_ms": time_ms(library, args, 50)}
+        dm_rows.append(row)
+        log("time distance_matrix " + json.dumps(row))
+
+    lap("10 timing")
+
+    # -- 11. profiles ---------------------------------------------------------------------------
     built = {}
     profile_device(lambda: built.setdefault("idx", ANNIndex.build(
         X, spec=full_spec, generator=torch.Generator(device="cuda").manual_seed(0))),
-        "build n=1e6")
+        "NN-descent build n=1e6")
     search = built["idx"].searcher()
     search(Q[:BATCH])
     out = {}
@@ -328,41 +660,94 @@ def main() -> int:
         raise AssertionError("search results are not finite (64, k) beams")
     log(f"profiled batch: {int(hops.max())} lock-steps, {float(n_evals.float().mean()):.1f} "
         f"evals per query")
+    # one SW-graph wave build: 32 waves of 64 at d = 128
+    profile_device(lambda: build_swgraph_wave(kl, X[:1 + 32 * 64], NN=15, wave=64),
+                   "SW-graph wave build n=2049 d=128 (32 waves of 64)")
 
-    # -- 8. graph quality: why the full-size cell doubles NN ----------------------------
-    probe = torch.arange(0, N_FULL, N_FULL // 512, device="cuda")[:512]
-    _, true_q = knn_scan(dist, Q[:512], X, 10)
+    lap("11 profiles")
+
+    # -- 12. graph quality: why the full-size cell doubles NN ----------------------------
+    Xg = X[:GRAPH_QUALITY_N]
+    probe = torch.arange(0, GRAPH_QUALITY_N, GRAPH_QUALITY_N // 512, device="cuda")[:512]
+    _, true_q = knn_scan(dist, Q[:512], Xg, 10)
     for nn in (15, full_spec.NN):
         spec = full_spec.replace(NN=nn)
-        idx = built["idx"] if nn == full_spec.NN else ANNIndex.build(
-            X, spec=spec, generator=torch.Generator(device="cuda").manual_seed(0))
-        _, true_nb = knn_scan(dist, X[probe], X, nn + 1)
+        if nn == full_spec.NN and GRAPH_QUALITY_N == N_FULL:
+            idx = built["idx"]
+        else:
+            idx = ANNIndex.build(Xg, spec=spec,
+                                 generator=torch.Generator(device="cuda").manual_seed(0))
+        _, true_nb = knn_scan(dist, Xg[probe], Xg, nn + 1)
         hits = 0
         for p, t, g in zip(probe.tolist(), true_nb.tolist(), idx.neighbors[probe, :nn].tolist()):
             hits += len(set([v for v in t if v != p][:nn]) & set(g))
-        line = {"NN": nn, "nnd_iters": spec.nnd_iters, "graph_recall@NN": hits / (nn * 512)}
+        line = {"n": GRAPH_QUALITY_N, "NN": nn, "nnd_iters": spec.nnd_iters,
+                "graph_recall@NN": hits / (nn * 512)}
         for ef in (96, 512):
             _, found, evals, _ = idx.searcher(ef_search=ef)(Q[:512])
             line[f"recall@10_ef{ef}"] = recall_at_k(found, true_q)
             line[f"evals_ef{ef}"] = float(evals.float().mean())
-        log("graph quality n=1e6 d=128: " + json.dumps(line))
+        log("graph quality d=128: " + json.dumps(line))
+
+    lap("12 graph quality")
+
+    def err_of(kernel_name):
+        return max(v for k, v in max_err.items() if k[0] == kernel_name and k[1] == "kl")
+
+    def all_err(kernel_name):
+        return max(v for k, v in max_err.items() if k[0] == kernel_name)
 
     main_row = timings[0]
+    dm_main = dm_rows[0]
     kernels = [{
         "name": "frontier_scores",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/frontier_gather.cu",
         "replaces": "src/repro/kernels/frontier_gather.py:95",
         "launches": launches,
-        "max_abs_err": max(v for (name, _, _), v in max_err.items() if name == "kl"),
+        "max_abs_err": err_of("frontier_scores"),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": None,
         "shape": main_row["shape"],
-        "max_abs_err_all_distances": max(max_err.values()),
+        "path": "NN-descent main path, n=1e6 (phase 9)",
+        "max_abs_err_all_distances": all_err("frontier_scores"),
         "other_shapes": timings[1:],
+    }, {
+        "name": "distance_matrix",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/distance_matrix.cu",
+        "replaces": "src/repro/kernels/distance_matrix.py:119",
+        "launches": sharded_launches["distance_matrix"],
+        "max_abs_err": err_of("distance_matrix"),
+        "ms": dm_main["ms"],
+        "plain_ms": dm_main["plain_ms"],
+        "bound_ms": dm_main["bound_ms"],
+        "bound_by": dm_main["bound_by"],
+        "library_ms": dm_main["library_ms"],
+        "library": "torch.matmul, TF32 off, without the epilogue",
+        "shape": dm_main["shape"],
+        "path": "build_sharded, world size 1, n=20000 d=32 (phase 8)",
+        "max_abs_err_all_distances": all_err("distance_matrix"),
+        "other_shapes": dm_rows[1:],
+    }, {
+        "name": "gather_scores",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gather_topk.cu",
+        "replaces": "src/repro/kernels/gather_topk.py:79",
+        "launches": sw_launches["gather_scores"],
+        "max_abs_err": err_of("gather_scores"),
+        "ms": gs_path["ms"],
+        "plain_ms": gs_path["plain_ms"],
+        "bound_ms": gs_path["bound_ms"],
+        "bound_by": gs_path["bound_by"],
+        "library_ms": None,
+        "shape": gs_path["shape"],
+        "path": "SW-graph wave build at the serve defaults (phase 5)",
+        "max_abs_err_all_distances": all_err("gather_scores"),
+        "other_shapes": [gs_row],
     }]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)

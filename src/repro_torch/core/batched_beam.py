@@ -6,7 +6,7 @@ All B queries advance in lock-step.  Each step:
   2. their neighbor rows are gathered as one (B, frontier*M) id block,
   3. the block is scored in one fused call (the CUDA frontier-gather kernel
      on the card, its plain PyTorch version on the CPU),
-  4. a batched (B, ef + C) bitonic merge refreshes every beam,
+  4. a batched (B, ef + C) stable merge refreshes every beam,
   5. per-query convergence masking freezes finished queries.
 
 The loop is a Python loop that reads ``done.all()`` once per step.  Every
@@ -86,37 +86,65 @@ def select_entries(dist, X, n_entries: int = 4, generator=None, sample: int = 25
 # ---------------------------------------------------------------------------
 
 
-def _pack_bits(ids, nw: int):
-    """(nw,) int32 words with bit v set for every v in ``ids`` (repeats allowed)."""
-    mask = torch.zeros(nw * 32, dtype=torch.bool, device=ids.device)
-    mask[ids.long()] = True
-    lanes = torch.ones(32, dtype=torch.int32, device=ids.device) << torch.arange(
-        32, dtype=torch.int32, device=ids.device)
+def _pack_mask(mask, nw: int):
+    """(nw,) int32 words with bit v set where ``mask[v]`` ((nw * 32,) bool)."""
+    lanes = torch.ones(32, dtype=torch.int32, device=mask.device) << torch.arange(
+        32, dtype=torch.int32, device=mask.device)
     # distinct bits: the int64 sum of the 32 lanes is their OR, and it fits int32
     return torch.where(mask.view(nw, 32), lanes, 0).sum(dim=1).to(torch.int32)
 
 
-def seed_beams(score_rows, entries, B: int, ef: int, n: int) -> BatchBeamState:
-    """Score the shared entry nodes for B queries and seed their beams."""
+def _pack_bits(ids, nw: int):
+    """(nw,) int32 words with bit v set for every v in ``ids`` (repeats allowed)."""
+    mask = torch.zeros(nw * 32, dtype=torch.bool, device=ids.device)
+    mask[ids.long()] = True
+    return _pack_mask(mask, nw)
+
+
+def seed_beams(score_rows, entries, B: int, ef: int, n: int,
+               n_active=None) -> BatchBeamState:
+    """Score the shared entry nodes for B queries and seed their beams.
+
+    ``n_active`` (a 0-d int tensor on the entries' device, or None) makes
+    only nodes < n_active searchable: every node >= n_active is pre-marked
+    visited in the packed bitset, and an entry >= n_active seeds as
+    (inf, -1) padding that is never expanded.  A tensor, not an int, so the
+    wave builder can move it every wave without a host sync.
+    """
     E = entries.shape[0]
     dev = entries.device
+    masked = n_active is not None
     d0 = score_rows(entries[None, :].expand(B, E).contiguous()).float()
+    if masked:
+        entry_ok = entries < n_active
+        d0 = torch.where(entry_ok[None, :], d0, INF)
     d0_sorted, order0 = _smallest(d0, min(E, ef))
     take = d0_sorted.shape[1]
+    i0_sorted = entries[order0].to(torch.int32)
+    if masked:
+        i0_sorted = torch.where(torch.isfinite(d0_sorted), i0_sorted, -1)
     beam_d = torch.full((B, ef), INF, dtype=torch.float32, device=dev)
     beam_d[:, :take] = d0_sorted
     beam_i = torch.full((B, ef), -1, dtype=torch.int32, device=dev)
-    beam_i[:, :take] = entries[order0].to(torch.int32)
+    beam_i[:, :take] = i0_sorted
     expanded = torch.ones((B, ef), dtype=torch.bool, device=dev)
-    expanded[:, :take] = False
+    expanded[:, :take] = ~torch.isfinite(d0_sorted) if masked else False
     nw = -(-n // 32)
-    visited = _pack_bits(entries, nw).expand(B, nw).contiguous()
+    seed = _pack_bits(entries, nw)
+    if masked:
+        blocked = torch.arange(nw * 32, device=dev) >= n_active
+        seed = seed | _pack_mask(blocked, nw)
+    visited = seed.expand(B, nw).contiguous()
+    if masked:
+        n_evals0 = entry_ok.sum(dtype=torch.int32).expand(B).contiguous()
+    else:
+        n_evals0 = torch.full((B,), E, dtype=torch.int32, device=dev)
     return BatchBeamState(
         beam_d,
         beam_i,
         expanded,
         visited,
-        torch.full((B,), E, dtype=torch.int32, device=dev),
+        n_evals0,
         torch.zeros((B,), dtype=torch.int32, device=dev),
         torch.zeros((B,), dtype=torch.bool, device=dev),
     )
@@ -188,7 +216,7 @@ def beam_step(st: BatchBeamState, neighbors, score_rows, ef: int, T: int, C: int
     step_mask = torch.zeros_like(st.visited).scatter_add_(1, (safe_kept // 32).long(), bits)
     visited = st.visited | step_mask
 
-    beam_d, beam_i, beam_e = _bitonic_merge(
+    beam_d, beam_i, beam_e = _merge_beams(
         (st.beam_d, st.beam_i, expanded), (kept_d, kept_i, ~kept_ok), ef
     )
     return BatchBeamState(
@@ -231,13 +259,16 @@ def adaptive_width_update(core: BatchBeamState, t_cur, stall, worst, T: int,
 
 def batched_beam_search(neighbors, score_rows, entries, B: int, ef: int,
                         max_steps: int | None = None, frontier: int = 1,
-                        compact: int = 32, adaptive: bool = False, patience: int = 1):
+                        compact: int = 32, n_active=None, adaptive: bool = False,
+                        patience: int = 1):
     """Run B queries to convergence in lock-step.  Returns BatchBeamState.
 
     ``score_rows`` maps (B, R) int32 ids to (B, R) float32 left-query
     distances; invalid slots in its output are masked here, so it may score
-    placeholder id 0 freely.  ``adaptive=True`` carries the per-query
-    frontier width (``frontier`` becomes its maximum).
+    placeholder id 0 freely.  ``n_active`` (0-d int tensor) searches only
+    the prefix of nodes < n_active, as the wave builder does against the
+    frozen prefix graph (see ``seed_beams``).  ``adaptive=True`` carries the
+    per-query frontier width (``frontier`` becomes its maximum).
     """
     n, M = neighbors.shape
     if frontier < 1:
@@ -245,7 +276,7 @@ def batched_beam_search(neighbors, score_rows, entries, B: int, ef: int,
     T = min(frontier, ef)
     if max_steps is None:
         max_steps = n
-    st = seed_beams(score_rows, entries, B, ef, n)
+    st = seed_beams(score_rows, entries, B, ef, n, n_active=n_active)
     C = frontier_compact_width(T, M, compact)
     dev = st.beam_d.device
     if adaptive:
@@ -262,52 +293,23 @@ def batched_beam_search(neighbors, score_rows, entries, B: int, ef: int,
     return st
 
 
-def _bitonic_merge(beam, kept, ef: int):
+def _merge_beams(beam, kept, ef: int):
     """Merge a sorted (B, ef) beam with sorted (B, C) candidates, keep ef.
 
-    Both inputs are ascending by (distance, position); the output is the
-    first ef entries of their stable merge (ties resolved beam-first, then
-    candidate order), run as a log2(W)-stage compare-exchange network.
+    The first ef entries of the stable sort of [beam | candidates] by
+    distance: ties resolve beam-first, then in candidate order, exactly as
+    the JAX engine's bitonic network with (distance, position) keys.  A
+    compare-exchange network of log2(ef + C) stages is ~30 small kernels
+    per stage here, which made it most of a lock-step's host time; the
+    sort is a handful.
     """
     beam_d, beam_i, beam_e = beam
     kept_d, kept_i, kept_e = kept
-    B, C = kept_d.shape
-    dev = kept_d.device
-    W = 1 << (ef + C - 1).bit_length()
-    pad = W - ef - C
-
-    # positions double as stable tie-breakers: beam 0..ef-1, candidates
-    # ef..ef+C-1, padding last
-    pos_b = torch.arange(ef, dtype=torch.int32, device=dev).expand(B, ef)
-    pos_k = torch.arange(ef, ef + C, dtype=torch.int32, device=dev).expand(B, C)
-
-    def cat(b, k, fill):
-        p = torch.full((B, pad), fill, dtype=k.dtype, device=dev)
-        # ascending beam | descending (padded) candidates = bitonic sequence
-        return torch.cat([b, torch.flip(torch.cat([k, p], dim=1), dims=[1])], dim=1)
-
-    d = cat(beam_d, kept_d, INF)
-    i = cat(beam_i, kept_i, -1)
-    e = cat(beam_e, kept_e, True)
-    p = cat(pos_b, pos_k, W)
-
-    s = W // 2
-    while s >= 1:
-        shape = (B, W // (2 * s), 2, s)
-        dr, ir, er, pr = (a.reshape(shape) for a in (d, i, e, p))
-        a_d, b_d = dr[:, :, 0], dr[:, :, 1]
-        a_p, b_p = pr[:, :, 0], pr[:, :, 1]
-        swap = (a_d > b_d) | ((a_d == b_d) & (a_p > b_p))
-
-        def cx(ar, sw=swap):
-            lo = torch.where(sw, ar[:, :, 1], ar[:, :, 0])
-            hi = torch.where(sw, ar[:, :, 0], ar[:, :, 1])
-            return torch.stack([lo, hi], dim=2)
-
-        d, i, e, p = (cx(a).reshape(B, W) for a in (dr, ir, er, pr))
-        s //= 2
-
-    return d[:, :ef], i[:, :ef], e[:, :ef]
+    d = torch.cat([beam_d, kept_d], dim=1)
+    order = torch.sort(d, dim=1, stable=True).indices[:, :ef]
+    return (torch.gather(d, 1, order),
+            torch.gather(torch.cat([beam_i, kept_i], dim=1), 1, order),
+            torch.gather(torch.cat([beam_e, kept_e], dim=1), 1, order))
 
 
 # ---------------------------------------------------------------------------

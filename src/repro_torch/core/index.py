@@ -4,8 +4,10 @@
     idx = ANNIndex.build(X, spec=spec)      # X on the card (or the CPU)
     dists, ids, n_evals, hops = idx.searcher()(Q)
 
-This slice builds with NN-descent and searches with the batched engine
-under the original distance.  The other builders, engines and modes of
+Builders: NN-descent, and SW-graph with the wave-parallel or the
+sequential engine.  Engines: the batched lock-step engine and the
+single-query reference engine, both under the original distance.  The
+symmetrized policies, rerank, online mutation and the scheduler of
 ``repro`` raise ``NotImplementedError`` naming the ROADMAP item that ports
 them.
 """
@@ -18,20 +20,18 @@ from typing import Optional
 import torch
 
 from repro_torch.core.batched_beam import make_step_searcher, select_entries
+from repro_torch.core.beam_search import make_batched_searcher
+from repro_torch.core.build_engine import build_swgraph_wave
 from repro_torch.core.nndescent import build_nndescent
 from repro_torch.core.spec import RetrievalSpec
+from repro_torch.core.swgraph import build_swgraph
 
-_ITEM_SWGRAPH = "ROADMAP items M5 and M7 (beam_search.py, swgraph.py, build_engine.py)"
 _ITEM_RERANK = "ROADMAP item M8 (symmetrize.py policies, filter_refine.py rerank)"
 _ITEM_ONLINE = "ROADMAP item M11 (online.py)"
 _ITEM_SCHEDULER = "ROADMAP item M12 (scheduler.py)"
 
 
 def check_supported(spec: RetrievalSpec) -> None:
-    if spec.builder == "swgraph":
-        raise NotImplementedError(f"builder='swgraph' is not ported yet: {_ITEM_SWGRAPH}")
-    if spec.engine == "reference":
-        raise NotImplementedError(f"engine='reference' is not ported yet: {_ITEM_SWGRAPH}")
     if spec.needs_rerank:
         raise NotImplementedError(
             f"search_policy {str(spec.search_policy)!r} (rerank) is not ported yet: "
@@ -54,6 +54,11 @@ class ANNIndex:
     build_dist: object = None  # index-time distance
     spec: RetrievalSpec = dataclasses.field(default_factory=RetrievalSpec)
 
+    @property
+    def entry(self) -> int:
+        """Primary entry node (the medoid when entries were selected)."""
+        return 0 if self.entries is None else int(self.entries[0])
+
     @classmethod
     def build(cls, X, dist=None, *, spec: Optional[RetrievalSpec] = None,
               generator: Optional[torch.Generator] = None) -> "ANNIndex":
@@ -64,7 +69,8 @@ class ANNIndex:
             dist: optional explicit base distance; otherwise ``spec.distance``.
             spec: the scenario (defaults to ``RetrievalSpec()``).
             generator: ``torch.Generator`` on X's device for the NN-descent
-                and entry-point draws (a fixed seed 0 when omitted).
+                and entry-point draws (a fixed seed 0 when omitted); the
+                SW-graph builders draw nothing.
         """
         spec = spec if spec is not None else RetrievalSpec()
         check_supported(spec)
@@ -75,9 +81,20 @@ class ANNIndex:
         build_dist = spec.build_policy.bind(dist)
         search_dist = dist
 
-        neighbors, degrees = build_nndescent(
-            build_dist, X, generator, K=spec.NN, iters=spec.nnd_iters, M_out=spec.M_max,
-        )
+        if spec.builder == "swgraph" and spec.build_engine == "wave":
+            neighbors, degrees = build_swgraph_wave(
+                build_dist, X, NN=spec.NN, ef_construction=spec.ef_construction,
+                M_max=spec.M_max, wave=spec.wave, frontier=spec.build_frontier,
+            )
+        elif spec.builder == "swgraph":
+            neighbors, degrees = build_swgraph(
+                build_dist, X, NN=spec.NN, ef_construction=spec.ef_construction,
+                M_max=spec.M_max,
+            )
+        else:
+            neighbors, degrees = build_nndescent(
+                build_dist, X, generator, K=spec.NN, iters=spec.nnd_iters, M_out=spec.M_max,
+            )
         entries = select_entries(search_dist, X, n_entries=spec.n_entries, generator=generator)
         return cls(
             X=X,
@@ -117,13 +134,16 @@ class ANNIndex:
         frontier = spec.frontier if frontier is None else frontier
         adaptive = spec.adaptive if adaptive is None else adaptive
         patience = spec.patience if patience is None else patience
-        if engine == "reference":
-            raise NotImplementedError(f"engine='reference' is not ported yet: {_ITEM_SWGRAPH}")
-        if engine != "batched":
+        if engine not in ("batched", "reference"):
             raise ValueError(f"unknown engine {engine!r}; known: batched, reference")
         if k_c is not None or self.query_sym != "none":
             raise NotImplementedError(f"rerank (k_c) is not ported yet: {_ITEM_RERANK}")
         ef = max(ef_search, k)
+        if engine == "reference":
+            if adaptive:
+                raise ValueError("adaptive frontier requires engine='batched'")
+            return make_batched_searcher(self.dist, self.neighbors, self.X, ef, k,
+                                         entry=self.entry)
         return make_step_searcher(self.dist, self.neighbors, self.X, ef, k,
                                   entries=self.entries, frontier=frontier,
                                   adaptive=adaptive, patience=patience)
@@ -142,11 +162,12 @@ class ANNIndex:
 
 
 def make_build_info(spec: RetrievalSpec, degrees) -> dict:
-    """``build_info`` with the keys ``repro`` records for an NN-descent build."""
+    """``build_info`` with the keys and values ``repro`` records for ``spec``."""
+    swgraph = spec.builder == "swgraph"
     return dict(
         builder=spec.builder,
-        build_engine="nndescent",
-        wave=None,
+        build_engine=spec.build_engine if swgraph else "nndescent",
+        wave=spec.wave if swgraph and spec.build_engine == "wave" else None,
         index_sym=str(spec.build_policy),
         query_sym=str(spec.search_policy),
         index_sym_resolved=str(spec.build_policy),

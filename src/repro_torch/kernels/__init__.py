@@ -2,4 +2,15 @@
 
 Importing this package needs no ``nvcc`` and no card: a kernel is built by
 ``repro_torch.kernels.build`` the first time a CUDA tensor reaches it.
+
+distance_matrix: tiled (B, N) distance block with the fused post-combine
+gather_topk:     per-(query, candidate) gather + score, one warp per cell
+frontier_gather: per-query gather + score for the beam engine's lock-step
+ops:             dispatch by the tensor's device
+ref:             the plain PyTorch versions every kernel is held to
 """
+
+from repro_torch.kernels.ops import (beam_gather_scores, frontier_gather_scores,
+                                     query_distance_matrix)
+
+__all__ = ["beam_gather_scores", "frontier_gather_scores", "query_distance_matrix"]

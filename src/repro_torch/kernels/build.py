@@ -76,6 +76,22 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build(name)))
 
 
+def check_tensor(name, t, dtype, shape, device):
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on ``device``.
+
+    ``dtype`` may be a tuple of accepted types.
+    """
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    accepted = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in accepted:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {' or '.join(map(str, accepted))}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
 def build_log(name: str) -> str:
     """The nvcc command and ptxas report of the last build of ``name``."""
     log = library_path(name).with_suffix(".log")

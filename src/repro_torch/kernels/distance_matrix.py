@@ -1,0 +1,73 @@
+"""Tiled distance matrix with the fused post-combine on the card (CUDA C++
+for ``sm_90a``).
+
+Replaces the TPU kernel ``src/repro/kernels/distance_matrix.py::distance_matrix``
+(Pallas ``_kernel_whole_k`` / ``_kernel_tiled_k``, ``pallas_call`` at :119
+and :138).  A 64 x 64 output tile per block, k staged through shared memory
+in chunks of 32, a 4 x 4 float32 FMA register tile per thread, the
+post-combine in the epilogue; ragged B, N and m' are bounds-checked.
+
+Bound: float32 operations (2 B N m' flops at 67 TFLOP/s) at the shapes of
+``build_sharded``'s stitch and of a ``knn_scan`` chunk.  Design and source:
+``csrc/distance_matrix.cu``.
+
+The wrapper launches on the current stream and does not synchronise; it
+counts its launches in ``distance_matrix.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.build import check_tensor, load
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _lib():
+    fn = load("distance_matrix").distance_matrix_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float,
+                                                                    ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def distance_matrix(q_rep, x_rep, q_bias, x_bias, post_id: int, c0: float = 0.0):
+    """(B, N) float32 left-query distances D[b, i] = post(q_rep[b] . x_rep[i]).
+
+    q_rep (B, m') and x_rep (N, m') both float32 or both bfloat16; q_bias (B,)
+    and x_bias (N,) float32; all contiguous and on one CUDA device.
+    """
+    device = q_rep.device
+    if device.type != "cuda":
+        raise ValueError(f"distance_matrix launches a CUDA kernel; q_rep is on {device}")
+    if q_rep.dim() != 2 or x_rep.dim() != 2:
+        raise ValueError("q_rep and x_rep must be 2-D")
+    B, m = q_rep.shape
+    N = x_rep.shape[0]
+    check_tensor("q_rep", q_rep, tuple(_DTYPES), (B, m), device)
+    check_tensor("x_rep", x_rep, q_rep.dtype, (N, m), device)
+    check_tensor("q_bias", q_bias, torch.float32, (B,), device)
+    check_tensor("x_bias", x_bias, torch.float32, (N,), device)
+    if post_id not in (0, 1, 2, 3):
+        raise ValueError(f"unknown post id {post_id}")
+    if -(-B // 64) > 65535:
+        raise ValueError(f"B={B} exceeds the kernel's grid ({65535 * 64} query rows)")
+    out = torch.empty((B, N), dtype=torch.float32, device=device)
+    if B == 0 or N == 0:
+        return out
+    fn = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(q_rep.data_ptr(), x_rep.data_ptr(), q_bias.data_ptr(), x_bias.data_ptr(),
+                 out.data_ptr(), B, N, m, _DTYPES[q_rep.dtype], post_id, c0, stream)
+    if err != 0:
+        raise RuntimeError(f"distance_matrix launch failed: cudaError_t {err}")
+    distance_matrix.launches += 1
+    return out
+
+
+distance_matrix.launches = 0

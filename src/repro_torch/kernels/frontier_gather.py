@@ -20,6 +20,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.build import check_tensor as _check
 from repro_torch.kernels.build import load
 
 
@@ -31,17 +32,6 @@ def _lib():
                                                                     ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
-
-
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def frontier_scores(ids, q_rep, q_bias, x_rep, x_bias, post_id: int, c0: float = 0.0):

@@ -7,13 +7,47 @@ kernel, and the kernel computes the gathered dot product + post-combine.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch.core.distances import apply_post
 
 
+@contextlib.contextmanager
+def exact_float32_matmul():
+    """Full float32 matmuls (no TF32) inside the block; the caller's setting after.
+
+    TF32 keeps about three decimal digits, too few for an oracle held to 1e-5.
+    """
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    precision = torch.get_float32_matmul_precision()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(precision)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def distance_matrix_ref(q_rep, x_rep, q_bias, x_bias, post_id: int, c0: float = 0.0):
+    """(B, N) float32 left-query distances from prepped reps: the plain
+    ``distance_matrix``.
+
+    q_rep (B, m') = prep_right(Q); x_rep (N, m') = prep_left(X); q_bias (B,),
+    x_bias (N,) the matching biases.  D[b, i] = post(q_rep[b] . x_rep[i],
+    bias_l=x_bias[i], bias_r=q_bias[b]).  bf16 reps are widened to float32
+    first; the output is always float32.
+    """
+    with exact_float32_matmul():
+        s = q_rep.float() @ x_rep.float().T
+    return apply_post(post_id, s, x_bias[None, :].float(), q_bias[:, None].float(), c0)
+
+
 def gather_scores_ref(ids, q_rep, x_rep, q_bias, x_bias, post_id: int, c0: float = 0.0):
-    """Distances of gathered rows per query: the plain ``frontier_scores``.
+    """Distances of gathered rows per query: the plain ``frontier_scores``
+    and the plain ``gather_scores`` (one function, two kernels).
 
     ids (B, R) int row indices into x_rep (n, m'); -1 = padding -> +inf.
     Returns (B, R) float32 left-query distances d(x[ids[b, r]], q[b]).

@@ -1,10 +1,12 @@
 """Retrieval serving driver (PyTorch port of ``repro.launch.serve``, static batches).
 
-Builds an NN-descent index over LDA-like histograms, answers the held-out
-queries in fixed batches through the batched beam engine, and scores them
+Builds an index over LDA-like histograms (NN-descent, or SW-graph with the
+wave or the sequential engine), answers the held-out queries in fixed
+batches through the batched or the reference engine, and scores them
 against an exact scan:
 
     python -m repro_torch.launch.serve --n-db 20000 --dim 32 --queries 256 --batch 64
+    python -m repro_torch.launch.serve --builder swgraph --wave 64
 
 It runs on the card unless ``--device cpu`` is given.  The continuous,
 churn, QoS and sharded serving paths of ``repro`` are not in this slice.
@@ -26,7 +28,7 @@ from repro_torch.core.index import ANNIndex
 from repro_torch.core.metrics import recall_at_k, speedup_model
 from repro_torch.core.spec import RetrievalSpec
 from repro_torch.data.synthetic import lda_like_histograms, split_queries
-from repro_torch.kernels.frontier_gather import frontier_scores
+from repro_torch.kernels.ops import launch_counts
 
 
 def _sync(device: torch.device) -> None:
@@ -34,32 +36,41 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _since(counts0: dict) -> dict:
+    """Kernel launches by name since the ``launch_counts()`` snapshot ``counts0``."""
+    return {name: n - counts0[name] for name, n in launch_counts().items()}
+
+
 def build_and_serve(*, spec: RetrievalSpec | None = None, distance: str = "kl",
                     n_db: int = 20_000, dim: int = 32, n_queries: int = 256,
-                    batch: int = 64, k: int = 10, ef_search: int = 96, frontier: int = 4,
+                    batch: int = 64, k: int = 10, ef_search: int = 96,
+                    builder: str = "nndescent", build_engine: str = "wave", wave: int = 64,
+                    engine: str = "batched", frontier: int = 4,
                     n_entries: int = 4, alpha: float = 0.08, seed: int = 0,
                     device="cuda", verbose: bool = True) -> dict:
     """Build, warm, serve ``n_queries`` in batches of ``batch``, score.
 
-    ``spec`` is the whole scenario when given (its distance, k, ef_search
-    and frontier override the loose arguments); the other arguments are the
-    workload.  Returns the stats dict: build seconds, recall@k against
-    ``knn_scan``, distance-evaluation reduction, per-query and per-batch
-    latency percentiles, queries per second, and the frontier-gather kernel
-    launches made by the build and by the timed batches (0 on the CPU).
+    ``spec`` is the whole scenario when given (its distance, k, ef_search,
+    engine and frontier override the loose arguments); the other arguments
+    are the workload.  Returns the stats dict: build seconds, recall@k
+    against ``knn_scan``, distance-evaluation reduction, per-query and
+    per-batch latency percentiles, queries per second, and the CUDA kernel
+    launches made by the build and by the timed batches, in total and by
+    kernel (all 0 on the CPU).
     """
     dev = resolve_device(device)
     if spec is None:
         # the same scenario repro's serve driver records for these flags
         spec = RetrievalSpec(
-            distance=distance, build_policy="none", builder="nndescent",
-            build_engine="wave", wave=64, NN=15, ef_construction=100,
+            distance=distance, build_policy="none", builder=builder,
+            build_engine=build_engine, wave=wave, NN=15, ef_construction=100,
             n_entries=n_entries, capacity=None, k=k, ef_search=ef_search,
-            engine="batched", frontier=frontier, slots=48, sched_frontier=12,
+            engine=engine, frontier=frontier, slots=48, sched_frontier=12,
             adaptive=False, steps_per_sync=4,
         )
     else:
-        distance, k, ef_search, frontier = spec.distance, spec.k, spec.ef_search, spec.frontier
+        distance, k, ef_search = spec.distance, spec.k, spec.ef_search
+        engine, frontier = spec.engine, spec.frontier
     rng = np.random.default_rng(seed)
     data = lda_like_histograms(rng, n_db + n_queries, dim, alpha=alpha, device=dev)
     Q, rest = split_queries(data, n_queries, rng)
@@ -67,14 +78,14 @@ def build_and_serve(*, spec: RetrievalSpec | None = None, distance: str = "kl",
     dist = get_distance(distance)
     generator = torch.Generator(device=dev).manual_seed(seed)
 
-    launches0 = frontier_scores.launches
+    launches0 = launch_counts()
     t0 = time.perf_counter()
     idx = ANNIndex.build(X, dist, spec=spec, generator=generator)
     _sync(dev)
     build_s = time.perf_counter() - t0
-    build_launches = frontier_scores.launches - launches0
+    build_launches = _since(launches0)
 
-    search = idx.searcher(k, ef_search, engine="batched", frontier=frontier, adaptive=False)
+    search = idx.searcher(k, ef_search, engine=engine, frontier=frontier, adaptive=False)
     # warm every batch shape served (full batches plus a ragged tail)
     search(Q[:batch])
     if n_queries % batch:
@@ -83,7 +94,7 @@ def build_and_serve(*, spec: RetrievalSpec | None = None, distance: str = "kl",
 
     _, true_ids = knn_scan(dist, Q, X, k)
 
-    launches0 = frontier_scores.launches
+    launches0 = launch_counts()
     lat, batch_s, evals, all_ids = [], [], [], []
     t_all = time.perf_counter()
     for lo in range(0, n_queries, batch):
@@ -96,13 +107,15 @@ def build_and_serve(*, spec: RetrievalSpec | None = None, distance: str = "kl",
         evals.append(n_evals.cpu().numpy())
         all_ids.append(ids.cpu().numpy())
     serve_s = time.perf_counter() - t_all
-    search_launches = frontier_scores.launches - launches0
+    search_launches = _since(launches0)
 
     recall = recall_at_k(np.concatenate(all_ids), true_ids)
     stats = {
         "device": str(dev),
         "build_s": build_s,
-        "engine": "batched",
+        "builder": spec.builder,
+        "build_engine": idx.build_info["build_engine"],
+        "engine": engine,
         "served": n_queries,
         "recall@k": recall,
         "eval_reduction": speedup_model(n_db, np.concatenate(evals)),
@@ -111,8 +124,9 @@ def build_and_serve(*, spec: RetrievalSpec | None = None, distance: str = "kl",
         "p99_latency_ms": 1e3 * float(np.percentile(lat, 99)),
         "p50_batch_ms": 1e3 * float(np.percentile(batch_s, 50)),
         "p99_batch_ms": 1e3 * float(np.percentile(batch_s, 99)),
-        "build_kernel_launches": build_launches,
-        "search_kernel_launches": search_launches,
+        "build_kernel_launches": sum(build_launches.values()),
+        "search_kernel_launches": sum(search_launches.values()),
+        "kernel_launches": {"build": build_launches, "search": search_launches},
         "mean_degree": idx.build_info["mean_degree"],
         "spec": spec.to_dict(),
         "spec_fingerprint": spec.fingerprint(),
@@ -133,17 +147,26 @@ def main(argv=None) -> dict:
     ap.add_argument("--queries", type=int, default=256)
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--ef", type=int, default=96, dest="ef_search")
+    ap.add_argument("--builder", default="nndescent", choices=["nndescent", "swgraph"])
+    ap.add_argument("--build-engine", default="wave", choices=["wave", "sequential"],
+                    help="swgraph construction engine (wave-parallel vs reference)")
+    ap.add_argument("--wave", type=int, default=64,
+                    help="points inserted per construction wave (swgraph builder)")
+    ap.add_argument("--engine", default="batched", choices=["batched", "reference"])
     ap.add_argument("--frontier", type=int, default=4,
-                    help="beam candidates expanded per lock-step")
+                    help="beam candidates expanded per lock-step (batched engine)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--spec", default=None,
                     help="RetrievalSpec JSON (a path or the JSON text); it replaces "
-                         "--distance/--ef/--frontier")
+                         "--distance/--ef/--builder/--build-engine/--wave/--engine/"
+                         "--frontier")
     args = ap.parse_args(argv)
     spec = RetrievalSpec.from_json(args.spec) if args.spec else None
     return build_and_serve(spec=spec, distance=args.distance, n_db=args.n_db, dim=args.dim,
                            n_queries=args.queries, batch=args.batch,
-                           ef_search=args.ef_search, frontier=args.frontier,
+                           ef_search=args.ef_search, builder=args.builder,
+                           build_engine=args.build_engine, wave=args.wave,
+                           engine=args.engine, frontier=args.frontier,
                            seed=args.seed, device=args.device)
 
 

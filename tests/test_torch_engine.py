@@ -9,6 +9,8 @@ is not exact against its reference (ROADMAP section 3), so the gate there is
 distances within 1e-5 and recall within 0.005.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -116,7 +118,7 @@ def test_bitonic_merge_equals_stable_argsort():
     bi = rng.integers(0, 100, (B, ef)).astype(np.int32)
     ki = rng.integers(0, 100, (B, C)).astype(np.int32)
     be, ke = rng.random((B, ef)) < 0.5, rng.random((B, C)) < 0.5
-    got = tbb._bitonic_merge((_t(bd), _t(bi), _t(be)), (_t(kd), _t(ki), _t(ke)), ef)
+    got = tbb._merge_beams((_t(bd), _t(bi), _t(be)), (_t(kd), _t(ki), _t(ke)), ef)
     order = np.argsort(np.concatenate([bd, kd], 1), axis=1, kind="stable")[:, :ef]
     for g, cat in zip(got, (np.concatenate([bd, kd], 1), np.concatenate([bi, ki], 1),
                             np.concatenate([be, ke], 1))):
@@ -184,3 +186,48 @@ def test_frontier_compact_width_and_adaptive_update_match():
     got = tbb.adaptive_width_update(tst, _t(t_cur), _t(stall), _t(worst), 4, 2)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("n_active", [0, 1, 300])
+@pytest.mark.parametrize("frontier", [1, 4])
+def test_n_active_prefix_mask_matches(frontier, n_active, data, graphs):
+    """``n_active`` (the wave builder's frozen prefix) as a 0-d tensor: equal
+    beams, eval counts, hops and visited words; nothing >= n_active is reached."""
+    Q, db = data
+    idx = graphs["kl"]
+    jd_, tdist = get_distance("kl"), td.get_distance("kl")
+    jc, tc = jd_.prep_scan(db), tdist.prep_scan(_t(db))
+    jq = jax.vmap(jd_.prep_query)(Q)
+    tq_rep, tq_bias = tdist.prep_right(_t(Q)), tdist.bias_right(_t(Q))
+    from repro_torch.kernels.ops import frontier_gather_scores as tfg
+
+    # entries on both sides of the prefix boundary
+    entries = np.array([0, 5, 299, 300, 450], np.int32)
+    js = _jax_prefix_search(frontier)(idx.neighbors, jq, jc, jnp.asarray(entries),
+                                      jnp.int32(n_active))
+    ts = tbb.batched_beam_search(
+        _t(idx.neighbors), lambda ids: tfg(tdist, ids.contiguous(), tq_rep, tq_bias,
+                                           tc["rep"], tc["bias"]),
+        _t(entries), N_Q, EF, frontier=frontier, n_active=torch.tensor(n_active))
+    for field in ("beam_i", "expanded", "n_evals", "hops", "done"):
+        np.testing.assert_array_equal(getattr(ts, field).numpy(),
+                                      np.asarray(getattr(js, field)), err_msg=field)
+    np.testing.assert_array_equal(ts.visited.numpy(), np.asarray(js.visited).view(np.int32))
+    np.testing.assert_allclose(ts.beam_d.numpy(), np.asarray(js.beam_d), rtol=1e-6, atol=1e-6)
+    assert int(ts.beam_i.max()) < n_active
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_prefix_search(frontier):
+    """JAX ``batched_beam_search`` with a traced ``n_active``: one compile per frontier."""
+    from repro.kernels.ops import frontier_gather_scores as jfg
+
+    jd_ = get_distance("kl")
+
+    @jax.jit
+    def run(neighbors, jq, jc, entries, n_active):
+        return jbb.batched_beam_search(
+            neighbors, lambda ids: jfg(jd_, ids, jq["rep"], jq["bias"], jc["rep"], jc["bias"]),
+            entries, N_Q, EF, frontier=frontier, n_active=n_active)
+
+    return run

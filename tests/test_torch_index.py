@@ -176,19 +176,61 @@ def test_policy_round_trip_and_bind(text):
 def test_unported_paths_raise_naming_their_roadmap_item(data):
     _, db = data
     X = _t(db)[:200]
-    for changes, item in [({"builder": "swgraph"}, "M7"), ({"engine": "reference"}, "M5"),
-                          ({"capacity": 400}, "M11"), ({"search_policy": "min"}, "M8")]:
+    for changes, item in [({"capacity": 400}, "M11"), ({"search_policy": "min"}, "M8")]:
         with pytest.raises(NotImplementedError, match=item):
             TIndex.build(X, spec=tspec.RetrievalSpec(**changes))
     idx = TIndex.build(X, spec=tspec.RetrievalSpec(NN=8, nnd_iters=2))
     with pytest.raises(NotImplementedError, match="M12"):
         idx.scheduler()
-    with pytest.raises(NotImplementedError, match="M5"):
-        idx.searcher(engine="reference")
+    with pytest.raises(ValueError, match="adaptive"):
+        idx.searcher(engine="reference", adaptive=True)
+    with pytest.raises(ValueError, match="unknown engine"):
+        idx.searcher(engine="beam")
     with pytest.raises(NotImplementedError, match="M8"):
         idx.searcher(k_c=20)
     with pytest.raises(NotImplementedError, match="M11"):
         idx.ensure_online()
+
+
+N_SW = 300
+SW_SPEC = dict(distance="kl", builder="swgraph", NN=8, ef_construction=40, wave=16,
+               ef_search=48, frontier=4)
+
+
+@pytest.mark.parametrize("build_engine", ["wave", "sequential"])
+def test_swgraph_index_matches_jax(build_engine, data):
+    """``builder="swgraph"``: the same adjacency and build_info as ``repro``;
+    with ``repro``'s entries carried across, both engines return ``repro``'s
+    ids, eval counts and hops."""
+    Q, db = data
+    db = db[:N_SW]
+    changes = dict(SW_SPEC, build_engine=build_engine)
+    jidx = ANNIndex.build(db, spec=jspec.RetrievalSpec(**changes))
+    tidx = TIndex.build(_t(db), spec=tspec.RetrievalSpec(**changes))
+    np.testing.assert_array_equal(tidx.neighbors.numpy(), np.asarray(jidx.neighbors))
+    for key in ("builder", "build_engine", "wave", "NN", "ef_construction", "mean_degree",
+                "spec", "spec_fingerprint"):
+        assert tidx.build_info[key] == jidx.build_info[key], key
+    tidx.entries = _t(jidx.entries)
+    assert tidx.entry == jidx.entry
+    for engine in ("batched", "reference"):
+        want = [np.asarray(a) for a in jidx.searcher(engine=engine)(Q[:32])]
+        got = [a.numpy() for a in tidx.searcher(engine=engine)(_t(Q[:32]))]
+        for name, g, w in zip(("ids", "evals", "hops"), got[1:], want[1:]):
+            np.testing.assert_array_equal(g, w, err_msg=f"{engine} {name}")
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-6, atol=1e-6)
+
+
+def test_index_from_jax_carries_a_swgraph_index(data):
+    Q, db = data
+    jidx = ANNIndex.build(db[:N_SW], spec=jspec.RetrievalSpec(**SW_SPEC, engine="reference"))
+    arrays = {a: np.asarray(getattr(jidx, a)) for a in ("X", "neighbors", "entries")}
+    tidx = index_from_jax(arrays, jidx.spec.to_dict(), device="cpu")
+    assert tidx.build_info["build_engine"] == "wave" and tidx.build_info["wave"] == 16
+    want = [np.asarray(a) for a in jidx.searcher()(Q[:32])]
+    got = [a.numpy() for a in tidx.searcher()(_t(Q[:32]))]
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_entry_points_default_to_cuda():
@@ -210,6 +252,20 @@ def test_serve_main_on_cpu():
     assert stats["eval_reduction"] > 1.0
     assert stats["build_kernel_launches"] == stats["search_kernel_launches"] == 0
     assert stats["spec"]["builder"] == "nndescent"
+
+
+@pytest.mark.parametrize("engine,build_engine", [("batched", "wave"),
+                                                 ("reference", "sequential")])
+def test_serve_main_swgraph_on_cpu(engine, build_engine):
+    stats = tserve.main(["--device", "cpu", "--builder", "swgraph", "--wave", "32",
+                         "--build-engine", build_engine, "--engine", engine,
+                         "--n-db", "300", "--queries", "32", "--batch", "32", "--ef", "48",
+                         "--seed", "1"])
+    assert stats["builder"] == "swgraph" and stats["build_engine"] == build_engine
+    assert stats["engine"] == engine and stats["spec"]["wave"] == 32
+    assert stats["recall@k"] >= 0.9
+    assert stats["kernel_launches"]["build"] == dict.fromkeys(
+        ("frontier_scores", "gather_scores", "distance_matrix"), 0)
 
 
 def test_serve_main_takes_a_spec():

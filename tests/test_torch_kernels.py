@@ -1,12 +1,15 @@
-"""Port parity: the frontier-gather kernel's plain version and its dispatch.
+"""Port parity: the kernels' plain versions and their dispatch.
 
-The port's ``gather_scores_ref`` is held to the JAX package's Pallas kernel
-``frontier_scores`` (interpret mode, as the JAX tests run it on the CPU) and
-to the JAX oracle ``repro.kernels.ref.gather_scores_ref``, for every
-post-combine id and with -1 padding.  Tolerance rtol = atol = 1e-5: float32
-dot products summed in different orders, nothing else differs.
+The port's ``gather_scores_ref`` is held to the JAX package's Pallas kernels
+``frontier_scores`` and ``gather_scores``, and ``distance_matrix_ref`` to
+its Pallas ``distance_matrix`` (interpret mode, as the JAX tests run them
+on the CPU) and to the JAX oracles in ``repro.kernels.ref``, for every
+post-combine id, with -1 padding, ragged shapes, m' above the TPU kernel's
+``block_k`` of 2048, and bf16 reps.  Tolerance rtol = atol = 1e-5 (bf16:
+2e-2), as ``tests/test_kernels.py`` holds the JAX kernels: float32 dot
+products summed in different orders, nothing else differs.
 
-The CUDA kernel itself runs only on the card: ``tests/test_torch_gpu.py``.
+The CUDA kernels themselves run only on the card: ``tests/test_torch_gpu.py``.
 """
 
 import os
@@ -20,17 +23,24 @@ import pytest
 import torch
 
 from repro.core import distances as jd
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.distance_matrix import distance_matrix as jax_distance_matrix
 from repro.kernels.frontier_gather import frontier_scores as jax_frontier_scores
+from repro.kernels.gather_topk import gather_scores as jax_gather_scores
 from repro_torch.core import distances as td
 from repro_torch.kernels import build, ops
+from repro_torch.kernels.distance_matrix import distance_matrix
 from repro_torch.kernels.frontier_gather import frontier_scores
-from repro_torch.kernels.ref import gather_scores_ref
+from repro_torch.kernels.gather_topk import gather_scores
+from repro_torch.kernels.ref import distance_matrix_ref, gather_scores_ref
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-5, atol=1e-5)
 # one distance per post-combine id: LINEAR, RENYI, NEG, L2 (+ a second LINEAR)
 POST_DISTS = ["kl", "renyi_0.25", "negdot", "l2", "itakura_saito"]
+# the distances of tests/test_kernels.py
+DISTS = ["kl", "itakura_saito", "renyi_0.25", "renyi_2", "l2", "negdot"]
 
 
 def _hist(rng, n, m):
@@ -129,9 +139,101 @@ def test_importing_the_kernel_modules_needs_no_nvcc(tmp_path):
     assert "no-nvcc-ok" in out.stdout
 
 
-def test_build_targets_hopper_and_writes_under_build():
+@pytest.mark.parametrize("name", ["frontier_gather", "distance_matrix", "gather_topk"])
+def test_build_targets_hopper_and_writes_under_build(name):
     flags = " ".join(build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
-    lib = build.library_path("frontier_gather")
+    lib = build.library_path(name)
     assert lib.parent == ROOT / "build" / "repro_torch"
-    assert (build.CSRC / "frontier_gather.cu").is_file()
+    assert (build.CSRC / f"{name}.cu").is_file()
+
+
+def _dm_inputs(name, B, N, m, seed=0, dtype=np.float32):
+    """Prepped reps of random histograms, made by the JAX distance (as in
+    tests/test_kernels.py), as JAX arrays of ``dtype``."""
+    rng = np.random.default_rng(seed)
+    dist = jd.get_distance(name)
+    Q, X = jnp.asarray(_hist(rng, B, m)), jnp.asarray(_hist(rng, N, m))
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    return dist, (dist.prep_right(Q).astype(jdt), dist.prep_left(X).astype(jdt),
+                  dist.bias_right(Q), dist.bias_left(X)), Q, X
+
+
+def _to_torch(a):
+    if a.dtype == jnp.bfloat16:  # numpy has no bf16: widen, then narrow exactly
+        return torch.from_numpy(np.array(a.astype(jnp.float32))).to(torch.bfloat16)
+    return _torch(a)
+
+
+@pytest.mark.parametrize("shape", [(4, 16, 8), (33, 300, 64), (128, 512, 128), (16, 96, 512),
+                                   (8, 40, 2100)])
+@pytest.mark.parametrize("name", DISTS)
+def test_distance_matrix_plain_matches_pallas_kernel_and_jax_oracle(name, shape):
+    B, N, m = shape
+    dist, (q_rep, x_rep, q_bias, x_bias), _, _ = _dm_inputs(name, B, N, m)
+    got = distance_matrix_ref(*(_torch(a) for a in (q_rep, x_rep, q_bias, x_bias)),
+                              dist.post_id, dist.c0)
+    assert got.dtype == torch.float32 and got.shape == (B, N)
+    # m' = 2100 > block_k = 2048 takes the TPU kernel's k-tiled variant
+    pallas = jax_distance_matrix(q_rep, x_rep, q_bias, x_bias, dist.post_id, dist.c0,
+                                 block_q=32, block_x=128, interpret=True)
+    oracle = jref.distance_matrix_ref(q_rep, x_rep, q_bias, x_bias, dist.post_id, dist.c0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), **TOL)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bf16"])
+def test_distance_matrix_plain_dtypes(dtype):
+    dist, reps, _, _ = _dm_inputs("kl", 16, 64, 32, seed=2, dtype=dtype)
+    got = distance_matrix_ref(*(_to_torch(a) for a in reps), dist.post_id, dist.c0)
+    want = jax_distance_matrix(*reps, dist.post_id, dist.c0, block_q=8, block_x=32,
+                               interpret=True)
+    tol = 1e-5 if dtype == np.float32 else 2e-2
+    assert got.dtype == torch.float32  # float32 out whatever the reps' type
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("name", DISTS)
+def test_gather_scores_plain_matches_pallas_kernel(name):
+    dist, ids, r = _inputs(name, B=6, R=10, n=40, m=16, seed=3)
+    got = gather_scores_ref(_torch(ids), _torch(r["q_rep"]), _torch(r["x_rep"]),
+                            _torch(r["q_bias"]), _torch(r["x_bias"]), dist.post_id,
+                            dist.c0).numpy()
+    pallas = np.asarray(jax_gather_scores(
+        jnp.asarray(ids), jnp.asarray(r["q_rep"]), jnp.asarray(r["x_rep"]),
+        jnp.asarray(r["q_bias"]), jnp.asarray(r["x_bias"]), dist.post_id, dist.c0,
+        interpret=True))
+    np.testing.assert_array_equal(np.isinf(got), ids < 0)
+    np.testing.assert_allclose(got, pallas, **TOL)
+
+
+def test_ops_wrappers_match_distance_object_without_launching():
+    """ops.query_distance_matrix == Distance.query_matrix; the CPU takes the
+    plain versions and launches nothing."""
+    rng = np.random.default_rng(5)
+    Q, X = _hist(rng, 9, 24), _hist(rng, 31, 24)
+    before = ops.launch_counts()
+    for name in DISTS:
+        tdist, jdist = td.get_distance(name), jd.get_distance(name)
+        got = ops.query_distance_matrix(tdist, _torch(Q), _torch(X))
+        np.testing.assert_allclose(got.numpy(), tdist.query_matrix(_torch(Q), _torch(X)).numpy(),
+                                   rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(
+            got.numpy(), np.asarray(jops.query_distance_matrix(jdist, Q, X, use_pallas=False)),
+            **TOL)
+        ids = np.array([[0, 3, 30, -1], [5, 5, 1, 2]], np.int32)
+        got_g = ops.beam_gather_scores(tdist, _torch(ids), _torch(Q[:2]), _torch(X))
+        want_g = jops.beam_gather_scores(jdist, jnp.asarray(ids), Q[:2], X, use_pallas=False)
+        np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), **TOL)
+    assert ops.launch_counts() == before
+    assert set(before) == {"frontier_scores", "gather_scores", "distance_matrix"}
+
+
+def test_new_kernel_wrappers_refuse_cpu_tensors():
+    dist, ids, r = _inputs("kl")
+    with pytest.raises(ValueError, match="CUDA"):
+        gather_scores(_torch(ids), _torch(r["q_rep"]), _torch(r["q_bias"]),
+                      _torch(r["x_rep"]), _torch(r["x_bias"]), dist.post_id)
+    with pytest.raises(ValueError, match="CUDA"):
+        distance_matrix(_torch(r["q_rep"]), _torch(r["x_rep"]), _torch(r["q_bias"]),
+                        _torch(r["x_bias"]), dist.post_id)
