@@ -12,12 +12,15 @@ Every phase is fatal on failure; nothing is caught and passed over.
 3. check: each kernel against its plain PyTorch version on the card, rtol =
    atol = 1e-5 and equal inf positions (bf16 reps: 2e-2).  frontier_scores:
    kl, itakura_saito, renyi_0.25, l2 and negdot at the search and NN-descent
-   shapes, m'=128, -1 padding.  distance_matrix: kl, itakura_saito,
-   renyi_0.25, renyi_2, l2 and negdot at 128x4096x{8,32,128}, 512x8192x128,
-   a ragged 33x300x64, m'=512 and 2,100, a bf16 case and the build_sharded
-   stitch shape (20,000 x 64, m'=32).  gather_scores: the same distances at
-   (64, 30, 128), (64, 240, 128) with -1 padding and the wave builder's
-   reverse-edge shape (960, 1, 32), and ``ops.beam_gather_scores``.
+   shapes, m'=128, -1 padding, and once into a column range of a wider
+   block.  two_hop_scores: the same distances on a (4,096, 30) adjacency
+   with a padded row and a hub of ~300 edges.  distance_matrix: kl,
+   itakura_saito, renyi_0.25, renyi_2, l2 and negdot at 128x4096x{8,32,128},
+   512x8192x128, a ragged 33x300x64, m'=512 and 2,100, a bf16 case, the
+   build_sharded stitch shape (20,000 x 64, m'=32) and ``mode="right"``.
+   gather_scores: the same distances at (64, 30, 128), (64, 240, 128) with
+   -1 padding and the wave builder's reverse-edge shape (960, 1, 32), and
+   ``ops.beam_gather_scores``.
 4. serve defaults: n=20,000, d=32, KL, NN-descent, ef 96, frontier 4, k 10,
    256 queries in batches of 64 through ``launch.serve.build_and_serve``;
    recall@10 >= 0.90.
@@ -43,14 +46,18 @@ Every phase is fatal on failure; nothing is caught and passed over.
 9. main path at full size: n=1,000,000 LDA-like histograms (d=128,
    alpha=0.08), 1,024 held-out queries in batches of 64, NN-descent with the
    graph degree doubled (NN 30) and ef 512.  The launch counts are set to 0
-   just before and read just after; build and search must both have
-   launched frontier_scores, and recall@10 against ``knn_scan`` must
-   exceed 0.5.
+   just before and read just after; the build must have launched
+   two_hop_scores and frontier_scores, the search frontier_scores, and the
+   ground truth (``knn_scan``) distance_matrix; recall@10 must exceed 0.5.
 10. timing: each kernel per launch beside its bound, the plain version's
     time and, for distance_matrix, ``torch.matmul`` with TF32 off (the
     product without the epilogue).  ``ms`` is device time from the
     profiler's kernel records; ``event_ms`` is CUDA events around
-    back-to-back calls, which also counts the host's launch gaps.
+    back-to-back calls, which also counts the host's launch gaps.  The
+    NN-descent round is timed on the real candidate block of the phase 9
+    build (rebuilt from the same data and seed): the general kernel over
+    all R columns against the grouped join plus the general kernel over the
+    rest, in turns, and held to each other.
 11. profile: device time by kernel and the device's idle share for one
     full-size NN-descent build, one search batch and one SW-graph wave
     build (``torch.profiler``).
@@ -80,6 +87,8 @@ SRC = ROOT / "src"
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, SXM data sheet
 H100_FP32_FLOPS = 67e12  # float32 outside the tensor cores
+H100_TF32_FLOPS = 495e12  # dense TF32 on the tensor cores
+H100_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores
 DISTANCES = ["kl", "itakura_saito", "renyi_0.25", "l2", "negdot"]
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -217,14 +226,38 @@ def profile_device(fn, label: str) -> None:
 
 
 def dm_bound(B: int, N: int, m: int, itemsize: int = 4):
-    """Least time of one (B, N, m') distance-matrix call: (ms, "bytes" | "operations").
+    """Least time of one (B, N, m') distance-matrix call, two lines:
+    ``{"tensor_core": (ms, by), "fp32_simt": (ms, by)}``.
 
     Bytes: both reps and biases read once, the (B, N) float32 output written
-    once.  Operations: 2 B N m' at the float32 rate (the kernel's type).
+    once.  Operations, tensor-core line (the kernel's type): float32 reps run
+    as 3xTF32, 3 x 2 B N m' at the TF32 rate; bf16 reps 2 B N m' at the bf16
+    rate.  The float32-SIMT line (2 B N m' at 67 TFLOP/s) is the bound of
+    PR 12's SIMT kernel, kept for continuity.
     """
     nbytes = itemsize * (B + N) * m + 4 * (B + N) + 4 * B * N
     t_bytes = nbytes / H100_BYTES_PER_S
-    t_ops = 2.0 * B * N * m / H100_FP32_FLOPS
+    flops = 2.0 * B * N * m
+    t_tc = 3 * flops / H100_TF32_FLOPS if itemsize == 4 else flops / H100_BF16_FLOPS
+    lines = {}
+    for name, t_ops in (("tensor_core", t_tc), ("fp32_simt", flops / H100_FP32_FLOPS)):
+        lines[name] = (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    return lines
+
+
+def two_hop_bound(safe_adj, m: int):
+    """Least time of one two_hop_scores call on ``safe_adj``: (ms, by).
+
+    Bytes: the adjacency, both prepped copies of the rows (reps and biases)
+    read once, the (n, K*K) output written once.  Operations: 2 m' per valid
+    output (c != i) at the float32 rate.
+    """
+    n, K = safe_adj.shape
+    two_hop = safe_adj[safe_adj.reshape(-1).long()].reshape(n, K * K)
+    valid = int((two_hop != torch.arange(n, device=two_hop.device)[:, None]).sum())
+    nbytes = 4 * n * K + 2 * (4 * n * m + 4 * n) + 4 * n * K * K
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = 2.0 * m * valid / H100_FP32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -279,14 +312,17 @@ def main() -> int:
     from repro_torch.core.distances import get_distance
     from repro_torch.core.index import ANNIndex
     from repro_torch.core.metrics import recall_at_k
+    from repro_torch.core.nndescent import _sampled_reverse
     from repro_torch.core.spec import RetrievalSpec
     from repro_torch.core.swgraph import build_swgraph
     from repro_torch.data.synthetic import lda_like_histograms, split_queries
     from repro_torch.kernels import build, ops
     from repro_torch.kernels.distance_matrix import distance_matrix
-    from repro_torch.kernels.frontier_gather import frontier_scores
+    from repro_torch.kernels.frontier_gather import (frontier_scores, two_hop_scores,
+                                                     two_hop_work_list)
     from repro_torch.kernels.gather_topk import gather_scores
-    from repro_torch.kernels.ref import distance_matrix_ref, exact_float32_matmul, gather_scores_ref
+    from repro_torch.kernels.ref import (distance_matrix_ref, exact_float32_matmul,
+                                         gather_scores_ref, two_hop_scores_ref)
     from repro_torch.launch.serve import build_and_serve
 
     # the serve scenario with the graph degree doubled (NN 30, M 60) and ef 512:
@@ -337,6 +373,28 @@ def main() -> int:
             want = gather_scores_ref(ids, q_rep, x_rep, q_bias, x_bias, dist.post_id, dist.c0)
             max_err[("frontier_scores", name, B, R)] = check_close(
                 f"frontier_scores {name} B={B} R={R}", got, want, TOL, pad=ids < 0)
+        # into a column range of a wider block, as the NN-descent round writes
+        block = torch.full((B, R + 7), -7.0, device="cuda")
+        frontier_scores(ids, q_rep, q_bias, x_rep, x_bias, dist.post_id, dist.c0,
+                        out=block[:, 7:])
+        check_close(f"frontier_scores {name} B={B} R={R} into a column range",
+                    block[:, 7:], want, TOL, pad=ids < 0)
+        if not bool((block[:, :7] == -7.0).all()):
+            raise AssertionError("frontier_scores wrote outside its column range")
+        # the NN-descent join, grouped by the middle node: a padded row (its
+        # -1 become 0, as in the round) and a hub of ~300 edges at node 17
+        n_j, K_j = 4096, 30
+        X_j = X_chk[:n_j]
+        adj = torch.randint(0, n_j, (n_j, K_j), generator=gen, device="cuda", dtype=torch.int32)
+        adj[5, 10:] = -1
+        adj[torch.rand((n_j, K_j), generator=gen, device="cuda") < 300 / (n_j * K_j)] = 17
+        safe = torch.where(adj >= 0, adj, 0).to(torch.int32).contiguous()
+        reps_j = [a.contiguous() for a in (dist.prep_right(X_j), dist.bias_right(X_j),
+                                           dist.prep_left(X_j), dist.bias_left(X_j))]
+        got = two_hop_scores(safe, *reps_j, dist.post_id, dist.c0)
+        want = two_hop_scores_ref(safe, *reps_j, dist.post_id, dist.c0)
+        max_err[("two_hop_scores", name, n_j, K_j)] = check_close(
+            f"two_hop_scores {name} n={n_j} K={K_j}", got, want, TOL)
     del x_rep, x_bias
     for name in DM_DISTANCES:
         dist = get_distance(name)
@@ -349,6 +407,14 @@ def main() -> int:
                                        dist.c0)
             max_err[("distance_matrix", name, B, N, m)] = check_close(
                 f"distance_matrix {name} {B}x{N}x{m}", got, want, TOL)
+        # right mode: d(Q[b], X[i]), as knn_scan(mode="right") asks
+        data = lda_like_histograms(rng, 128 + 4096, 128, device="cuda")
+        Q, X = data[:128], data[128:]
+        check_close(f"distance_matrix {name} 128x4096x128 right mode",
+                    ops.query_distance_matrix(dist, Q, X, mode="right"),
+                    distance_matrix_ref(dist.prep_left(Q), dist.prep_right(X),
+                                        dist.bias_left(Q), dist.bias_right(X), dist.post_id,
+                                        dist.c0), TOL)
         # bf16 reps: float32 out, held to 2e-2 as the JAX kernel is
         data = lda_like_histograms(rng, 128 + 4096, 128, device="cuda")
         Q, X = data[:128], data[128:]
@@ -524,13 +590,17 @@ def main() -> int:
     ops.reset_launch_counts()
     full = build_and_serve(spec=full_spec, n_db=N_FULL, dim=D_FULL, n_queries=Q_FULL,
                            batch=BATCH, alpha=0.08, device="cuda", verbose=False)
-    launches = ops.launch_counts()["frontier_scores"]
+    main_launches = ops.launch_counts()
+    launches = main_launches["frontier_scores"]
     log("main path n=1000000 d=128: " + json.dumps(
         {k: v for k, v in full.items() if k != "spec"}))
-    log(f"main path launches: {launches} (build {full['build_kernel_launches']}, timed "
-        f"search {full['search_kernel_launches']}, the rest warm-up search)")
-    if not (full["build_kernel_launches"] > 0 and full["search_kernel_launches"] > 0):
-        raise AssertionError(f"kernel not launched on the main path: {full}")
+    log(f"main path launches: {main_launches} (build {full['kernel_launches']['build']}, "
+        f"timed search {full['kernel_launches']['search']}, the rest warm-up search and the "
+        f"knn_scan ground truth)")
+    built_k, searched_k = full["kernel_launches"]["build"], full["kernel_launches"]["search"]
+    if not (built_k["two_hop_scores"] > 0 and built_k["frontier_scores"] > 0
+            and searched_k["frontier_scores"] > 0 and main_launches["distance_matrix"] > 0):
+        raise AssertionError(f"kernel not launched on the main path: {main_launches}")
     if not full["recall@k"] > 0.5:
         raise AssertionError(f"recall@10 {full['recall@k']} <= 0.5 at n=1e6")
 
@@ -614,12 +684,77 @@ def main() -> int:
     log("time gather_scores " + json.dumps(gs_path))
     log("time gather_scores " + json.dumps(gs_row))
 
-    # distance_matrix: build_sharded's stitch (its path), a knn_scan chunk, 512 rows
+    # the NN-descent round on its real candidate block: the forward adjacency
+    # of the phase 9 build (rebuilt from the same data and seed), with the
+    # round's reverse and random columns drawn as build_nndescent draws them
+    idx_full = ANNIndex.build(X, spec=full_spec,
+                              generator=torch.Generator(device="cuda").manual_seed(0))
+    K_nn, n_rnd = full_spec.NN, 8
+    adj = idx_full.neighbors[:, :K_nn].contiguous()
+    del idx_full
+    safe = torch.where(adj >= 0, adj, 0).to(torch.int32).contiguous()
+    KK = K_nn * K_nn
+    width = KK + K_nn + n_rnd
+    cand = torch.empty((N_FULL, width), dtype=torch.int32, device="cuda")
+    cand[:, :KK] = safe[safe.reshape(-1).long()].reshape(N_FULL, KK)
+    cand[:, KK:KK + K_nn] = _sampled_reverse(adj, K_nn, torch.randint(
+        0, K_nn, (K_nn,), generator=gen, device="cuda", dtype=torch.int32))
+    cand[:, KK + K_nn:] = torch.randint(0, N_FULL, (N_FULL, n_rnd), generator=gen,
+                                        device="cuda", dtype=torch.int32)
+    iota = torch.arange(N_FULL, device="cuda", dtype=torch.int32)
+    cand.masked_fill_(cand == iota[:, None], -1)
+    indeg = torch.bincount(safe.reshape(-1).long(), minlength=N_FULL).float()
+    out_general = torch.empty((N_FULL, width), dtype=torch.float32, device="cuda")
+    out_grouped = torch.empty_like(out_general)
+    reps_all = (qa_rep, qa_bias, x_rep, x_bias)
+
+    def round_general():
+        frontier_scores(cand, *reps_all, dist.post_id, dist.c0, out=out_general)
+
+    def round_grouped():
+        ops.nndescent_round_scores(dist, safe, cand, *reps_all, out=out_grouped)
+
+    # in turns: general, grouped, grouped, general
+    rt = {"general_ms": device_ms(round_general, [()], 3),
+          "grouped_ms": device_ms(round_grouped, [()], 3)}
+    rt["grouped_ms_again"] = device_ms(round_grouped, [()], 3)
+    rt["general_ms_again"] = device_ms(round_general, [()], 3)
+    rt["general_event_ms"] = time_ms(round_general, [()], 3)
+    rt["grouped_event_ms"] = time_ms(round_grouped, [()], 3)
+    round_general()
+    round_grouped()
+    check_close("NN-descent round, real block: grouped join + general vs general",
+                out_grouped, out_general, TOL, pad=cand < 0)
+    work = two_hop_work_list(safe)
+    join_out = out_grouped[:, :KK]
+    rt["join_kernel_ms"] = device_ms(lambda: two_hop_scores(
+        safe, qa_rep, qa_bias, x_rep, x_bias, dist.post_id, dist.c0, out=join_out,
+        work=work), [()], 5)
+    rt["work_list_ms"] = device_ms(lambda: two_hop_work_list(safe), [()], 5)
+    rt["rest_general_ms"] = device_ms(lambda: frontier_scores(
+        cand[:, KK:], *reps_all, dist.post_id, dist.c0, out=out_grouped[:, KK:]), [()], 5)
+    rt["join_bound_ms"], rt["join_bound_by"] = two_hop_bound(safe, D_FULL)
+    rt["general_bound_ms"], rt["general_bound_by"], rt["general_gathered_rows_ms"] = bound(
+        cand, D_FULL)
+    plain_rows = 2048  # the plain join materialises (rows, K*K, m')
+    sub = cand[:plain_rows, :KK].contiguous()
+    rt["join_plain_rows"] = plain_rows
+    rt["join_plain_ms"] = device_ms(lambda: gather_scores_ref(
+        sub, qa_rep[:plain_rows], x_rep, qa_bias[:plain_rows], x_bias, dist.post_id, dist.c0),
+        [()], 5)
+    rt.update({"n": N_FULL, "K": K_nn, "R": width, "work_items": int(work[1].shape[0]),
+               "in_degree_mean": float(indeg.mean()), "in_degree_max": float(indeg.max()),
+               "in_degree_p99": float(torch.quantile(indeg, 0.99))})
+    log("time NN-descent round, real candidate block: " + json.dumps(rt))
+    del cand, out_general, out_grouped, join_out, work, sub
+
+    # distance_matrix: a knn_scan chunk (the main path's ground truth),
+    # build_sharded's stitch, 512 rows
     dm_rows = []
     stitch = (X_sh.shape[0], 64, 32)
     for label, (B, N, m), src_q, src_x in [
-            ("build_sharded stitch", stitch, X_sh, X_sh[:64]),
             ("knn_scan chunk", (1024, 8192, D_FULL), Q, X[:8192]),
+            ("build_sharded stitch", stitch, X_sh, X_sh[:64]),
             ("bench_kernels", (512, 8192, D_FULL), Q[:512], X[8192:16384])]:
         q_rep, x_rep_t = dist.prep_right(src_q).contiguous(), dist.prep_left(src_x).contiguous()
         q_b, x_b = dist.bias_right(src_q).contiguous(), dist.bias_left(src_x).contiguous()
@@ -632,10 +767,12 @@ def main() -> int:
             with exact_float32_matmul():
                 return torch.matmul(a, b.T)
 
-        b_ms, b_by = dm_bound(B, N, m)
+        lines = dm_bound(B, N, m)
+        (b_ms, b_by), (s_ms, s_by) = lines["tensor_core"], lines["fp32_simt"]
         row = {"shape": f"{label} {B}x{N}x{m}", "B": B, "N": N, "m": m,
                "ms": device_ms(dm, args, 50), "ms_again": device_ms(dm, args, 50),
                "event_ms": time_ms(dm, args, 50), "bound_ms": b_ms, "bound_by": b_by,
+               "bound_fp32_simt_ms": s_ms, "bound_fp32_simt_by": s_by,
                "plain_ms": device_ms(dm_plain, args, 50),
                "plain_event_ms": time_ms(dm_plain, args, 50),
                "library_ms": device_ms(library, args, 50),
@@ -716,11 +853,28 @@ def main() -> int:
         "max_abs_err_all_distances": all_err("frontier_scores"),
         "other_shapes": timings[1:],
     }, {
+        "name": "two_hop_scores",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/frontier_gather.cu",
+        "replaces": "src/repro/kernels/frontier_gather.py:95",
+        "launches": main_launches["two_hop_scores"],
+        "max_abs_err": err_of("two_hop_scores"),
+        "ms": rt["join_kernel_ms"],
+        "plain_ms": rt["join_plain_ms"],
+        "bound_ms": rt["join_bound_ms"],
+        "bound_by": rt["join_bound_by"],
+        "library_ms": None,
+        "shape": f"NN-descent round join n=1e6 K={K_nn} m'=128, real candidate block",
+        "path": "NN-descent main path, n=1e6 (phase 9), one launch per round",
+        "plain_rows": plain_rows,
+        "max_abs_err_all_distances": all_err("two_hop_scores"),
+        "round": rt,
+    }, {
         "name": "distance_matrix",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/distance_matrix.cu",
         "replaces": "src/repro/kernels/distance_matrix.py:119",
-        "launches": sharded_launches["distance_matrix"],
+        "launches": main_launches["distance_matrix"],
         "max_abs_err": err_of("distance_matrix"),
         "ms": dm_main["ms"],
         "plain_ms": dm_main["plain_ms"],
@@ -729,7 +883,8 @@ def main() -> int:
         "library_ms": dm_main["library_ms"],
         "library": "torch.matmul, TF32 off, without the epilogue",
         "shape": dm_main["shape"],
-        "path": "build_sharded, world size 1, n=20000 d=32 (phase 8)",
+        "path": "knn_scan ground truth of the NN-descent main path (phase 9); also "
+                f"build_sharded (phase 8: {sharded_launches['distance_matrix']} launch)",
         "max_abs_err_all_distances": all_err("distance_matrix"),
         "other_shapes": dm_rows[1:],
     }, {

@@ -2,14 +2,19 @@
 
 Chunked over the database so the (B, N) distance matrix never materialises:
 each chunk is one matmul-form distance block merged into a running top-k.
-The chunk product is ``torch.matmul`` through ``dist.query_matrix``, as the
-JAX package leaves it to XLA outside any kernel.  TF32 is switched off: it
-keeps about three decimal digits and would corrupt the ground truth.
+The chunk goes through ``ops.query_distance_matrix``: on the card the
+tensor-core ``distance_matrix`` kernel (3xTF32), on the CPU the plain
+matmul and post-combine of ``dist.query_matrix``.  Plain matmuls run with
+TF32 off inside the scan (it keeps about three decimal digits and would
+corrupt the ground truth), and the caller's setting is restored after.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.ops import query_distance_matrix
+from repro_torch.kernels.ref import exact_float32_matmul
 
 
 def _merge_topk(best_d, best_i, new_d, new_i, k: int):
@@ -24,27 +29,22 @@ def _merge_topk(best_d, best_i, new_d, new_i, k: int):
     return d_s[:, :k], torch.gather(i, 1, pos[:, :k])
 
 
-def _exact_float32_matmul():
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-
-
 def knn_scan(dist, Q, X, k: int, chunk: int = 8192, mode: str = "left"):
     """Exact k-NN of each query in Q against database X.
 
     Returns (dists (B, k) ascending float32, ids (B, k) int32).  ``mode="left"``
     is the paper's convention d(x, q) with the data point on the left.
     """
-    _exact_float32_matmul()
     B, n = Q.shape[0], X.shape[0]
     k = min(k, n)
     best_d = torch.full((B, k), torch.inf, dtype=torch.float32, device=Q.device)
     best_i = torch.full((B, k), -1, dtype=torch.int32, device=Q.device)
-    for base in range(0, n, chunk):
-        xblk = X[base:base + chunk]
-        d = dist.query_matrix(Q, xblk, mode=mode).float()
-        ids = torch.arange(base, base + xblk.shape[0], dtype=torch.int32, device=Q.device)
-        best_d, best_i = _merge_topk(best_d, best_i, d, ids.expand(B, -1), k)
+    with exact_float32_matmul():
+        for base in range(0, n, chunk):
+            xblk = X[base:base + chunk]
+            d = query_distance_matrix(dist, Q, xblk, mode=mode)
+            ids = torch.arange(base, base + xblk.shape[0], dtype=torch.int32, device=Q.device)
+            best_d, best_i = _merge_topk(best_d, best_i, d, ids.expand(B, -1), k)
     return best_d, best_i
 
 

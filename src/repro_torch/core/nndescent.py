@@ -5,8 +5,12 @@ Every refinement round is a batched neighbor-of-neighbor join
     candidates(i) = adj[adj[i]]  u  sampled-reverse(i)  u  random(i)
     adj(i) <- top-K by d_build(x_c, x_i) after id-dedup
 
-whose candidate scoring goes through the fused frontier-gather kernel: every
+whose candidate scoring goes through the frontier-gather kernels: every
 database row acts as its own query, with the database prepped once per build.
+On the card the K*K two-hop columns are scored grouped by the middle node
+(``two_hop_scores``) and the reverse and random columns by
+``frontier_scores``, both straight into one (n, K + R) score block that also
+holds the current neighbours, so a round concatenates no scores.
 
 The random draws live in one ``NNDescentDraws`` object.  ``draw_nndescent``
 makes them from a ``torch.Generator``; a test can instead pass the JAX
@@ -19,7 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.ops import frontier_gather_scores
+from repro_torch.kernels.ops import frontier_gather_scores, nndescent_round_scores
 
 INF = float("inf")
 
@@ -111,16 +115,22 @@ def build_nndescent(dist, X, generator=None, K: int = 16, iters: int = 8,
     init_d = _score_rows(dist, consts, qc_all, init_ids)
     adj_d, adj = _dedup_topk(init_d, init_ids, K)
 
+    KK = K * K
+    width = K + KK + K + n_random  # current neighbours, then the round's candidates
     for r in range(iters):
         safe = torch.where(adj >= 0, adj, 0)
-        two_hop = safe[safe.reshape(-1).long()].reshape(n, K * K)
-        rev = _sampled_reverse(adj, K, draws.rev_slots[r])
-        cand = torch.cat([two_hop, rev, draws.rnd[r].to(X.device)], dim=1)
-        cand = torch.where(cand == iota[:, None], -1, cand)  # no self loops
-        cand_d = _score_rows(dist, consts, qc_all, cand)
-        cand_d = torch.where(cand >= 0, cand_d, INF)
-        adj_d, adj = _dedup_topk(torch.cat([adj_d, cand_d], dim=1),
-                                 torch.cat([adj, cand], dim=1), K)
+        ids = torch.empty((n, width), dtype=torch.int32, device=X.device)
+        d = torch.empty((n, width), dtype=torch.float32, device=X.device)
+        ids[:, :K] = adj
+        d[:, :K] = adj_d
+        cand = ids[:, K:]
+        cand[:, :KK] = safe[safe.reshape(-1).long()].reshape(n, KK)
+        cand[:, KK:KK + K] = _sampled_reverse(adj, K, draws.rev_slots[r])
+        cand[:, KK + K:] = draws.rnd[r]
+        cand.masked_fill_(cand == iota[:, None], -1)  # no self loops
+        nndescent_round_scores(dist, safe, cand, qc_all["rep"], qc_all["bias"],
+                               consts["rep"], consts["bias"], out=d[:, K:])
+        adj_d, adj = _dedup_topk(d, ids, K)
 
     if add_reverse:
         rev = _sampled_reverse(adj, M_out - K, draws.final_slots)

@@ -1,14 +1,18 @@
-"""Tiled distance matrix with the fused post-combine on the card (CUDA C++
-for ``sm_90a``).
+"""Distance matrix with the fused post-combine on Hopper tensor cores (CUDA
+C++ for ``sm_90a``).
 
 Replaces the TPU kernel ``src/repro/kernels/distance_matrix.py::distance_matrix``
 (Pallas ``_kernel_whole_k`` / ``_kernel_tiled_k``, ``pallas_call`` at :119
-and :138).  A 64 x 64 output tile per block, k staged through shared memory
-in chunks of 32, a 4 x 4 float32 FMA register tile per thread, the
-post-combine in the epilogue; ragged B, N and m' are bounds-checked.
+and :138).  ``wgmma`` from TMA-staged, 128-byte-swizzled shared memory:
+persistent blocks of one producer warp and two consumer warpgroups walk
+128 x 128 (for N <= 64, 128 x 64) output tiles; float32 reps run as
+3xTF32 (hi/lo split, three products), bf16 reps as one bf16 pass; the
+post-combine in the epilogue; ragged B, N and m' through TMA's zero fill
+and a masked store.
 
-Bound: float32 operations (2 B N m' flops at 67 TFLOP/s) at the shapes of
-``build_sharded``'s stitch and of a ``knn_scan`` chunk.  Design and source:
+Bound: tensor-core operations (3 x 2 B N m' at 495 TFLOP/s) or bytes,
+whichever is larger at the shape.  ``knn_scan`` scores every chunk with it
+on the card, and ``build_sharded``'s stitch.  Design and source:
 ``csrc/distance_matrix.cu``.
 
 The wrapper launches on the current stream and does not synchronise; it
@@ -39,7 +43,8 @@ def distance_matrix(q_rep, x_rep, q_bias, x_bias, post_id: int, c0: float = 0.0)
     """(B, N) float32 left-query distances D[b, i] = post(q_rep[b] . x_rep[i]).
 
     q_rep (B, m') and x_rep (N, m') both float32 or both bfloat16; q_bias (B,)
-    and x_bias (N,) float32; all contiguous and on one CUDA device.
+    and x_bias (N,) float32; all contiguous and on one CUDA device.  The
+    kernel's TMA needs 16-byte rows and bases: m' a multiple of 4 (bf16: 8).
     """
     device = q_rep.device
     if device.type != "cuda":
@@ -54,8 +59,11 @@ def distance_matrix(q_rep, x_rep, q_bias, x_bias, post_id: int, c0: float = 0.0)
     check_tensor("x_bias", x_bias, torch.float32, (N,), device)
     if post_id not in (0, 1, 2, 3):
         raise ValueError(f"unknown post id {post_id}")
-    if -(-B // 64) > 65535:
-        raise ValueError(f"B={B} exceeds the kernel's grid ({65535 * 64} query rows)")
+    if m == 0 or (m * q_rep.element_size()) % 16:
+        raise ValueError(f"m'={m}: TMA needs rows of a multiple of 16 bytes "
+                         f"(m' % {16 // q_rep.element_size()} == 0)")
+    if q_rep.data_ptr() % 16 or x_rep.data_ptr() % 16:
+        raise ValueError("q_rep and x_rep must start on 16-byte boundaries for TMA")
     out = torch.empty((B, N), dtype=torch.float32, device=device)
     if B == 0 or N == 0:
         return out

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from repro_torch.core.distances import Distance
 from repro_torch.kernels.distance_matrix import distance_matrix
-from repro_torch.kernels.frontier_gather import frontier_scores
+from repro_torch.kernels.frontier_gather import frontier_scores, two_hop_scores
 from repro_torch.kernels.gather_topk import gather_scores
 from repro_torch.kernels.ref import distance_matrix_ref, gather_scores_ref
 
@@ -20,16 +20,26 @@ def _device_type(t) -> str:
     return t.device.type
 
 
-def query_distance_matrix(dist: Distance, Q, X):
-    """(B, N) left-query distances d(X[i], Q[b]) for a single-matmul Distance.
+def query_distance_matrix(dist: Distance, Q, X, mode: str = "left"):
+    """(B, N) distances between queries Q and database rows X for a
+    single-matmul Distance: d(X[i], Q[b]) for ``mode="left"`` (the paper's
+    convention), d(Q[b], X[i]) for ``mode="right"``.
 
-    ``build_sharded`` scores its local rows against the gathered samples of
-    every shard with it.
+    ``knn_scan`` scores every database chunk with it, and ``build_sharded``
+    its local rows against the gathered samples of every shard.  The plain
+    version is ``Distance.query_matrix``'s matmul and post-combine; in right
+    mode the two biases are added in the other order.
     """
-    q_rep = dist.prep_right(Q).contiguous()
-    x_rep = dist.prep_left(X).contiguous()
-    q_bias = dist.bias_right(Q).float().contiguous()
-    x_bias = dist.bias_left(X).float().contiguous()
+    if mode == "left":
+        q_rep, x_rep = dist.prep_right(Q), dist.prep_left(X)
+        q_bias, x_bias = dist.bias_right(Q), dist.bias_left(X)
+    elif mode == "right":
+        q_rep, x_rep = dist.prep_left(Q), dist.prep_right(X)
+        q_bias, x_bias = dist.bias_left(Q), dist.bias_right(X)
+    else:
+        raise ValueError(f"unknown query mode {mode!r}")
+    q_rep, x_rep = q_rep.contiguous(), x_rep.contiguous()
+    q_bias, x_bias = q_bias.float().contiguous(), x_bias.float().contiguous()
     if _device_type(Q) == "cuda":
         return distance_matrix(q_rep, x_rep, q_bias, x_bias, dist.post_id, dist.c0)
     return distance_matrix_ref(q_rep, x_rep, q_bias, x_bias, dist.post_id, dist.c0)
@@ -67,8 +77,30 @@ def frontier_gather_scores(dist: Distance, ids, q_rep, q_bias, x_rep, x_bias):
     return gather_scores_ref(ids, q_rep, x_rep, q_bias, x_bias, dist.post_id, dist.c0)
 
 
-KERNELS = {"frontier_scores": frontier_scores, "gather_scores": gather_scores,
-           "distance_matrix": distance_matrix}
+def nndescent_round_scores(dist: Distance, safe_adj, cand, q_rep, q_bias, x_rep, x_bias, out):
+    """Score an NN-descent round's (n, R) candidate block into ``out``.
+
+    ``cand[:, :K*K]`` is the two-hop join ``safe_adj[safe_adj]`` with self
+    loops set to -1, the remaining columns any other candidates (-1 padding);
+    ``out`` is an (n, R) float32 block, possibly a column range of a wider
+    one.  On the card the join columns go through the grouped
+    ``two_hop_scores`` kernel and the rest through ``frontier_scores``, both
+    writing into ``out``; on the CPU the plain version scores ``cand`` as it
+    stands.
+    """
+    KK = safe_adj.shape[1] ** 2
+    if _device_type(cand) == "cuda":
+        two_hop_scores(safe_adj, q_rep, q_bias, x_rep, x_bias, dist.post_id, dist.c0,
+                       out=out[:, :KK])
+        frontier_scores(cand[:, KK:], q_rep, q_bias, x_rep, x_bias, dist.post_id, dist.c0,
+                        out=out[:, KK:])
+        return out
+    out.copy_(gather_scores_ref(cand, q_rep, x_rep, q_bias, x_bias, dist.post_id, dist.c0))
+    return out
+
+
+KERNELS = {"frontier_scores": frontier_scores, "two_hop_scores": two_hop_scores,
+           "gather_scores": gather_scores, "distance_matrix": distance_matrix}
 
 
 def launch_counts() -> dict:

@@ -62,3 +62,14 @@ def gather_scores_ref(ids, q_rep, x_rep, q_bias, x_bias, post_id: int, c0: float
     s = torch.sum(rows.float() * q_rep.float()[:, None, :], dim=-1)
     d = apply_post(post_id, s, x_bias[safe].float(), q_bias[:, None].float(), c0)
     return torch.where(valid, d, torch.inf)
+
+
+def two_hop_scores_ref(safe_adj, q_rep, q_bias, x_rep, x_bias, post_id: int, c0: float = 0.0):
+    """The plain ``two_hop_scores``: materialise the join ``safe_adj[safe_adj]``
+    (n, K*K), set self loops to -1 and score it row by row.
+    """
+    n, K = safe_adj.shape
+    cand = safe_adj[safe_adj.reshape(-1).long()].reshape(n, K * K)
+    self_loop = cand == torch.arange(n, dtype=cand.dtype, device=cand.device)[:, None]
+    cand = torch.where(self_loop, -1, cand)
+    return gather_scores_ref(cand, q_rep, x_rep, q_bias, x_bias, post_id, c0)

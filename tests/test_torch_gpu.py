@@ -18,9 +18,9 @@ import torch
 from repro_torch.core.distances import get_distance
 from repro_torch.kernels import ops
 from repro_torch.kernels.distance_matrix import distance_matrix
-from repro_torch.kernels.frontier_gather import frontier_scores
+from repro_torch.kernels.frontier_gather import frontier_scores, two_hop_scores
 from repro_torch.kernels.gather_topk import gather_scores
-from repro_torch.kernels.ref import distance_matrix_ref, gather_scores_ref
+from repro_torch.kernels.ref import distance_matrix_ref, gather_scores_ref, two_hop_scores_ref
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 DISTS = ["kl", "itakura_saito", "renyi_0.25", "l2", "negdot"]
@@ -47,8 +47,9 @@ def _case(name, dev, B, R, n, m, seed=0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(64, 120, 128), (512, 248, 128), (7, 33, 30)],
-                         ids=["search", "nndescent", "ragged-scalar"])
+@pytest.mark.parametrize("shape", [(64, 120, 128), (512, 248, 128), (7, 33, 30),
+                                   (64, 240, 128)],
+                         ids=["search", "nndescent", "ragged-scalar", "search-nn30"])
 @pytest.mark.parametrize("name", DISTS)
 def test_kernel_matches_plain(name, shape, cuda):
     B, R, m = shape
@@ -151,3 +152,159 @@ def test_swgraph_wave_build_on_the_card(cuda):
     a = adj.cpu().numpy()
     assert a.max() < 600 and not (a == np.arange(600)[:, None]).any()
     assert int(deg[1:].min()) >= 1
+
+
+# chip_smoke.py's DM_CHECK_SHAPES: (B, N, m')
+DM_SHAPES = [(128, 4096, 8), (128, 4096, 32), (128, 4096, 128), (512, 8192, 128),
+             (33, 300, 64), (64, 1000, 512), (64, 1000, 2100), (20_000, 64, 32)]
+
+
+def _hist(rng, n, m, dev):
+    x = torch.from_numpy(rng.dirichlet(np.full(m, 0.1), size=n).astype(np.float32))
+    return x.clamp(min=1e-6).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", DM_SHAPES, ids=["x".join(map(str, s)) for s in DM_SHAPES])
+@pytest.mark.parametrize("name", ["kl", "itakura_saito", "l2"])
+def test_tensor_core_distance_matrix_at_the_smoke_shapes(name, shape, cuda):
+    B, N, m = shape
+    rng = np.random.default_rng(4)
+    dist = get_distance(name)
+    Q, X = _hist(rng, B, m, cuda), _hist(rng, N, m, cuda)
+    before = distance_matrix.launches
+    got = ops.query_distance_matrix(dist, Q, X)
+    torch.cuda.synchronize()
+    assert distance_matrix.launches == before + 1
+    want = distance_matrix_ref(dist.prep_right(Q), dist.prep_left(X), dist.bias_right(Q),
+                               dist.bias_left(X), dist.post_id, dist.c0)
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", DISTS)
+def test_distance_matrix_right_mode(name, cuda):
+    rng = np.random.default_rng(5)
+    dist = get_distance(name)
+    Q, X = _hist(rng, 200, 64, cuda), _hist(rng, 1000, 64, cuda)
+    got = ops.query_distance_matrix(dist, Q, X, mode="right")
+    want = distance_matrix_ref(dist.prep_left(Q), dist.prep_right(X), dist.bias_left(Q),
+                               dist.bias_right(X), dist.post_id, dist.c0)
+    torch.testing.assert_close(got, want, **TOL)
+    torch.testing.assert_close(got, dist.query_matrix(Q, X, mode="right"), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(128, 4096, 128), (33, 300, 64), (20_000, 64, 32)],
+                         ids=["chunk", "ragged", "stitch"])
+def test_distance_matrix_bf16_at_the_smoke_shapes(shape, cuda):
+    B, N, m = shape
+    rng = np.random.default_rng(6)
+    dist = get_distance("kl")
+    Q, X = _hist(rng, B, m, cuda), _hist(rng, N, m, cuda)
+    reps = [dist.prep_right(Q).bfloat16(), dist.prep_left(X).bfloat16(),
+            dist.bias_right(Q), dist.bias_left(X)]
+    torch.testing.assert_close(distance_matrix(*reps, dist.post_id, dist.c0),
+                               distance_matrix_ref(*reps, dist.post_id, dist.c0),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_distance_matrix_refuses_rows_tma_cannot_stage(cuda):
+    q, x = torch.rand(4, 6, device=cuda), torch.rand(9, 6, device=cuda)
+    with pytest.raises(ValueError, match="16 bytes"):
+        distance_matrix(q, x, torch.zeros(4, device=cuda), torch.zeros(9, device=cuda), 2)
+
+
+def _round_block(dist, dev, n=3000, K=12, n_random=8, m=64, seed=7):
+    """A real NN-descent round's inputs: the adjacency after a 2-round build
+    with a padded row and a hub, made safe as the round makes it."""
+    from repro_torch.core import nndescent as tnn
+
+    rng = np.random.default_rng(seed)
+    X = _hist(rng, n, m, dev)
+    adj, _ = tnn.build_nndescent(dist, X, torch.Generator(device=dev).manual_seed(seed),
+                                 K=K, iters=2, add_reverse=False)
+    adj = adj.clone()
+    adj[5, 4:] = -1  # a padded row: its -1 become 0, as in the round
+    adj[torch.from_numpy(rng.random((n, K)) < 0.02).to(dev)] = 17  # a hub of ~700 edges
+    safe = torch.where(adj >= 0, adj, 0).to(torch.int32).contiguous()
+    cand = torch.cat([safe[safe.reshape(-1).long()].reshape(n, K * K),
+                      torch.randint(-1, n, (n, K + n_random), device=dev, dtype=torch.int32)],
+                     dim=1)
+    cand = torch.where(cand == torch.arange(n, device=dev, dtype=torch.int32)[:, None], -1, cand)
+    reps = [a.contiguous() for a in (dist.prep_right(X), dist.bias_right(X), dist.prep_left(X),
+                                     dist.bias_left(X))]
+    return safe, cand, reps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", DISTS)
+def test_two_hop_join_matches_the_general_kernel_on_a_round(name, cuda):
+    dist = get_distance(name)
+    safe, cand, (q_rep, q_bias, x_rep, x_bias) = _round_block(dist, cuda)
+    n, K = safe.shape
+    general = frontier_scores(cand.contiguous(), q_rep, q_bias, x_rep, x_bias, dist.post_id,
+                              dist.c0)
+    block = torch.full((n, 3 + cand.shape[1]), -7.0, device=cuda)
+    counts = ops.launch_counts()
+    ops.nndescent_round_scores(dist, safe, cand, q_rep, q_bias, x_rep, x_bias, out=block[:, 3:])
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["two_hop_scores"] == counts["two_hop_scores"] + 1
+    assert after["frontier_scores"] == counts["frontier_scores"] + 1
+    assert bool((block[:, :3] == -7.0).all())
+    got = block[:, 3:]
+    assert torch.equal(torch.isinf(got), torch.isinf(general))
+    assert torch.equal(torch.isinf(got), cand < 0)
+    torch.testing.assert_close(got, general, **TOL)
+    want = two_hop_scores_ref(safe, q_rep, q_bias, x_rep, x_bias, dist.post_id, dist.c0)
+    torch.testing.assert_close(two_hop_scores(safe, q_rep, q_bias, x_rep, x_bias, dist.post_id,
+                                              dist.c0), want, **TOL)
+
+
+@pytest.mark.gpu
+def test_two_hop_join_scalar_path_and_wide_k(cuda):
+    """m' % 4 != 0 takes the scalar staging; K > 32 the second template."""
+    dist = get_distance("kl")
+    safe, _, (q_rep, q_bias, x_rep, x_bias) = _round_block(dist, cuda, n=800, K=40, m=30)
+    got = two_hop_scores(safe, q_rep, q_bias, x_rep, x_bias, dist.post_id, dist.c0)
+    want = two_hop_scores_ref(safe, q_rep, q_bias, x_rep, x_bias, dist.post_id, dist.c0)
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.gpu
+def test_frontier_scores_into_a_column_range(cuda):
+    dist, ids, (q_rep, q_bias, x_rep, x_bias) = _case("l2", cuda, 64, 240, 5000, 128)
+    wide = torch.cat([ids, ids[:, :5]], dim=1)
+    block = torch.full((64, 250), -7.0, device=cuda)
+    frontier_scores(wide[:, :240], q_rep, q_bias, x_rep, x_bias, dist.post_id, dist.c0,
+                    out=block[:, 10:])
+    torch.cuda.synchronize()
+    assert bool((block[:, :10] == -7.0).all())
+    torch.testing.assert_close(block[:, 10:], gather_scores_ref(
+        ids, q_rep, x_rep, q_bias, x_bias, dist.post_id, dist.c0), **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(130, 301, 64), (70, 130, 40), (257, 1000, 640)],
+                         ids=["odd-n", "n-even-not-4", "folded-m"])
+@pytest.mark.parametrize("name", ["kl", "renyi_0.25"])
+def test_distance_matrix_epilogue_paths(name, shape, cuda):
+    """N % 4 != 0 stores straight from the registers (no TMA box fits the
+    rows); m' > 128 takes the kernel that adds fold groups in float32."""
+    B, N, m = shape
+    rng = np.random.default_rng(8)
+    dist = get_distance(name)
+    Q, X = _hist(rng, B, m, cuda), _hist(rng, N, m, cuda)
+    got = ops.query_distance_matrix(dist, Q, X)
+    want = distance_matrix_ref(dist.prep_right(Q), dist.prep_left(X), dist.bias_right(Q),
+                               dist.bias_left(X), dist.post_id, dist.c0)
+    torch.testing.assert_close(got, want, **TOL)
+    reps = [dist.prep_right(Q).bfloat16(), dist.prep_left(X).bfloat16(),
+            dist.bias_right(Q), dist.bias_left(X)]
+    torch.testing.assert_close(distance_matrix(*reps, dist.post_id, dist.c0),
+                               distance_matrix_ref(*reps, dist.post_id, dist.c0),
+                               rtol=2e-2, atol=2e-2)

@@ -99,6 +99,40 @@ def test_knn_scan_ids_exact(name, data):
     np.testing.assert_array_equal(g2.numpy(), np.asarray(want_i))
 
 
+@pytest.mark.parametrize("mode", ["left", "right"])
+@pytest.mark.parametrize("name", ["kl", "itakura_saito", "renyi_0.25", "l2", "negdot"])
+def test_knn_scan_through_query_distance_matrix(name, mode, data, monkeypatch):
+    """Every chunk goes through ops.query_distance_matrix (the card's
+    distance_matrix kernel), in both modes, and the ids equal repro's."""
+    from repro_torch.kernels import ops
+
+    Q, db = data
+    calls = []
+    real = ops.query_distance_matrix
+    monkeypatch.setattr(tbf, "query_distance_matrix",
+                        lambda *a, **k: calls.append(k.get("mode")) or real(*a, **k))
+    want_d, want_i = knn_scan(get_distance(name), Q[:64], db, K, chunk=512, mode=mode)
+    got_d, got_i = tbf.knn_scan(td.get_distance(name), _t(Q[:64]), _t(db), K, chunk=512,
+                                mode=mode)
+    assert calls == [mode] * -(-db.shape[0] // 512)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), rtol=1e-5, atol=1e-5)
+
+
+def test_knn_scan_restores_the_callers_tf32_setting():
+    tf32, precision = torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        X = torch.rand(50, 8)
+        tbf.knn_scan(td.get_distance("l2"), X[:4], X, 3)
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.set_float32_matmul_precision(precision)
+
+
 def test_synthetic_histograms_and_split():
     from repro_torch.data import synthetic as ts
 
@@ -265,7 +299,7 @@ def test_serve_main_swgraph_on_cpu(engine, build_engine):
     assert stats["engine"] == engine and stats["spec"]["wave"] == 32
     assert stats["recall@k"] >= 0.9
     assert stats["kernel_launches"]["build"] == dict.fromkeys(
-        ("frontier_scores", "gather_scores", "distance_matrix"), 0)
+        ("frontier_scores", "two_hop_scores", "gather_scores", "distance_matrix"), 0)
 
 
 def test_serve_main_takes_a_spec():

@@ -31,9 +31,10 @@ from repro.kernels.gather_topk import gather_scores as jax_gather_scores
 from repro_torch.core import distances as td
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.distance_matrix import distance_matrix
-from repro_torch.kernels.frontier_gather import frontier_scores
+from repro_torch.kernels.frontier_gather import (EDGES_PER_ITEM, frontier_scores,
+                                                 two_hop_scores, two_hop_work_list)
 from repro_torch.kernels.gather_topk import gather_scores
-from repro_torch.kernels.ref import distance_matrix_ref, gather_scores_ref
+from repro_torch.kernels.ref import distance_matrix_ref, gather_scores_ref, two_hop_scores_ref
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -226,7 +227,8 @@ def test_ops_wrappers_match_distance_object_without_launching():
         want_g = jops.beam_gather_scores(jdist, jnp.asarray(ids), Q[:2], X, use_pallas=False)
         np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), **TOL)
     assert ops.launch_counts() == before
-    assert set(before) == {"frontier_scores", "gather_scores", "distance_matrix"}
+    assert set(before) == {"frontier_scores", "two_hop_scores", "gather_scores",
+                           "distance_matrix"}
 
 
 def test_new_kernel_wrappers_refuse_cpu_tensors():
@@ -237,3 +239,100 @@ def test_new_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         distance_matrix(_torch(r["q_rep"]), _torch(r["x_rep"]), _torch(r["q_bias"]),
                         _torch(r["x_bias"]), dist.post_id)
+
+
+def _adj_with_hub(n, K, hub_degree, seed=0):
+    """(n, K) int32 adjacency: random rows, node 0 named by ``hub_degree``
+    edges (several work items), and a block of nodes no edge names."""
+    rng = np.random.default_rng(seed)
+    adj = rng.integers(n // 4, n, (n, K)).astype(np.int32)  # nodes < n/4: in-degree 0 ...
+    adj[rng.random((n, K)) < 0.05] = 1  # ... but for 1, a small hub
+    adj[3, :] = 3  # a node whose every neighbour is itself: all self loops
+    outside_row_3 = np.setdiff1d(np.arange(n * K), np.arange(3 * K, 4 * K))
+    adj.reshape(-1)[rng.choice(outside_row_3, hub_degree, replace=False)] = 0  # and the hub
+    return adj
+
+
+@pytest.mark.parametrize("n,K,hub", [(200, 6, 5 * EDGES_PER_ITEM + 7), (64, 8, 3 * EDGES_PER_ITEM),
+                                     (50, 1, 40)])
+def test_two_hop_work_list_covers_every_edge_once(n, K, hub):
+    adj = torch.from_numpy(_adj_with_hub(n, K, hub))
+    edges, items = two_hop_work_list(adj)
+    assert edges.dtype == items.dtype == torch.int32 and items.shape[1] == 3
+    j, first, count = (items[:, c].long() for c in range(3))
+    assert int(count.min()) >= 1 and int(count.max()) <= EDGES_PER_ITEM
+    covered = torch.cat([edges[f:f + c].long() for f, c in zip(first.tolist(), count.tolist())])
+    # every edge (i, a) exactly once, and each item's edges all name its j
+    assert torch.equal(torch.sort(covered).values, torch.arange(n * K))
+    for jj, f, c in zip(j.tolist(), first.tolist(), count.tolist()):
+        assert bool((adj.reshape(-1)[edges[f:f + c].long()] == jj).all())
+    indeg = torch.bincount(adj.reshape(-1).long(), minlength=n)
+    items_per_node = torch.bincount(j, minlength=n)
+    assert torch.equal(items_per_node, (indeg + EDGES_PER_ITEM - 1) // EDGES_PER_ITEM)
+    assert int(indeg[0]) >= hub and int(items_per_node[0]) >= 2  # the hub is cut up
+    assert bool((items_per_node[indeg == 0] == 0).all()) and int((indeg == 0).sum()) > 0
+
+
+def _grouped_emulation(adj, q_rep, q_bias, x_rep, x_bias, post_id, c0):
+    """The join kernel's data flow on the CPU: per work item, the K rows of
+    its middle node against each of its edges' query rows."""
+    n, K = adj.shape
+    out = torch.full((n, K * K), float("nan"))
+    edges, items = two_hop_work_list(adj)
+    for j, f, c in items.tolist():
+        cols = adj[j].long()
+        rows, biases = x_rep[cols], x_bias[cols]
+        for e in edges[f:f + c].tolist():
+            i, a = divmod(e, K)
+            s = torch.sum(rows * q_rep[i][None, :], dim=-1)
+            d = td.apply_post(post_id, s, biases, q_bias[i], c0)
+            out[i, a * K:(a + 1) * K] = torch.where((cols < 0) | (cols == i), torch.inf, d)
+    return out
+
+
+@pytest.mark.parametrize("name", DISTS)
+def test_two_hop_grouped_scoring_matches_the_materialised_join(name):
+    n, K, m = 120, 5, 16
+    dist, _, r = _inputs(name, B=n, R=4, n=n, m=m, seed=7)
+    adj = torch.from_numpy(_adj_with_hub(n, K, 2 * EDGES_PER_ITEM + 3, seed=1))
+    reps = [_torch(r[k]) for k in ("q_rep", "q_bias", "x_rep", "x_bias")]
+    got = _grouped_emulation(adj, *reps, dist.post_id, dist.c0)
+    want = two_hop_scores_ref(adj, *reps, dist.post_id, dist.c0)
+    # the plain version: the materialised join, self loops -1, scored row by row
+    cand = adj[adj.reshape(-1).long()].reshape(n, K * K)
+    cand = torch.where(cand == torch.arange(n)[:, None], -1, cand)
+    torch.testing.assert_close(want, gather_scores_ref(cand, reps[0], reps[2], reps[1], reps[3],
+                                                       dist.post_id, dist.c0), rtol=0, atol=0)
+    assert torch.equal(torch.isinf(got), cand < 0) and bool(torch.isinf(got[3]).all())
+    torch.testing.assert_close(got, want, **TOL)
+    # and the JAX package's Pallas frontier_scores on the same join
+    pallas = np.asarray(jax_frontier_scores(
+        jnp.asarray(cand.numpy()), *(jnp.asarray(r[k]) for k in ("q_rep", "q_bias", "x_rep",
+                                                                  "x_bias")),
+        dist.post_id, dist.c0, interpret=True))
+    np.testing.assert_allclose(want.numpy(), pallas, **TOL)
+
+
+def test_two_hop_wrapper_refuses_cpu_tensors():
+    dist, _, r = _inputs("kl", B=40, n=40)
+    adj = torch.zeros((40, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        two_hop_scores(adj, _torch(r["q_rep"]), _torch(r["q_bias"]), _torch(r["x_rep"]),
+                       _torch(r["x_bias"]), dist.post_id)
+
+
+def test_query_distance_matrix_modes():
+    """Right mode is the plain matmul of prep_left(Q) and prep_right(X) with
+    the post-combine of Distance.query_matrix; an unknown mode is refused."""
+    rng = np.random.default_rng(6)
+    Q, X = _hist(rng, 9, 24), _hist(rng, 31, 24)
+    for name in DISTS:
+        tdist, jdist = td.get_distance(name), jd.get_distance(name)
+        got = ops.query_distance_matrix(tdist, _torch(Q), _torch(X), mode="right")
+        np.testing.assert_allclose(
+            got.numpy(), np.asarray(jdist.query_matrix(jnp.asarray(Q), jnp.asarray(X),
+                                                       mode="right")), **TOL)
+        np.testing.assert_allclose(got.numpy(), tdist.query_matrix(
+            _torch(Q), _torch(X), mode="right").numpy(), **TOL)
+    with pytest.raises(ValueError, match="mode"):
+        ops.query_distance_matrix(td.get_distance("kl"), _torch(Q), _torch(X), mode="both")

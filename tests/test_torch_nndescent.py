@@ -109,3 +109,33 @@ def test_build_from_generator_is_a_valid_graph(X):
     for K, iters in ((12, 4), (10, 5)):
         with pytest.raises(ValueError, match="draws"):
             tnn.build_nndescent(td.get_distance("kl"), Xt, K=K, iters=iters, draws=draws)
+
+
+@pytest.mark.parametrize("name", ["kl", "l2"])
+def test_round_scores_on_the_cpu_score_the_block_as_it_stands(name, X):
+    """ops.nndescent_round_scores writes the plain scores of the materialised
+    candidate block into a column range of a wider buffer, launching nothing."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import gather_scores_ref, two_hop_scores_ref
+
+    n, K, extra = 200, 6, 9
+    Xt = torch.from_numpy(np.array(X))[:n]
+    dist = td.get_distance(name)
+    rng = np.random.default_rng(4)
+    safe = _t(rng.integers(0, n, (n, K)))
+    cand = torch.cat([safe[safe.reshape(-1).long()].reshape(n, K * K),
+                      _t(rng.integers(-1, n, (n, extra)))], dim=1)
+    cand = torch.where(cand == torch.arange(n, dtype=torch.int32)[:, None], -1, cand)
+    q_rep, q_bias = dist.prep_right(Xt), dist.bias_right(Xt)
+    x_rep, x_bias = dist.prep_left(Xt), dist.bias_left(Xt)
+    block = torch.full((n, 3 + cand.shape[1]), -7.0)
+    before = ops.launch_counts()
+    ops.nndescent_round_scores(dist, safe, cand, q_rep, q_bias, x_rep, x_bias, out=block[:, 3:])
+    assert ops.launch_counts() == before
+    assert bool((block[:, :3] == -7.0).all())
+    want = gather_scores_ref(cand, q_rep, x_rep, q_bias, x_bias, dist.post_id, dist.c0)
+    torch.testing.assert_close(block[:, 3:], want, rtol=0, atol=0)
+    assert torch.equal(torch.isinf(block[:, 3:]), cand < 0)
+    torch.testing.assert_close(block[:, 3:3 + K * K],
+                               two_hop_scores_ref(safe, q_rep, q_bias, x_rep, x_bias,
+                                                  dist.post_id, dist.c0), rtol=0, atol=0)
