@@ -16,8 +16,9 @@ Every phase is fatal on failure; nothing is caught and passed over.
    block.  two_hop_scores: the same distances on a (4,096, 30) adjacency
    with a padded row and a hub of ~300 edges.  distance_matrix: kl,
    itakura_saito, renyi_0.25, renyi_2, l2 and negdot at 128x4096x{8,32,128},
-   512x8192x128, a ragged 33x300x64, m'=512 and 2,100, a bf16 case, the
-   build_sharded stitch shape (20,000 x 64, m'=32) and ``mode="right"``.
+   512x8192x128, a ragged 33x300x64, 33x300x30 (rows TMA cannot read),
+   m'=512 and 2,100, bf16 cases at m'=128 and 36, the build_sharded stitch
+   shape (20,000 x 64, m'=32) and ``mode="right"``.
    gather_scores: the same distances at (64, 30, 128), (64, 240, 128) with
    -1 padding and the wave builder's reverse-edge shape (960, 1, 32), and
    ``ops.beam_gather_scores``.
@@ -57,7 +58,8 @@ Every phase is fatal on failure; nothing is caught and passed over.
     NN-descent round is timed on the real candidate block of the phase 9
     build (rebuilt from the same data and seed): the general kernel over
     all R columns against the grouped join plus the general kernel over the
-    rest, in turns, and held to each other.
+    rest, in turns, and held to each other; the join's columns are also held
+    to the plain version on 2,048 rows and on every edge of the largest hub.
 11. profile: device time by kernel and the device's idle share for one
     full-size NN-descent build, one search batch and one SW-graph wave
     build (``torch.profiler``).
@@ -95,10 +97,12 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 N_FULL, D_FULL, Q_FULL, BATCH = 1_000_000, 128, 1024, 64
 KERNEL_SOURCES = ("frontier_gather", "distance_matrix", "gather_topk")
 DM_DISTANCES = DISTANCES[:3] + ["renyi_2"] + DISTANCES[3:]
-# (B, N, m'): bench_kernels.py's SHAPES, a ragged tile, m' on both sides of
-# the TPU kernel's block_k (2048), and build_sharded's stitch at the serve data
+# (B, N, m'): bench_kernels.py's SHAPES, a ragged tile (once with rows TMA
+# cannot read), m' on both sides of the TPU kernel's block_k (2048), and
+# build_sharded's stitch at the serve data
 DM_CHECK_SHAPES = [(128, 4096, 8), (128, 4096, 32), (128, 4096, 128), (512, 8192, 128),
-                   (33, 300, 64), (64, 1000, 512), (64, 1000, 2100), (20_000, 64, 32)]
+                   (33, 300, 64), (33, 300, 30), (64, 1000, 512), (64, 1000, 2100),
+                   (20_000, 64, 32)]
 # (B, M, m'): a search step, a frontier block, the wave build's reverse edges
 GS_CHECK_SHAPES = [(64, 30, 128), (64, 240, 128), (960, 1, 32)]
 SWGRAPH_NS = (1_000_000, 200_000, 100_000, 50_000)
@@ -207,6 +211,17 @@ def device_ms(fn, args_list, reps: int) -> float:
     return sum(r[0] for r in rows) / reps
 
 
+def device_ms_of(fn, reps: int, kernel: str):
+    """Mean device time per call of ``fn()``, split in two: the kernels whose
+    name holds ``kernel``, and every other kernel ``fn`` launches."""
+    fn()
+    _, rows = _profiled(lambda: [fn() for _ in range(reps)])
+    mine = sum(r[0] for r in rows if kernel in r[2])
+    if not mine:
+        raise AssertionError(f"the profiler recorded no {kernel} kernel")
+    return mine / reps, (sum(r[0] for r in rows) - mine) / reps
+
+
 def profile_device(fn, label: str) -> None:
     """Device time by kernel and the idle share of ``fn()`` under torch.profiler.
 
@@ -246,19 +261,27 @@ def dm_bound(B: int, N: int, m: int, itemsize: int = 4):
 
 
 def two_hop_bound(safe_adj, m: int):
-    """Least time of one two_hop_scores call on ``safe_adj``: (ms, by).
+    """Least time of one two_hop_scores call on ``safe_adj``, two lines:
+    ``{"tensor_core": (ms, by), "fp32_simt": (ms, by)}``.
 
     Bytes: the adjacency, both prepped copies of the rows (reps and biases)
     read once, the (n, K*K) output written once.  Operations: 2 m' per valid
-    output (c != i) at the float32 rate.
+    output (c != i).  Each work item is a small product (its edges' query
+    rows against the K rows of its middle node), so the tensor-core line
+    counts them as distance_matrix's: 3xTF32 at the TF32 rate; the
+    float32-SIMT line (67 TFLOP/s) is the rate the kernel computes at.
     """
     n, K = safe_adj.shape
     two_hop = safe_adj[safe_adj.reshape(-1).long()].reshape(n, K * K)
     valid = int((two_hop != torch.arange(n, device=two_hop.device)[:, None]).sum())
     nbytes = 4 * n * K + 2 * (4 * n * m + 4 * n) + 4 * n * K * K
     t_bytes = nbytes / H100_BYTES_PER_S
-    t_ops = 2.0 * m * valid / H100_FP32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    flops = 2.0 * m * valid
+    lines = {}
+    for name, t_ops in (("tensor_core", 3 * flops / H100_TF32_FLOPS),
+                        ("fp32_simt", flops / H100_FP32_FLOPS)):
+        lines[name] = (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    return lines
 
 
 def check_close(label, got, want, tol, pad=None):
@@ -421,6 +444,14 @@ def main() -> int:
         reps = (dist.prep_right(Q).bfloat16(), dist.prep_left(X).bfloat16(),
                 dist.bias_right(Q).float(), dist.bias_left(X).float())
         check_close(f"distance_matrix {name} 128x4096x128 bf16",
+                    distance_matrix(*reps, dist.post_id, dist.c0),
+                    distance_matrix_ref(*reps, dist.post_id, dist.c0), dict(rtol=2e-2, atol=2e-2))
+        # bf16 rows of 72 bytes: staged without TMA
+        data = lda_like_histograms(rng, 33 + 300, 36, device="cuda")
+        Q, X = data[:33], data[33:]
+        reps = (dist.prep_right(Q).bfloat16(), dist.prep_left(X).bfloat16(),
+                dist.bias_right(Q).float(), dist.bias_left(X).float())
+        check_close(f"distance_matrix {name} 33x300x36 bf16",
                     distance_matrix(*reps, dist.post_id, dist.c0),
                     distance_matrix_ref(*reps, dist.post_id, dist.c0), dict(rtol=2e-2, atol=2e-2))
         x_rep = dist.prep_left(X_chk).contiguous()
@@ -712,7 +743,7 @@ def main() -> int:
         frontier_scores(cand, *reps_all, dist.post_id, dist.c0, out=out_general)
 
     def round_grouped():
-        ops.nndescent_round_scores(dist, safe, cand, *reps_all, out=out_grouped)
+        ops.nndescent_round_scores(dist, safe, cand[:, KK:], *reps_all, out=out_grouped)
 
     # in turns: general, grouped, grouped, general
     rt = {"general_ms": device_ms(round_general, [()], 3),
@@ -725,37 +756,61 @@ def main() -> int:
     round_grouped()
     check_close("NN-descent round, real block: grouped join + general vs general",
                 out_grouped, out_general, TOL, pad=cand < 0)
-    work = two_hop_work_list(safe)
-    join_out = out_grouped[:, :KK]
-    rt["join_kernel_ms"] = device_ms(lambda: two_hop_scores(
-        safe, qa_rep, qa_bias, x_rep, x_bias, dist.post_id, dist.c0, out=join_out,
-        work=work), [()], 5)
-    rt["work_list_ms"] = device_ms(lambda: two_hop_work_list(safe), [()], 5)
-    rt["rest_general_ms"] = device_ms(lambda: frontier_scores(
-        cand[:, KK:], *reps_all, dist.post_id, dist.c0, out=out_grouped[:, KK:]), [()], 5)
-    rt["join_bound_ms"], rt["join_bound_by"] = two_hop_bound(safe, D_FULL)
-    rt["general_bound_ms"], rt["general_bound_by"], rt["general_gathered_rows_ms"] = bound(
-        cand, D_FULL)
+    # the join's columns against the plain version: the first rows, and every
+    # edge of the largest hub (its work items at the real skew)
     plain_rows = 2048  # the plain join materialises (rows, K*K, m')
     sub = cand[:plain_rows, :KK].contiguous()
+
+    def join_plain():
+        return gather_scores_ref(sub, qa_rep[:plain_rows], x_rep, qa_bias[:plain_rows], x_bias,
+                                 dist.post_id, dist.c0)
+
+    max_err[("two_hop_scores", dist.name, "real block rows")] = check_close(
+        f"two_hop_scores real block, rows 0-{plain_rows - 1} vs plain",
+        out_grouped[:plain_rows, :KK], join_plain(), TOL)
+    hub = int(torch.argmax(indeg))
+    hub_edges = torch.nonzero(safe.reshape(-1) == hub).squeeze(1)
+    hub_i = hub_edges // K_nn
+    hub_cols = (hub_edges % K_nn)[:, None] * K_nn + torch.arange(K_nn, device="cuda")[None, :]
+    max_err[("two_hop_scores", dist.name, "real block hub")] = check_close(
+        f"two_hop_scores real block, the {hub_edges.numel()} edges of hub {hub} vs plain",
+        out_grouped[hub_i[:, None], hub_cols],
+        gather_scores_ref(cand[hub_i[:, None], hub_cols].contiguous(), qa_rep[hub_i], x_rep,
+                          qa_bias[hub_i], x_bias, dist.post_id, dist.c0), TOL)
+    join_out = out_grouped[:, :KK]
+    # one two_hop_scores call: the join kernel, and the work list's kernels
+    rt["join_kernel_ms"], rt["work_list_ms"] = device_ms_of(lambda: two_hop_scores(
+        safe, qa_rep, qa_bias, x_rep, x_bias, dist.post_id, dist.c0, out=join_out), 5,
+        "two_hop_kernel")
+    rt["rest_general_ms"] = device_ms(lambda: frontier_scores(
+        cand[:, KK:], *reps_all, dist.post_id, dist.c0, out=out_grouped[:, KK:]), [()], 5)
+    join_lines = two_hop_bound(safe, D_FULL)
+    rt["join_bound_ms"], rt["join_bound_by"] = join_lines["tensor_core"]
+    rt["join_bound_fp32_simt_ms"], rt["join_bound_fp32_simt_by"] = join_lines["fp32_simt"]
+    rt["general_bound_ms"], rt["general_bound_by"], rt["general_gathered_rows_ms"] = bound(
+        cand, D_FULL)
     rt["join_plain_rows"] = plain_rows
-    rt["join_plain_ms"] = device_ms(lambda: gather_scores_ref(
-        sub, qa_rep[:plain_rows], x_rep, qa_bias[:plain_rows], x_bias, dist.post_id, dist.c0),
-        [()], 5)
-    rt.update({"n": N_FULL, "K": K_nn, "R": width, "work_items": int(work[1].shape[0]),
+    rt["join_plain_ms"] = device_ms(join_plain, [()], 5)
+    rt.update({"n": N_FULL, "K": K_nn, "R": width,
+               "work_items": int(two_hop_work_list(safe)[1].shape[0]),
+               "hub": hub, "hub_edges": int(hub_edges.numel()),
                "in_degree_mean": float(indeg.mean()), "in_degree_max": float(indeg.max()),
                "in_degree_p99": float(torch.quantile(indeg, 0.99))})
     log("time NN-descent round, real candidate block: " + json.dumps(rt))
-    del cand, out_general, out_grouped, join_out, work, sub
+    del cand, out_general, out_grouped, join_out, sub, hub_edges, hub_i, hub_cols
 
     # distance_matrix: a knn_scan chunk (the main path's ground truth),
-    # build_sharded's stitch, 512 rows
+    # build_sharded's stitch, 512 rows, and a knn_scan chunk at d = 30,
+    # whose 120-byte rows the producer warp stages without TMA
     dm_rows = []
     stitch = (X_sh.shape[0], 64, 32)
+    data30 = lda_like_histograms(np.random.default_rng(3), 1024 + 8192, 30, device="cuda")
     for label, (B, N, m), src_q, src_x in [
             ("knn_scan chunk", (1024, 8192, D_FULL), Q, X[:8192]),
             ("build_sharded stitch", stitch, X_sh, X_sh[:64]),
-            ("bench_kernels", (512, 8192, D_FULL), Q[:512], X[8192:16384])]:
+            ("bench_kernels", (512, 8192, D_FULL), Q[:512], X[8192:16384]),
+            ("knn_scan chunk, rows staged without TMA", (1024, 8192, 30), data30[:1024],
+             data30[1024:])]:
         q_rep, x_rep_t = dist.prep_right(src_q).contiguous(), dist.prep_left(src_x).contiguous()
         q_b, x_b = dist.bias_right(src_q).contiguous(), dist.bias_left(src_x).contiguous()
         args = [(q_rep, x_rep_t, q_b, x_b)]

@@ -128,7 +128,7 @@ def build_nndescent(dist, X, generator=None, K: int = 16, iters: int = 8,
         cand[:, KK:KK + K] = _sampled_reverse(adj, K, draws.rev_slots[r])
         cand[:, KK + K:] = draws.rnd[r]
         cand.masked_fill_(cand == iota[:, None], -1)  # no self loops
-        nndescent_round_scores(dist, safe, cand, qc_all["rep"], qc_all["bias"],
+        nndescent_round_scores(dist, safe, cand[:, KK:], qc_all["rep"], qc_all["bias"],
                                consts["rep"], consts["bias"], out=d[:, K:])
         adj_d, adj = _dedup_topk(d, ids, K)
 

@@ -47,8 +47,11 @@
 //     the BN = 128 kernel.
 //   * Ragged B, N and m' are TMA's out-of-bounds zero fill (zeros add
 //     nothing to a dot product) and a masked epilogue; nothing is padded in
-//     device memory.  TMA needs 16-byte row strides and bases: m' a multiple
-//     of 4 (bf16: 8); the wrapper checks.
+//     device memory.  TMA needs 16-byte row strides and bases; where the
+//     reps have neither (m' % 4 != 0, bf16: m' % 8 != 0, or a base off a
+//     16-byte boundary) the producer warp stages each tile itself: plain
+//     loads, zeros out of bounds, stored in the same swizzled layout, fenced
+//     into the async proxy before it arrives on the stage's barrier.
 //   * Epilogue, one instance per post-combine (chosen once per tile, so the
 //     executed code stays small enough for the instruction cache): for
 //     BN = 128 and N % 4 == 0 the warpgroup writes 64 x 32 chunks into
@@ -415,6 +418,38 @@ __device__ __forceinline__ void store_tile(const float (&tot)[BN / 2], const flo
   }
 }
 
+// The producer warp's staging where TMA cannot read the reps: the
+// (kRows, 128-byte) box at rows [r0, r0 + kRows) and k [k0, k0 + kKB) of the
+// (rows, m) matrix src, zeros out of bounds, in TMA's 128-byte swizzle (the
+// 16-byte chunk c of row r at chunk c ^ (r % 8)).  Consecutive lanes read
+// consecutive k of a row; each lane keeps kUnroll loads in flight.
+template <typename T, int kRows>
+__device__ __forceinline__ void stage_box(uint8_t* dst, const T* __restrict__ src, int rows,
+                                          int m, int r0, int k0, int lane) {
+  using Bits = typename std::conditional<sizeof(T) == 4, uint32_t, uint16_t>::type;
+  constexpr int kKB = kRowBytes / static_cast<int>(sizeof(T));
+  constexpr int kUnroll = 16;
+  static_assert((kRows * kKB) % (32 * kUnroll) == 0, "the box is not whole rounds of loads");
+  const Bits* in = reinterpret_cast<const Bits*>(src);
+  for (int base = lane; base < kRows * kKB; base += 32 * kUnroll) {
+    Bits v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int e = base + 32 * u;
+      const int r = r0 + e / kKB, k = k0 + e % kKB;
+      v[u] = r < rows && k < m ? __ldg(in + static_cast<int64_t>(r) * m + k) : Bits(0);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int e = base + 32 * u;
+      const int r = e / kKB;
+      const int byte = (e % kKB) * static_cast<int>(sizeof(T));
+      *reinterpret_cast<Bits*>(dst + r * kRowBytes + (((byte >> 4) ^ (r % 8)) << 4) +
+                               (byte & 15)) = v[u];
+    }
+  }
+}
+
 // One epilogue per post-combine, chosen once per tile: inlining all four for
 // every output would overflow the instruction cache.
 template <typename Cfg, int BN>
@@ -451,9 +486,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 distance_matrix_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_x,
                        const __grid_constant__ CUtensorMap tm_out,
+                       const T* __restrict__ q_rep, const T* __restrict__ x_rep,
                        const float* __restrict__ q_bias, const float* __restrict__ x_bias,
-                       float* __restrict__ out, int B, int N, int m, int tma_store_out,
-                       int post_id, float c0) {
+                       float* __restrict__ out, int B, int N, int m, int by_tma,
+                       int tma_store_out, int post_id, float c0) {
   using Cfg = Config<T, BN>;
   constexpr int S = Cfg::kStages;
   extern __shared__ uint8_t smem_raw[];
@@ -482,10 +518,12 @@ distance_matrix_kernel(const __grid_constant__ CUtensorMap tm_q,
   // of stages runs on across tiles, so the producer fills the next tile's
   // stages while the consumers store the last one.
   if (warp == kConsumerWarps) {
-    if (lane == 0) {
+    if (tma_store_out && lane == 0) prefetch_map(&tm_out);
+    if (by_tma && lane == 0) {
       prefetch_map(&tm_q);
       prefetch_map(&tm_x);
-      if (tma_store_out) prefetch_map(&tm_out);
+    }
+    if (!by_tma || lane == 0) {
       int it = 0;
       for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
         const int m0 = (tile / tiles_n) * kBM;
@@ -494,9 +532,19 @@ distance_matrix_kernel(const __grid_constant__ CUtensorMap tm_q,
           const int s = it % S;
           mbar_wait(empty + s, ((it / S) & 1) ^ 1);
           uint8_t* stage = smem + s * Cfg::kStageBytes;
-          mbar_expect_tx(full + s, Cfg::kTileA + Cfg::kTileB);
-          tma_load(stage, &tm_q, full + s, kb * Cfg::kKB, m0);
-          tma_load(stage + Cfg::kTileA, &tm_x, full + s, kb * Cfg::kKB, n0);
+          if (by_tma) {
+            mbar_expect_tx(full + s, Cfg::kTileA + Cfg::kTileB);
+            tma_load(stage, &tm_q, full + s, kb * Cfg::kKB, m0);
+            tma_load(stage + Cfg::kTileA, &tm_x, full + s, kb * Cfg::kKB, n0);
+          } else {
+            // the whole warp stages the tiles; each lane makes its writes
+            // visible to the wgmmas' async proxy before lane 0 arrives
+            stage_box<T, kBM>(stage, q_rep, B, m, m0, kb * Cfg::kKB, lane);
+            stage_box<T, BN>(stage + Cfg::kTileA, x_rep, N, m, n0, kb * Cfg::kKB, lane);
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            __syncwarp();
+            if (lane == 0) mbar_arrive(full + s);
+          }
         }
       }
     }
@@ -666,8 +714,13 @@ cudaError_t launch(const void* q_rep, const void* x_rep, const float* q_bias,
                    const float* x_bias, float* out, int B, int N, int m, int post_id, float c0,
                    cudaStream_t stream) {
   using Cfg = Config<T, BN>;
-  CUtensorMap tm_q, tm_x, tm_out;
-  if (!encode<T>(&tm_q, q_rep, B, m, kBM) || !encode<T>(&tm_x, x_rep, N, m, BN)) {
+  CUtensorMap tm_q = {}, tm_x = {}, tm_out = {};
+  // TMA reads the reps where their rows and bases are whole 16-byte words;
+  // otherwise the producer warp stages them
+  const int by_tma = (static_cast<size_t>(m) * sizeof(T)) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(q_rep) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(x_rep) % 16 == 0;
+  if (by_tma && (!encode<T>(&tm_q, q_rep, B, m, kBM) || !encode<T>(&tm_x, x_rep, N, m, BN))) {
     return cudaErrorInvalidValue;
   }
   // the output goes out through TMA where its rows are whole 16-byte words
@@ -696,7 +749,8 @@ cudaError_t launch(const void* q_rep, const void* x_rep, const float* q_bias,
   if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
   const int grid = static_cast<int>(tiles < resident ? tiles : resident);
   distance_matrix_kernel<T, BN, kFolds><<<grid, kThreads, Cfg::kSmem, stream>>>(
-      tm_q, tm_x, tm_out, q_bias, x_bias, out, B, N, m, tma_store_out, post_id, c0);
+      tm_q, tm_x, tm_out, static_cast<const T*>(q_rep), static_cast<const T*>(x_rep), q_bias,
+      x_bias, out, B, N, m, by_tma, tma_store_out, post_id, c0);
   return cudaGetLastError();
 }
 
@@ -721,8 +775,8 @@ cudaError_t launch_n(const void* q_rep, const void* x_rep, const float* q_bias,
 
 // Plain C entry, loaded with ctypes.  dtype 0 = float32 reps, 1 = bfloat16
 // reps (biases are float32 either way).  Returns the cudaError_t of the
-// launch (0 = cudaSuccess); the launch is asynchronous on `stream`.  Reps
-// must have 16-byte aligned bases and rows (m' % 4 == 0, bf16: m' % 8 == 0).
+// launch (0 = cudaSuccess); the launch is asynchronous on `stream`.  Any
+// m' >= 1 and any element-aligned base.
 extern "C" int distance_matrix_launch(const void* q_rep, const void* x_rep, const float* q_bias,
                                       const float* x_bias, float* out, int B, int N, int m,
                                       int dtype, int post_id, float c0, void* stream) {

@@ -8,7 +8,9 @@ persistent blocks of one producer warp and two consumer warpgroups walk
 128 x 128 (for N <= 64, 128 x 64) output tiles; float32 reps run as
 3xTF32 (hi/lo split, three products), bf16 reps as one bf16 pass; the
 post-combine in the epilogue; ragged B, N and m' through TMA's zero fill
-and a masked store.
+and a masked store.  Reps whose rows or bases are not whole 16-byte words
+(m' % 4 != 0, bf16: m' % 8 != 0), which TMA cannot read, are staged by the
+producer warp with plain loads into the same layout.
 
 Bound: tensor-core operations (3 x 2 B N m' at 495 TFLOP/s) or bytes,
 whichever is larger at the shape.  ``knn_scan`` scores every chunk with it
@@ -43,8 +45,7 @@ def distance_matrix(q_rep, x_rep, q_bias, x_bias, post_id: int, c0: float = 0.0)
     """(B, N) float32 left-query distances D[b, i] = post(q_rep[b] . x_rep[i]).
 
     q_rep (B, m') and x_rep (N, m') both float32 or both bfloat16; q_bias (B,)
-    and x_bias (N,) float32; all contiguous and on one CUDA device.  The
-    kernel's TMA needs 16-byte rows and bases: m' a multiple of 4 (bf16: 8).
+    and x_bias (N,) float32; all contiguous and on one CUDA device; m' >= 1.
     """
     device = q_rep.device
     if device.type != "cuda":
@@ -59,11 +60,8 @@ def distance_matrix(q_rep, x_rep, q_bias, x_bias, post_id: int, c0: float = 0.0)
     check_tensor("x_bias", x_bias, torch.float32, (N,), device)
     if post_id not in (0, 1, 2, 3):
         raise ValueError(f"unknown post id {post_id}")
-    if m == 0 or (m * q_rep.element_size()) % 16:
-        raise ValueError(f"m'={m}: TMA needs rows of a multiple of 16 bytes "
-                         f"(m' % {16 // q_rep.element_size()} == 0)")
-    if q_rep.data_ptr() % 16 or x_rep.data_ptr() % 16:
-        raise ValueError("q_rep and x_rep must start on 16-byte boundaries for TMA")
+    if m == 0:
+        raise ValueError("distance_matrix needs m' >= 1")
     out = torch.empty((B, N), dtype=torch.float32, device=device)
     if B == 0 or N == 0:
         return out

@@ -113,18 +113,19 @@ def frontier_scores(ids, q_rep, q_bias, x_rep, x_bias, post_id: int, c0: float =
 frontier_scores.launches = 0
 
 
-def two_hop_work_list(safe_adj, chunk: int = EDGES_PER_ITEM):
+def two_hop_work_list(safe_adj):
     """The join's work list: ``(edges (n K,) int32, items (n_items, 3) int32)``.
 
     ``edges`` holds the edge ids ``i K + a`` sorted (stably) by their middle
     node ``j = safe_adj[i, a]``; each row ``(j, first, count)`` of ``items``
-    names ``count <= chunk`` consecutive edges of one ``j``, starting at
-    ``edges[first]``.  A node of in-degree d gets ceil(d / chunk) items, a
-    node no edge names gets none.  Plain PyTorch on the tensor's device; one
+    names ``count <= EDGES_PER_ITEM`` consecutive edges of one ``j``, starting
+    at ``edges[first]``.  A node of in-degree d gets ceil(d / EDGES_PER_ITEM)
+    items, a node no edge names gets none.  Plain PyTorch on the tensor's device; one
     host sync for the item count.
     """
     n, K = safe_adj.shape
     dev = safe_adj.device
+    chunk = EDGES_PER_ITEM
     j = safe_adj.reshape(-1)
     edges = torch.sort(j, stable=True).indices.to(torch.int32)
     counts = torch.bincount(j, minlength=n)
@@ -140,7 +141,7 @@ def two_hop_work_list(safe_adj, chunk: int = EDGES_PER_ITEM):
 
 
 def two_hop_scores(safe_adj, q_rep, q_bias, x_rep, x_bias, post_id: int, c0: float = 0.0,
-                   out=None, work=None):
+                   out=None):
     """(n, K*K) scores of the two-hop join, grouped by the middle node.
 
     ``out[i, a*K + b]`` is the left-query distance of ``x[c]`` from query
@@ -149,7 +150,7 @@ def two_hop_scores(safe_adj, q_rep, q_bias, x_rep, x_bias, post_id: int, c0: flo
     [0, n) (K <= 64); q_rep (n, m') and q_bias (n,) the rows prepped as
     queries; x_rep (n, m') and x_bias (n,) as database rows; float32,
     contiguous, one CUDA device.  ``out`` may be a column range of a wider
-    block.  ``work`` is ``two_hop_work_list(safe_adj)`` when the caller has it.
+    block.
     """
     device = safe_adj.device
     if device.type != "cuda":
@@ -172,7 +173,7 @@ def two_hop_scores(safe_adj, q_rep, q_bias, x_rep, x_bias, post_id: int, c0: flo
     out = _out(out, (n, K * K), device)
     if n == 0 or K == 0:
         return out
-    edges, items = two_hop_work_list(safe_adj) if work is None else work
+    edges, items = two_hop_work_list(safe_adj)
     fn = _fn("two_hop_scores_launch")
     with torch.cuda.device(device):
         err = fn(safe_adj.data_ptr(), edges.data_ptr(), items.data_ptr(), items.shape[0],

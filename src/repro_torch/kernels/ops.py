@@ -11,7 +11,7 @@ from repro_torch.core.distances import Distance
 from repro_torch.kernels.distance_matrix import distance_matrix
 from repro_torch.kernels.frontier_gather import frontier_scores, two_hop_scores
 from repro_torch.kernels.gather_topk import gather_scores
-from repro_torch.kernels.ref import distance_matrix_ref, gather_scores_ref
+from repro_torch.kernels.ref import distance_matrix_ref, gather_scores_ref, two_hop_scores_ref
 
 
 def _device_type(t) -> str:
@@ -77,25 +77,27 @@ def frontier_gather_scores(dist: Distance, ids, q_rep, q_bias, x_rep, x_bias):
     return gather_scores_ref(ids, q_rep, x_rep, q_bias, x_bias, dist.post_id, dist.c0)
 
 
-def nndescent_round_scores(dist: Distance, safe_adj, cand, q_rep, q_bias, x_rep, x_bias, out):
-    """Score an NN-descent round's (n, R) candidate block into ``out``.
+def nndescent_round_scores(dist: Distance, safe_adj, rest, q_rep, q_bias, x_rep, x_bias, out):
+    """Score an NN-descent round's (n, K*K + C) candidate block into ``out``.
 
-    ``cand[:, :K*K]`` is the two-hop join ``safe_adj[safe_adj]`` with self
-    loops set to -1, the remaining columns any other candidates (-1 padding);
-    ``out`` is an (n, R) float32 block, possibly a column range of a wider
-    one.  On the card the join columns go through the grouped
-    ``two_hop_scores`` kernel and the rest through ``frontier_scores``, both
-    writing into ``out``; on the CPU the plain version scores ``cand`` as it
-    stands.
+    The first K*K columns are the two-hop join ``safe_adj[safe_adj]`` with
+    self loops scored +inf; ``rest`` (n, C) holds the remaining candidates
+    (-1 padding).  ``out`` is an (n, K*K + C) float32 block, possibly a
+    column range of a wider one.  On the card the join columns go through
+    the grouped ``two_hop_scores`` kernel and ``rest`` through
+    ``frontier_scores``, both writing into ``out``; on the CPU their plain
+    versions, the join materialised from ``safe_adj`` as the kernel reads it.
     """
     KK = safe_adj.shape[1] ** 2
-    if _device_type(cand) == "cuda":
+    if _device_type(safe_adj) == "cuda":
         two_hop_scores(safe_adj, q_rep, q_bias, x_rep, x_bias, dist.post_id, dist.c0,
                        out=out[:, :KK])
-        frontier_scores(cand[:, KK:], q_rep, q_bias, x_rep, x_bias, dist.post_id, dist.c0,
+        frontier_scores(rest, q_rep, q_bias, x_rep, x_bias, dist.post_id, dist.c0,
                         out=out[:, KK:])
         return out
-    out.copy_(gather_scores_ref(cand, q_rep, x_rep, q_bias, x_bias, dist.post_id, dist.c0))
+    out[:, :KK] = two_hop_scores_ref(safe_adj, q_rep, q_bias, x_rep, x_bias, dist.post_id,
+                                     dist.c0)
+    out[:, KK:] = gather_scores_ref(rest, q_rep, x_rep, q_bias, x_bias, dist.post_id, dist.c0)
     return out
 
 

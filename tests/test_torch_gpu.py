@@ -156,7 +156,7 @@ def test_swgraph_wave_build_on_the_card(cuda):
 
 # chip_smoke.py's DM_CHECK_SHAPES: (B, N, m')
 DM_SHAPES = [(128, 4096, 8), (128, 4096, 32), (128, 4096, 128), (512, 8192, 128),
-             (33, 300, 64), (64, 1000, 512), (64, 1000, 2100), (20_000, 64, 32)]
+             (33, 300, 64), (33, 300, 30), (64, 1000, 512), (64, 1000, 2100), (20_000, 64, 32)]
 
 
 def _hist(rng, n, m, dev):
@@ -211,10 +211,55 @@ def test_distance_matrix_bf16_at_the_smoke_shapes(shape, cuda):
 
 
 @pytest.mark.gpu
-def test_distance_matrix_refuses_rows_tma_cannot_stage(cuda):
-    q, x = torch.rand(4, 6, device=cuda), torch.rand(9, 6, device=cuda)
-    with pytest.raises(ValueError, match="16 bytes"):
-        distance_matrix(q, x, torch.zeros(4, device=cuda), torch.zeros(9, device=cuda), 2)
+@pytest.mark.parametrize("shape", [(4, 9, 6), (130, 301, 30), (64, 1000, 130), (300, 64, 30)],
+                         ids=["tiny", "ragged-30", "folded-130", "n64-30"])
+@pytest.mark.parametrize("name", ["kl", "renyi_0.25", "l2"])
+def test_distance_matrix_rows_tma_cannot_read(name, shape, cuda):
+    """m' % 4 != 0 (bf16: m' % 8 != 0) and bases off a 16-byte boundary: the
+    producer warp stages the tiles itself."""
+    B, N, m = shape
+    rng = np.random.default_rng(9)
+    dist = get_distance(name)
+    Q, X = _hist(rng, B, m, cuda), _hist(rng, N, m, cuda)
+    got = ops.query_distance_matrix(dist, Q, X)
+    want = distance_matrix_ref(dist.prep_right(Q), dist.prep_left(X), dist.bias_right(Q),
+                               dist.bias_left(X), dist.post_id, dist.c0)
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    torch.testing.assert_close(got, want, **TOL)
+    # 4 wide (16-byte rows), but the reps start one float past a 16-byte boundary
+    q_rep = torch.empty(B * 4 + 1, device=cuda)[1:].view(B, 4)
+    x_rep = torch.empty(N * 4 + 1, device=cuda)[1:].view(N, 4)
+    q_rep.copy_(dist.prep_right(Q)[:, :4])
+    x_rep.copy_(dist.prep_left(X)[:, :4])
+    assert q_rep.data_ptr() % 16 and x_rep.data_ptr() % 16
+    biases = (dist.bias_right(Q).contiguous(), dist.bias_left(X).contiguous())
+    torch.testing.assert_close(distance_matrix(q_rep, x_rep, *biases, dist.post_id, dist.c0),
+                               distance_matrix_ref(q_rep, x_rep, *biases, dist.post_id, dist.c0),
+                               **TOL)
+    reps = [dist.prep_right(Q).bfloat16(), dist.prep_left(X).bfloat16(), *biases]
+    torch.testing.assert_close(distance_matrix(*reps, dist.post_id, dist.c0),
+                               distance_matrix_ref(*reps, dist.post_id, dist.c0),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["left", "right"])
+@pytest.mark.parametrize("name", DISTS)
+def test_knn_scan_at_a_width_tma_cannot_read(name, mode, cuda):
+    """``serve --dim 30``'s ground truth: every chunk through the staged
+    kernel, the same ids as the plain matmul on the CPU."""
+    from repro_torch.core.brute_force import knn_scan
+
+    rng = np.random.default_rng(10)
+    dist = get_distance(name)
+    Q, X = _hist(rng, 64, 30, cuda), _hist(rng, 3000, 30, cuda)
+    before = distance_matrix.launches
+    got_d, got_i = knn_scan(dist, Q, X, 10, chunk=1024, mode=mode)
+    torch.cuda.synchronize()
+    assert distance_matrix.launches == before + 3
+    want_d, want_i = knn_scan(dist, Q.cpu(), X.cpu(), 10, chunk=1024, mode=mode)
+    torch.testing.assert_close(got_d.cpu(), want_d, **TOL)
+    assert float((got_i.cpu() == want_i).float().mean()) >= 0.99
 
 
 def _round_block(dist, dev, n=3000, K=12, n_random=8, m=64, seed=7):
@@ -249,7 +294,8 @@ def test_two_hop_join_matches_the_general_kernel_on_a_round(name, cuda):
                               dist.c0)
     block = torch.full((n, 3 + cand.shape[1]), -7.0, device=cuda)
     counts = ops.launch_counts()
-    ops.nndescent_round_scores(dist, safe, cand, q_rep, q_bias, x_rep, x_bias, out=block[:, 3:])
+    ops.nndescent_round_scores(dist, safe, cand[:, K * K:], q_rep, q_bias, x_rep, x_bias,
+                               out=block[:, 3:])
     torch.cuda.synchronize()
     after = ops.launch_counts()
     assert after["two_hop_scores"] == counts["two_hop_scores"] + 1

@@ -113,8 +113,9 @@ def test_build_from_generator_is_a_valid_graph(X):
 
 @pytest.mark.parametrize("name", ["kl", "l2"])
 def test_round_scores_on_the_cpu_score_the_block_as_it_stands(name, X):
-    """ops.nndescent_round_scores writes the plain scores of the materialised
-    candidate block into a column range of a wider buffer, launching nothing."""
+    """ops.nndescent_round_scores, given the adjacency and the candidates
+    after the join, writes the plain scores of the materialised candidate
+    block into a column range of a wider buffer, launching nothing."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import gather_scores_ref, two_hop_scores_ref
 
@@ -130,7 +131,8 @@ def test_round_scores_on_the_cpu_score_the_block_as_it_stands(name, X):
     x_rep, x_bias = dist.prep_left(Xt), dist.bias_left(Xt)
     block = torch.full((n, 3 + cand.shape[1]), -7.0)
     before = ops.launch_counts()
-    ops.nndescent_round_scores(dist, safe, cand, q_rep, q_bias, x_rep, x_bias, out=block[:, 3:])
+    ops.nndescent_round_scores(dist, safe, cand[:, K * K:], q_rep, q_bias, x_rep, x_bias,
+                               out=block[:, 3:])
     assert ops.launch_counts() == before
     assert bool((block[:, :3] == -7.0).all())
     want = gather_scores_ref(cand, q_rep, x_rep, q_bias, x_bias, dist.post_id, dist.c0)
