@@ -13,23 +13,28 @@ Every phase is fatal on failure; nothing is caught and passed over.
    atol = 1e-5 and equal inf positions (bf16 reps: 2e-2).  frontier_scores:
    kl, itakura_saito, renyi_0.25, l2 and negdot at the search and NN-descent
    shapes, m'=128, -1 padding, and once into a column range of a wider
-   block.  two_hop_scores: the same distances on a (4,096, 30) adjacency
+   block; at the search shapes gather_scores must equal it bit for bit (the
+   search step runs gather_scores).  two_hop_scores: the same distances on a (4,096, 30) adjacency
    with a padded row and a hub of ~300 edges.  distance_matrix: kl,
    itakura_saito, renyi_0.25, renyi_2, l2 and negdot at 128x4096x{8,32,128},
    512x8192x128, a ragged 33x300x64, 33x300x30 (rows TMA cannot read),
    m'=512 and 2,100, bf16 cases at m'=128 and 36, the build_sharded stitch
    shape (20,000 x 64, m'=32) and ``mode="right"``.
    gather_scores: the same distances at (64, 30, 128), (64, 240, 128) with
-   -1 padding and the wave builder's reverse-edge shape (960, 1, 32), and
-   ``ops.beam_gather_scores``.
+   -1 padding and a row of padding only, the wave builder's reverse-edge
+   shapes (960, 1, 32) and (960, 1, 128), wide rows (64, 30, 2100), a B*M
+   that is no multiple of a warp's cells (5, 3, 16), one cell (1, 1, 4),
+   wide rows at too few cells per row for a run (960, 1, 512) and
+   (4, 3, 2100), an ``x_rep`` base 4 bytes off a 16-byte word (scalar
+   loads), and ``ops.beam_gather_scores``.
 4. serve defaults: n=20,000, d=32, KL, NN-descent, ef 96, frontier 4, k 10,
    256 queries in batches of 64 through ``launch.serve.build_and_serve``;
    recall@10 >= 0.90.
 5. SW-graph at the serve defaults: the same entry point with
    ``builder="swgraph"`` (wave 64, NN 15, ef_construction 100); recall@10
    >= 0.98 (the JAX driver reaches 0.9898 at these flags); the launch counts
-   are set to 0 just before and read just after: the build must launch
-   frontier_scores and gather_scores, the search frontier_scores.
+   are set to 0 just before and read just after: the build (its searches
+   and reverse edges) and the search must launch gather_scores.
 6. SW-graph at d=128 (the paper's Wiki-d width): first n=20,000, recall@10
    >= 0.70 (the JAX driver reaches 0.7156); the per-wave time of that build
    picks the largest n of 10^6, 200,000, 100,000 and 50,000 whose build fits
@@ -48,13 +53,21 @@ Every phase is fatal on failure; nothing is caught and passed over.
    alpha=0.08), 1,024 held-out queries in batches of 64, NN-descent with the
    graph degree doubled (NN 30) and ef 512.  The launch counts are set to 0
    just before and read just after; the build must have launched
-   two_hop_scores and frontier_scores, the search frontier_scores, and the
+   two_hop_scores and frontier_scores, the search gather_scores, and the
    ground truth (``knn_scan``) distance_matrix; recall@10 must exceed 0.5.
 10. timing: each kernel per launch beside its bound, the plain version's
     time and, for distance_matrix, ``torch.matmul`` with TF32 off (the
-    product without the epilogue).  ``ms`` is device time from the
-    profiler's kernel records; ``event_ms`` is CUDA events around
-    back-to-back calls, which also counts the host's launch gaps.  The
+    product without the epilogue).  ``ms`` (and ``ms_again``, a second
+    reading) is device time from the profiler's kernel records, profiled
+    again where a window does not hold one record of the kernel per call;
+    ``event_ms`` is CUDA events around back-to-back calls, which also
+    counts the host's launch gaps; ``ids_pass_ms`` is one PyTorch
+    elementwise kernel over the same ids (``ids.neg()``), the launch and
+    id latency any gather pays.  gather_scores is timed at the search
+    steps (64, 240) and (64, 120) at m'=128, at the reverse edges
+    (960, 1, 32) of the serve data and (960, 1, 128) of the d=128 SW-graph
+    cell, at wide rows (64, 30, 2100) and at reverse edges of wide rows
+    (960, 1, 2100); frontier_scores at the NN-descent rounds.  The
     NN-descent round is timed on the real candidate block of the phase 9
     build (rebuilt from the same data and seed): the general kernel over
     all R columns against the grouped join plus the general kernel over the
@@ -103,18 +116,24 @@ DM_DISTANCES = DISTANCES[:3] + ["renyi_2"] + DISTANCES[3:]
 DM_CHECK_SHAPES = [(128, 4096, 8), (128, 4096, 32), (128, 4096, 128), (512, 8192, 128),
                    (33, 300, 64), (33, 300, 30), (64, 1000, 512), (64, 1000, 2100),
                    (20_000, 64, 32)]
-# (B, M, m'): a search step, a frontier block, the wave build's reverse edges
-GS_CHECK_SHAPES = [(64, 30, 128), (64, 240, 128), (960, 1, 32)]
+# (B, M, m'): a frontier block, a search step, the wave build's reverse edges
+# at d = 32 and 128, wide rows (chunked), a B*M that is no multiple of a
+# warp's cells, one cell, and wide rows at too few cells per row for a run
+# (reverse edges at d = 512; M = 3)
+GS_CHECK_SHAPES = [(64, 30, 128), (64, 240, 128), (960, 1, 32), (960, 1, 128), (64, 30, 2100),
+                   (5, 3, 16), (1, 1, 4), (960, 1, 512), (4, 3, 2100)]
 SWGRAPH_NS = (1_000_000, 200_000, 100_000, 50_000)
 SWGRAPH_BUILD_BUDGET_S = 150.0
 GRAPH_QUALITY_N = 1_000_000
 
 # (B, R): search step = batch x frontier*M, NN-descent round = rows x (K*K + K + 8)
 CHECK_SHAPES = [(64, 120), (4096, 248), (64, 240), (2048, 938)]
+# the search step runs gather_scores, the NN-descent round frontier_scores
 TIME_SHAPES = [("full search step B=64 R=240 (NN 30)", 64, 240),
                ("full NN-descent round B=1e6 R=938 (NN 30)", N_FULL, 938),
                ("serve-default search step B=64 R=120 (NN 15)", 64, 120),
                ("serve-default NN-descent round B=1e6 R=248 (NN 15)", N_FULL, 248)]
+GS_KERNELS = ("gather_scores_kernel", "gather_cells_kernel")
 
 
 def log(msg: str) -> None:
@@ -191,13 +210,19 @@ def _profiled(fn):
     return wall_ms, rows
 
 
-def device_ms(fn, args_list, reps: int) -> float:
+def device_ms(fn, args_list, reps: int, kernel=None) -> float:
     """Mean device time per call: the kernels ``fn`` launches, without host gaps.
 
     CUDA events around back-to-back calls also count the time the card
     waits for the host to launch the next call, which exceeds a short
-    kernel's own time; the profiler's kernel records do not.
+    kernel's own time; the profiler's kernel records do not.  ``kernel``
+    names (a substring, or a tuple of them) the kernel of which each call
+    launches exactly one: a window that holds another number of its records
+    lost some (or caught others) and is profiled again, at most twice.
+    Without ``kernel`` (plain versions) a window needs one record per call.
+    Every window's counts are logged, so a reading can be traced.
     """
+    names = (kernel,) if isinstance(kernel, str) else kernel
     for a in args_list[:2]:
         fn(*a)
 
@@ -205,10 +230,18 @@ def device_ms(fn, args_list, reps: int) -> float:
         for i in range(reps):
             fn(*args_list[i % len(args_list)])
 
-    _, rows = _profiled(run)
-    if not rows:
-        raise AssertionError("the profiler recorded no CUDA kernels")
-    return sum(r[0] for r in rows) / reps
+    for _ in range(3):
+        _, rows = _profiled(run)
+        recorded = sum(r[1] for r in rows)
+        if names is None:
+            ok, what = recorded >= reps, f"{recorded} records"
+        else:
+            mine = sum(r[1] for r in rows if any(k in r[2] for k in names))
+            ok, what = mine == reps, f"{mine} of {'/'.join(names)} in {recorded} records"
+        log(f"device_ms: {what} for {reps} calls" + ("" if ok else "; again"))
+        if ok:
+            return sum(r[0] for r in rows) / reps
+    raise AssertionError(f"the profiler recorded {what} for {reps} calls")
 
 
 def device_ms_of(fn, reps: int, kernel: str):
@@ -396,6 +429,11 @@ def main() -> int:
             want = gather_scores_ref(ids, q_rep, x_rep, q_bias, x_bias, dist.post_id, dist.c0)
             max_err[("frontier_scores", name, B, R)] = check_close(
                 f"frontier_scores {name} B={B} R={R}", got, want, TOL, pad=ids < 0)
+            if B == 64 and not torch.equal(gather_scores(ids, q_rep, q_bias, x_rep, x_bias,
+                                                         dist.post_id, dist.c0), got):
+                # the search step moved to gather_scores on this equality
+                raise AssertionError(f"gather_scores != frontier_scores bit for bit, {name} "
+                                     f"B={B} R={R}")
         # into a column range of a wider block, as the NN-descent round writes
         block = torch.full((B, R + 7), -7.0, device="cuda")
         frontier_scores(ids, q_rep, q_bias, x_rep, x_bias, dist.post_id, dist.c0,
@@ -419,6 +457,9 @@ def main() -> int:
         max_err[("two_hop_scores", name, n_j, K_j)] = check_close(
             f"two_hop_scores {name} n={n_j} K={K_j}", got, want, TOL)
     del x_rep, x_bias
+    # gather_scores' rows at the narrower and wider widths, drawn once
+    gs_data = {m: lda_like_histograms(rng, 20_000 if m <= D_FULL else 4_000, m, device="cuda")
+               for m in sorted({m for _, _, m in GS_CHECK_SHAPES} - {D_FULL})}
     for name in DM_DISTANCES:
         dist = get_distance(name)
         for B, N, m in DM_CHECK_SHAPES:
@@ -457,19 +498,30 @@ def main() -> int:
         x_rep = dist.prep_left(X_chk).contiguous()
         x_bias = dist.bias_left(X_chk).contiguous()
         for B, M, m in GS_CHECK_SHAPES:
-            if m == D_FULL:
-                xr, xb = x_rep, x_bias
-                Q = X_chk[torch.randint(0, X_chk.shape[0], (B,), generator=gen, device="cuda")]
-            else:
-                X = lda_like_histograms(rng, 20_000, m, device="cuda")
-                xr, xb = dist.prep_left(X).contiguous(), dist.bias_left(X).contiguous()
-                Q = X[torch.randint(0, X.shape[0], (B,), generator=gen, device="cuda")]
+            X = X_chk if m == D_FULL else gs_data[m]
+            xr, xb = (x_rep, x_bias) if m == D_FULL else (dist.prep_left(X).contiguous(),
+                                                         dist.bias_left(X).contiguous())
+            Q = X[torch.randint(0, X.shape[0], (B,), generator=gen, device="cuda")]
             q_rep, q_bias = dist.prep_right(Q).contiguous(), dist.bias_right(Q).contiguous()
             ids = random_ids(gen, B, M, xr.shape[0])
+            if M > 1:
+                ids[B // 2] = -1  # a row of padding only
             got = gather_scores(ids, q_rep, q_bias, xr, xb, dist.post_id, dist.c0)
             want = gather_scores_ref(ids, q_rep, xr, q_bias, xb, dist.post_id, dist.c0)
             max_err[("gather_scores", name, B, M, m)] = check_close(
                 f"gather_scores {name} B={B} M={M} m'={m}", got, want, TOL, pad=ids < 0)
+        # database rows from a base 4 bytes off a 16-byte word: the scalar loads
+        xr_off = torch.empty(x_rep[:20_000].numel() + 1, device="cuda")[1:].view(20_000, D_FULL)
+        xr_off.copy_(x_rep[:20_000])
+        ids = random_ids(gen, 64, 30, 20_000)
+        Q = X_chk[:64]
+        q_rep, q_bias = dist.prep_right(Q).contiguous(), dist.bias_right(Q).contiguous()
+        max_err[("gather_scores", name, "base off 16 bytes")] = check_close(
+            f"gather_scores {name} B=64 M=30 m'={D_FULL}, x_rep base off 16 bytes",
+            gather_scores(ids, q_rep, q_bias, xr_off, x_bias[:20_000], dist.post_id, dist.c0),
+            gather_scores_ref(ids, q_rep, x_rep[:20_000], q_bias, x_bias[:20_000], dist.post_id,
+                              dist.c0), TOL, pad=ids < 0)
+        del xr_off
         ids = random_ids(gen, 64, 30, 20_000)
         Q = X_chk[:64]
         got = ops.beam_gather_scores(dist, ids, Q, X_chk[:20_000])
@@ -477,7 +529,7 @@ def main() -> int:
                                  dist.bias_right(Q), dist.bias_left(X_chk[:20_000]),
                                  dist.post_id, dist.c0)
         check_close(f"ops.beam_gather_scores {name}", got, want, TOL, pad=ids < 0)
-    del X_chk, x_rep, x_bias
+    del X_chk, x_rep, x_bias, gs_data
 
     lap("3 check")
 
@@ -501,8 +553,8 @@ def main() -> int:
         {k: v for k, v in sw_small.items() if k != "spec"}))
     log(f"swgraph path launches: {sw_launches}")
     built_k = sw_small["kernel_launches"]["build"]
-    if not (built_k["frontier_scores"] > 0 and built_k["gather_scores"] > 0
-            and sw_small["kernel_launches"]["search"]["frontier_scores"] > 0):
+    if not (built_k["gather_scores"] > 0
+            and sw_small["kernel_launches"]["search"]["gather_scores"] > 0):
         raise AssertionError(f"kernels not launched on the SW-graph path: {sw_launches}")
     if sw_small["recall@k"] < 0.98:
         raise AssertionError(f"SW-graph recall@10 {sw_small['recall@k']} < 0.98 at the "
@@ -622,7 +674,6 @@ def main() -> int:
     full = build_and_serve(spec=full_spec, n_db=N_FULL, dim=D_FULL, n_queries=Q_FULL,
                            batch=BATCH, alpha=0.08, device="cuda", verbose=False)
     main_launches = ops.launch_counts()
-    launches = main_launches["frontier_scores"]
     log("main path n=1000000 d=128: " + json.dumps(
         {k: v for k, v in full.items() if k != "spec"}))
     log(f"main path launches: {main_launches} (build {full['kernel_launches']['build']}, "
@@ -630,7 +681,7 @@ def main() -> int:
         f"knn_scan ground truth)")
     built_k, searched_k = full["kernel_launches"]["build"], full["kernel_launches"]["search"]
     if not (built_k["two_hop_scores"] > 0 and built_k["frontier_scores"] > 0
-            and searched_k["frontier_scores"] > 0 and main_launches["distance_matrix"] > 0):
+            and searched_k["gather_scores"] > 0 and main_launches["distance_matrix"] > 0):
         raise AssertionError(f"kernel not launched on the main path: {main_launches}")
     if not full["recall@k"] > 0.5:
         raise AssertionError(f"recall@10 {full['recall@k']} <= 0.5 at n=1e6")
@@ -650,70 +701,98 @@ def main() -> int:
     def kernel(ids, q_rep, q_bias):
         return frontier_scores(ids, q_rep, q_bias, x_rep, x_bias, dist.post_id, dist.c0)
 
+    def gs(ids, q_rep, q_bias):
+        return gather_scores(ids, q_rep, q_bias, x_rep, x_bias, dist.post_id, dist.c0)
+
     def plain(ids, q_rep, q_bias):
         return gather_scores_ref(ids, q_rep, x_rep, q_bias, x_bias, dist.post_id, dist.c0)
 
-    timings = []
+    def ids_pass(ids, q_rep, q_bias):
+        # one PyTorch elementwise kernel that reads the ids and writes a block
+        # of their size: the launch and the ids' latency that any gather pays
+        return ids.neg()
+
+    fs_rows, gs_steps = [], []
     for label, B, R in TIME_SHAPES:
+        step = B < N_FULL  # a search step (gather_scores) or an NN-descent round
+        fn, names = (gs, GS_KERNELS) if step else (kernel, "frontier_scores_kernel")
         q_rep, q_bias = (qa_rep[:B], qa_bias[:B]) if B == N_FULL else (
             dist.prep_right(Q[:B]).contiguous(), dist.bias_right(Q[:B]).contiguous())
         # search steps cycle through 32 id sets, so a step does not find the
         # previous step's rows in L2; an NN-descent round is 1 GB+ of ids
-        sets = 32 if B < N_FULL else 1
+        sets = 32 if step else 1
         args = [(random_ids(gen, B, R, N_FULL), q_rep, q_bias) for _ in range(sets)]
-        reps = 320 if sets > 1 else 5
+        reps = 320 if step else 5
         b_ms, b_by, g_ms = bound(args[0][0], D_FULL)
-        row = {"shape": label, "B": B, "R": R,
-               "ms": device_ms(kernel, args, reps), "ms_again": device_ms(kernel, args, reps),
-               "event_ms": time_ms(kernel, args, reps),
+        row = {"shape": label, "kernel": "gather_scores" if step else "frontier_scores",
+               "B": B, "R": R, "m": D_FULL,
+               "ms": device_ms(fn, args, reps, names),
+               "ms_again": device_ms(fn, args, reps, names),
+               "event_ms": time_ms(fn, args, reps),
                "bound_ms": b_ms, "bound_by": b_by, "gathered_rows_ms": g_ms}
         # the plain version materialises (B, R, m'): rows beyond 4096 would not fit
         rows = min(B, 4096)
         sub = [(a[0][:rows].contiguous(), a[1][:rows].contiguous(), a[2][:rows].contiguous())
                for a in args]
         row["plain_rows"] = rows
-        row["plain_ms"] = device_ms(plain, sub, 64 if sets > 1 else 5)
-        row["plain_event_ms"] = time_ms(plain, sub, 64 if sets > 1 else 5)
+        row["plain_ms"] = device_ms(plain, sub, 64 if step else 5)
+        row["plain_event_ms"] = time_ms(plain, sub, 64 if step else 5)
         if rows < B:
-            row["kernel_ms_same_rows"] = device_ms(kernel, sub, 20)
-        if (B, R) == (64, 240):
-            # gather_scores: the same function, one warp per cell, on the same ids
-            gs = lambda ids, q_rep, q_bias: gather_scores(  # noqa: E731
-                ids, q_rep, q_bias, x_rep, x_bias, dist.post_id, dist.c0)
-            gs_row = {"shape": "search block B=64 M=240 m'=128 (frontier_scores' ids)",
-                      "B": B, "R": R, "ms": device_ms(gs, args, reps),
-                      "ms_again": device_ms(gs, args, reps), "event_ms": time_ms(gs, args, reps),
-                      "bound_ms": b_ms, "bound_by": b_by, "plain_ms": row["plain_ms"],
-                      "frontier_scores_ms": row["ms"]}
-        timings.append(row)
+            row["kernel_ms_same_rows"] = device_ms(fn, sub, 20, names)
+        if step:
+            row["ids_pass_ms"] = device_ms(ids_pass, args, reps)
+        (gs_steps if step else fs_rows).append(row)
         log(f"time {label}: " + json.dumps(row))
         del args, sub
 
-    # gather_scores at its own path's shape: the wave build's reverse edges,
-    # 960 (owner, candidate) cells at the serve data's m' = 32
+    # gather_scores at its other shapes: the wave build's reverse edges, 960
+    # (owner, candidate) cells, at the serve data's m' = 32 and at the d = 128
+    # SW-graph cell (ids over the n of phase 6's large-n cut); wide rows
+    # (64, 30, 2100), which run the chunked loop; and reverse edges at wide
+    # rows (960, 1, 2100), one cell per warp looping over words
+    def gs_time(label, xr, xb, args, reps):
+        def gs_x(ids, q_rep, q_bias):
+            return gather_scores(ids, q_rep, q_bias, xr, xb, dist.post_id, dist.c0)
+
+        def gs_plain(ids, q_rep, q_bias):
+            return gather_scores_ref(ids, q_rep, xr, q_bias, xb, dist.post_id, dist.c0)
+
+        B, M = args[0][0].shape
+        b_ms, b_by, _ = bound(args[0][0], xr.shape[1])
+        row = {"shape": label, "B": B, "R": M, "m": xr.shape[1],
+               "ms": device_ms(gs_x, args, reps, GS_KERNELS),
+               "ms_again": device_ms(gs_x, args, reps, GS_KERNELS),
+               "event_ms": time_ms(gs_x, args, reps), "bound_ms": b_ms, "bound_by": b_by,
+               "plain_ms": device_ms(gs_plain, args, 64),
+               "plain_event_ms": time_ms(gs_plain, args, 64),
+               "ids_pass_ms": device_ms(ids_pass, args, reps)}
+        log("time gather_scores " + json.dumps(row))
+        return row
+
+    def rev_args(qr, qb, n_rows, sets=32):
+        out = []
+        for _ in range(sets):
+            owners = torch.randint(0, n_rows, (960,), generator=gen, device="cuda")
+            out.append((random_ids(gen, 960, 1, n_rows, pad=0.0), qr[owners].contiguous(),
+                        qb[owners].contiguous()))
+        return out
+
     X32 = X_sh
     xr32, xb32 = dist.prep_left(X32).contiguous(), dist.bias_left(X32).contiguous()
-    qr32, qb32 = dist.prep_right(X32).contiguous(), dist.bias_right(X32).contiguous()
-    rev_args = []
-    for _ in range(32):
-        owners = torch.randint(0, X32.shape[0], (960,), generator=gen, device="cuda")
-        rev_args.append((random_ids(gen, 960, 1, X32.shape[0], pad=0.0),
-                         qr32[owners].contiguous(), qb32[owners].contiguous()))
-
-    def gs_rev(ids, q_rep, q_bias):
-        return gather_scores(ids, q_rep, q_bias, xr32, xb32, dist.post_id, dist.c0)
-
-    def gs_rev_plain(ids, q_rep, q_bias):
-        return gather_scores_ref(ids, q_rep, xr32, q_bias, xb32, dist.post_id, dist.c0)
-
-    b_ms, b_by, _ = bound(rev_args[0][0], 32)
-    gs_path = {"shape": "wave-build reverse edges B=960 M=1 m'=32", "B": 960, "R": 1,
-               "ms": device_ms(gs_rev, rev_args, 320), "event_ms": time_ms(gs_rev, rev_args, 320),
-               "bound_ms": b_ms, "bound_by": b_by,
-               "plain_ms": device_ms(gs_rev_plain, rev_args, 64),
-               "plain_event_ms": time_ms(gs_rev_plain, rev_args, 64)}
-    log("time gather_scores " + json.dumps(gs_path))
-    log("time gather_scores " + json.dumps(gs_row))
+    args32 = rev_args(dist.prep_right(X32).contiguous(), dist.bias_right(X32).contiguous(),
+                      X32.shape[0])
+    gs_rev32 = gs_time("wave-build reverse edges B=960 M=1 m'=32", xr32, xb32, args32, 320)
+    args128 = rev_args(qa_rep, qa_bias, n_sw)
+    gs_rev128 = gs_time(f"reverse edges at the d=128 SW-graph cell B=960 M=1 m'=128 "
+                        f"(ids over n={n_sw})", x_rep[:n_sw], x_bias[:n_sw], args128, 320)
+    Xw = lda_like_histograms(np.random.default_rng(4), 20_000, 2100, device="cuda")
+    xrw, xbw = dist.prep_left(Xw).contiguous(), dist.bias_left(Xw).contiguous()
+    qrw, qbw = dist.prep_right(Xw).contiguous(), dist.bias_right(Xw).contiguous()
+    argsw = [(random_ids(gen, 64, 30, 20_000), qrw[:64], qbw[:64]) for _ in range(8)]
+    gs_wide = gs_time("wide rows B=64 M=30 m'=2100", xrw, xbw, argsw, 64)
+    argsw1 = rev_args(qrw, qbw, 20_000, sets=8)
+    gs_rev_wide = gs_time("reverse edges at wide rows B=960 M=1 m'=2100", xrw, xbw, argsw1, 64)
+    del Xw, xrw, qrw, argsw, argsw1, args32, args128
 
     # the NN-descent round on its real candidate block: the forward adjacency
     # of the phase 9 build (rebuilt from the same data and seed), with the
@@ -746,10 +825,11 @@ def main() -> int:
         ops.nndescent_round_scores(dist, safe, cand[:, KK:], *reps_all, out=out_grouped)
 
     # in turns: general, grouped, grouped, general
-    rt = {"general_ms": device_ms(round_general, [()], 3),
-          "grouped_ms": device_ms(round_grouped, [()], 3)}
-    rt["grouped_ms_again"] = device_ms(round_grouped, [()], 3)
-    rt["general_ms_again"] = device_ms(round_general, [()], 3)
+    fs_k, join_k = "frontier_scores_kernel", "two_hop_kernel"
+    rt = {"general_ms": device_ms(round_general, [()], 3, fs_k),
+          "grouped_ms": device_ms(round_grouped, [()], 3, join_k)}
+    rt["grouped_ms_again"] = device_ms(round_grouped, [()], 3, join_k)
+    rt["general_ms_again"] = device_ms(round_general, [()], 3, fs_k)
     rt["general_event_ms"] = time_ms(round_general, [()], 3)
     rt["grouped_event_ms"] = time_ms(round_grouped, [()], 3)
     round_general()
@@ -783,7 +863,7 @@ def main() -> int:
         safe, qa_rep, qa_bias, x_rep, x_bias, dist.post_id, dist.c0, out=join_out), 5,
         "two_hop_kernel")
     rt["rest_general_ms"] = device_ms(lambda: frontier_scores(
-        cand[:, KK:], *reps_all, dist.post_id, dist.c0, out=out_grouped[:, KK:]), [()], 5)
+        cand[:, KK:], *reps_all, dist.post_id, dist.c0, out=out_grouped[:, KK:]), [()], 5, fs_k)
     join_lines = two_hop_bound(safe, D_FULL)
     rt["join_bound_ms"], rt["join_bound_by"] = join_lines["tensor_core"]
     rt["join_bound_fp32_simt_ms"], rt["join_bound_fp32_simt_by"] = join_lines["fp32_simt"]
@@ -825,7 +905,8 @@ def main() -> int:
         lines = dm_bound(B, N, m)
         (b_ms, b_by), (s_ms, s_by) = lines["tensor_core"], lines["fp32_simt"]
         row = {"shape": f"{label} {B}x{N}x{m}", "B": B, "N": N, "m": m,
-               "ms": device_ms(dm, args, 50), "ms_again": device_ms(dm, args, 50),
+               "ms": device_ms(dm, args, 50, "distance_matrix_kernel"),
+               "ms_again": device_ms(dm, args, 50, "distance_matrix_kernel"),
                "event_ms": time_ms(dm, args, 50), "bound_ms": b_ms, "bound_by": b_by,
                "bound_fp32_simt_ms": s_ms, "bound_fp32_simt_by": s_by,
                "plain_ms": device_ms(dm_plain, args, 50),
@@ -889,14 +970,14 @@ def main() -> int:
     def all_err(kernel_name):
         return max(v for k, v in max_err.items() if k[0] == kernel_name)
 
-    main_row = timings[0]
+    main_row, gs_main = fs_rows[0], gs_steps[0]
     dm_main = dm_rows[0]
     kernels = [{
         "name": "frontier_scores",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/frontier_gather.cu",
         "replaces": "src/repro/kernels/frontier_gather.py:95",
-        "launches": launches,
+        "launches": main_launches["frontier_scores"],
         "max_abs_err": err_of("frontier_scores"),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -904,9 +985,9 @@ def main() -> int:
         "bound_by": main_row["bound_by"],
         "library_ms": None,
         "shape": main_row["shape"],
-        "path": "NN-descent main path, n=1e6 (phase 9)",
+        "path": "NN-descent build of the main path, n=1e6 (phase 9)",
         "max_abs_err_all_distances": all_err("frontier_scores"),
-        "other_shapes": timings[1:],
+        "other_shapes": fs_rows[1:],
     }, {
         "name": "two_hop_scores",
         "route": "cuda",
@@ -947,17 +1028,20 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gather_topk.cu",
         "replaces": "src/repro/kernels/gather_topk.py:79",
-        "launches": sw_launches["gather_scores"],
+        "launches": main_launches["gather_scores"],
         "max_abs_err": err_of("gather_scores"),
-        "ms": gs_path["ms"],
-        "plain_ms": gs_path["plain_ms"],
-        "bound_ms": gs_path["bound_ms"],
-        "bound_by": gs_path["bound_by"],
+        "ms": gs_main["ms"],
+        "plain_ms": gs_main["plain_ms"],
+        "bound_ms": gs_main["bound_ms"],
+        "bound_by": gs_main["bound_by"],
         "library_ms": None,
-        "shape": gs_path["shape"],
-        "path": "SW-graph wave build at the serve defaults (phase 5)",
+        "ms_again": gs_main["ms_again"],
+        "shape": gs_main["shape"],
+        "path": "search steps of the NN-descent main path, n=1e6 (phase 9); also the "
+                f"SW-graph wave build's searches and reverse edges (phase 5: "
+                f"{sw_launches['gather_scores']} launches)",
         "max_abs_err_all_distances": all_err("gather_scores"),
-        "other_shapes": [gs_row],
+        "other_shapes": gs_steps[1:] + [gs_rev32, gs_rev128, gs_wide, gs_rev_wide],
     }]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)

@@ -4,8 +4,8 @@ All B queries advance in lock-step.  Each step:
 
   1. every active query pops its ``frontier`` best unexpanded beam entries,
   2. their neighbor rows are gathered as one (B, frontier*M) id block,
-  3. the block is scored in one fused call (the CUDA frontier-gather kernel
-     on the card, its plain PyTorch version on the CPU),
+  3. the block is scored in one fused call (the CUDA gather kernel
+     ``gather_scores`` on the card, its plain PyTorch version on the CPU),
   4. a batched (B, ef + C) stable merge refreshes every beam,
   5. per-query convergence masking freezes finished queries.
 
@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.distances import Distance
-from repro_torch.kernels.ops import frontier_gather_scores
+from repro_torch.kernels.ops import pair_scores
 
 INF = float("inf")
 
@@ -323,8 +323,9 @@ def make_step_searcher(dist: Distance, neighbors, X, ef: int, k: int, entries=No
     """Batched searcher over the step-synchronized engine.
 
     Returns ``search(Q) -> (dists (B,k), ids (B,k), n_evals (B,), hops (B,))``.
-    Scoring goes through ``ops.frontier_gather_scores``: the CUDA kernel for
-    tensors on the card, the plain version for tensors on the CPU.
+    Scoring goes through ``ops.pair_scores``: the CUDA kernel
+    ``gather_scores`` for tensors on the card, the plain version for tensors
+    on the CPU.
     """
     consts = {name: a.contiguous() for name, a in dist.prep_scan(X).items()}
     if entries is None:
@@ -341,8 +342,8 @@ def make_step_searcher(dist: Distance, neighbors, X, ef: int, k: int, entries=No
         q_bias = dist.bias_right(Q).contiguous()
 
         def score_rows(ids):
-            return frontier_gather_scores(dist, ids.contiguous(), q_rep, q_bias,
-                                          consts["rep"], consts["bias"])
+            return pair_scores(dist, ids.contiguous(), q_rep, q_bias, consts["rep"],
+                               consts["bias"])
 
         st = batched_beam_search(
             neighbors, score_rows, entries, B, ef,

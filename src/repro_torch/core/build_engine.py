@@ -11,9 +11,9 @@ degree-capped scatter-with-eviction merge.  At W=1 the build equals the
 sequential ``swgraph.build_swgraph`` edge for edge.
 
 Scoring follows the tensors' device.  On the card a ``Distance`` scores the
-construction searches with the frontier-gather kernel and the reverse-edge
-candidates with the per-cell gather kernel; on the CPU both take the plain
-gathered dot product that the sequential builder uses.
+construction searches' candidate blocks and the reverse-edge candidates
+with the per-cell gather kernel ``gather_scores``; on the CPU both take the
+plain gathered dot product that the sequential builder uses.
 
 The JAX package's ``.at[].set(mode="drop")`` scatters become writes into a
 sentinel row n, which the builder keeps below its adjacency and slices off
@@ -33,7 +33,7 @@ import torch
 from repro_torch.core.batched_beam import _smallest, batched_beam_search
 from repro_torch.core.beam_search import score_gathered
 from repro_torch.core.distances import Distance
-from repro_torch.kernels.ops import frontier_gather_scores, pair_scores, query_distance_matrix
+from repro_torch.kernels.ops import pair_scores, query_distance_matrix
 
 INF = float("inf")
 
@@ -222,8 +222,8 @@ def build_swgraph_wave(dist, X, NN: int = 15, ef_construction: int = 100,
 
         if kernel_path:
             def score_rows(ids, qc=qc):
-                return frontier_gather_scores(dist, ids.contiguous(), qc["rep"], qc["bias"],
-                                              consts["rep"], consts["bias"])
+                return pair_scores(dist, ids.contiguous(), qc["rep"], qc["bias"],
+                                   consts["rep"], consts["bias"])
         else:
             def score_rows(ids, qc=qc):
                 return score_gathered(dist, consts, qc, ids)

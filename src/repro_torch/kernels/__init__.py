@@ -4,8 +4,8 @@ Importing this package needs no ``nvcc`` and no card: a kernel is built by
 ``repro_torch.kernels.build`` the first time a CUDA tensor reaches it.
 
 distance_matrix: tiled (B, N) distance block with the fused post-combine
-gather_topk:     per-(query, candidate) gather + score, one warp per cell
-frontier_gather: per-query gather + score for the beam engine's lock-step
+gather_topk:     per-(query, candidate) gather + score: the beam engine's lock-step
+frontier_gather: per-query gather + score and the two-hop join, for NN-descent
 ops:             dispatch by the tensor's device
 ref:             the plain PyTorch versions every kernel is held to
 """

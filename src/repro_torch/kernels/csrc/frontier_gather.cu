@@ -11,16 +11,17 @@
 // (ld_ids, ld_out), so a caller can score a column range of a wider block.
 //   Bound: memory.  Every gathered row is m' floats for 2 m' flops, far
 //   below the card's float32 ridge, and rows are scattered.
-//   Design: a (B, P) grid: block (b, p) stages q_rep[b] in shared memory and
-//   scores the p-th slice of the row's R candidates, one warp per candidate
-//   (float4 loads when m' % 4 == 0 and the base is 16-byte aligned, scalar
-//   otherwise, reduced with __shfl_xor_sync).  P is 1 when B alone fills the
-//   card (NN-descent, B = n) and up to R / 8 at small B: a search step at
-//   B = 64 has 64 queries for 132 SMs, and with one block per query each
-//   warp waited out its rows' loads one after another.  An id < 0 skips the
-//   row load.  Unlike the TPU kernel, x_bias is read as its own array: the
-//   TPU wrapper concatenated rep and bias into one (n, m'+1) copy on every
-//   call so that one DMA brought both, which at n = 1e6 copies 516 MB.
+//   Design: block b stages q_rep[b] in shared memory and scores the row's R
+//   candidates, one warp per candidate (float4 loads when m' % 4 == 0 and
+//   the base is 16-byte aligned, scalar otherwise, reduced with
+//   __shfl_xor_sync).  Its caller is NN-descent, where B = n fills the card
+//   many times over; the batched search step (B = 64) goes through
+//   gather_topk.cu's gather_scores, which keeps a run of rows in flight per
+//   warp and, for 16-byte aligned reps, gives the same sums bit for bit.
+//   An id < 0 skips the row load.  Unlike the TPU kernel, x_bias is read as
+//   its own array: the TPU wrapper concatenated rep and bias into one
+//   (n, m'+1) copy on every call so that one DMA brought both, which at
+//   n = 1e6 copies 516 MB.
 //
 // two_hop_scores: the NN-descent round's join adj[adj[i]], grouped by the
 // middle node.  For safe_adj (n, K) with ids in [0, n) it writes
@@ -78,7 +79,7 @@ __global__ void __launch_bounds__(kThreads)
 frontier_scores_kernel(const int32_t* __restrict__ ids, const float* __restrict__ q_rep,
                        const float* __restrict__ q_bias, const float* __restrict__ x_rep,
                        const float* __restrict__ x_bias, float* __restrict__ out, int R, int m,
-                       int ld_ids, int ld_out, int r_slice, int post_id, float c0) {
+                       int ld_ids, int ld_out, int post_id, float c0) {
   extern __shared__ __align__(16) float q_s[];
   const int64_t b = blockIdx.x;
   const float* q = q_rep + b * m;
@@ -90,10 +91,8 @@ frontier_scores_kernel(const int32_t* __restrict__ ids, const float* __restrict_
   const int warp = threadIdx.x >> 5;
   const int32_t* row_ids = ids + b * ld_ids;
   float* row_out = out + b * ld_out;
-  const int r_begin = blockIdx.y * r_slice;
-  const int r_end = min(R, r_begin + r_slice);
 
-  for (int r = r_begin + warp; r < r_end; r += kWarps) {
+  for (int r = warp; r < R; r += kWarps) {
     const int32_t id = row_ids[r];  // same address in every lane: one broadcast
     float acc = 0.0f;
     if (id >= 0) {  // uniform across the warp
@@ -121,11 +120,6 @@ frontier_scores_kernel(const int32_t* __restrict__ ids, const float* __restrict_
   }
 }
 
-// Blocks that keep the card busy: a query row is cut into slices of
-// candidates until the grid holds about this many blocks (one candidate per
-// warp at most).
-constexpr int kTargetBlocks = 2 * 132 * 8;
-
 template <bool kVec4>
 cudaError_t launch(const int32_t* ids, const float* q_rep, const float* q_bias,
                    const float* x_rep, const float* x_bias, float* out, int B, int R, int m,
@@ -137,13 +131,8 @@ cudaError_t launch(const int32_t* ids, const float* q_rep, const float* q_bias,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const int max_slices = (R + kWarps - 1) / kWarps;
-  const int want = (kTargetBlocks + B - 1) / B;
-  const int slices = want < max_slices ? want : max_slices;
-  const int r_slice = (R + slices - 1) / slices;
-  const dim3 grid(B, (R + r_slice - 1) / r_slice);
-  frontier_scores_kernel<kVec4><<<grid, kThreads, smem, stream>>>(
-      ids, q_rep, q_bias, x_rep, x_bias, out, R, m, ld_ids, ld_out, r_slice, post_id, c0);
+  frontier_scores_kernel<kVec4><<<B, kThreads, smem, stream>>>(
+      ids, q_rep, q_bias, x_rep, x_bias, out, R, m, ld_ids, ld_out, post_id, c0);
   return cudaGetLastError();
 }
 

@@ -5,16 +5,16 @@ Replaces the TPU kernel ``src/repro/kernels/frontier_gather.py::frontier_scores`
 
 * ``frontier_scores``: per query, gather its R candidate rows of the prepped
   database, dot each with the query rep in float32 and apply the distance's
-  post-combine; ids < 0 score +inf.  A (B, P) grid: at small B (a search
-  step) each query's candidates are cut into P slices so the grid fills the
-  card; at B = n (NN-descent) P is 1.
+  post-combine; ids < 0 score +inf.  One block per query: its caller is
+  NN-descent, where every database row is a query (B = n), and which may
+  write into a column range of a wider block.  The batched search step goes
+  through ``gather_scores``, which computes the same function per cell.
 * ``two_hop_scores``: the NN-descent round's join ``adj[adj[i]]``, grouped by
   the middle node so that each block of K rows ``x_rep[adj[j]]`` is read
   once per round instead of once for every node that lists ``j``.  The work
   list (``two_hop_work_list``) is plain PyTorch on the device.
 
-Bound: device-memory bytes.  A search step at B=64, R=240, m'=128 reads
-about 7 MB (about 2 us at 3.35 TB/s); the NN-descent round's join at
+Bound: device-memory bytes.  The NN-descent round's join at
 n=1e6, K=30 reads each (K, m') block once and each query row once per edge,
 about 31 GB (about 10 ms).  Design and source: ``csrc/frontier_gather.cu``.
 

@@ -2,12 +2,20 @@
 C++ for ``sm_90a``).
 
 Replaces the TPU kernel ``src/repro/kernels/gather_topk.py::gather_scores``
-(Pallas ``_kernel``, ``pallas_call`` at :79).  One warp per (b, j) cell:
-the lanes stride m' (float4 where aligned), a shuffle reduction, the
-post-combine in lane 0, +inf where the id is < 0.  It computes the same
-function as ``frontier_scores`` with another decomposition (no query staged
-per block, no cell shares work); both are kept so their times can be
-compared at one shape.
+(Pallas ``_kernel``, ``pallas_call`` at :79).  Two CUDA kernels, chosen by
+the shape: where a row is 17 or more 16-byte words (m' >= 68) and a row of
+ids holds a run of cells (8; 4 for rows over 32 words), a warp scores a run
+of consecutive cells of one row, staging their rows with ``cp.async``
+before any product; otherwise (the wave builder's reverse edges, M = 1)
+each cell gets G = min(32, pow2 >= m'/4) lanes and loads its id, row and
+query row in one batch.  The sums equal the first (one warp per cell)
+design's bit for bit.  +inf where the id is < 0.
+
+It computes the same function as ``frontier_scores`` with another
+decomposition (per cell, not per query) and scores every batched search
+step (the searcher's and the wave builder's candidate blocks, where it
+beats the per-query kernel) and the wave builder's reverse edges;
+``frontier_scores`` is left to NN-descent, where every row is its own query.
 
 Bound: device-memory bytes.  Design and source: ``csrc/gather_topk.cu``.
 

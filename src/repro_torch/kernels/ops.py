@@ -47,10 +47,12 @@ def query_distance_matrix(dist: Distance, Q, X, mode: str = "left"):
 
 def pair_scores(dist: Distance, ids, q_rep, q_bias, x_rep, x_bias):
     """(B, M) distances of gathered rows from ALREADY-PREPPED reps, through
-    the per-cell gather kernel (one warp per (b, j)).
+    the per-cell gather kernel ``gather_scores``.
 
-    The wave builder scores its reverse-edge candidates with it: every
-    (owner, candidate) pair is its own query with M = 1.
+    The batched beam engine calls this once per lock-step with the full
+    (B, frontier*M) candidate block, in search and in the wave builder; the
+    wave builder also scores its reverse-edge candidates with it, every
+    (owner, candidate) pair its own query with M = 1.
     """
     if _device_type(ids) == "cuda":
         return gather_scores(ids, q_rep, q_bias, x_rep, x_bias, dist.post_id, dist.c0)
@@ -65,12 +67,11 @@ def beam_gather_scores(dist: Distance, ids, Q, X):
 
 
 def frontier_gather_scores(dist: Distance, ids, q_rep, q_bias, x_rep, x_bias):
-    """(B, R) distances of frontier rows from ALREADY-PREPPED reps.
+    """(B, R) distances of candidate rows from ALREADY-PREPPED reps, through
+    the per-query kernel ``frontier_scores``.
 
-    The batched beam engine calls this once per lock-step with the full
-    (B, frontier*M) candidate block; NN-descent calls it once per refinement
-    round with the (n, C) candidate join, every database row acting as its
-    own query.
+    NN-descent calls it with its (n, C) candidate blocks, every database row
+    acting as its own query.
     """
     if _device_type(ids) == "cuda":
         return frontier_scores(ids, q_rep, q_bias, x_rep, x_bias, dist.post_id, dist.c0)

@@ -82,6 +82,9 @@ def test_serve_on_the_card(cuda):
                             verbose=False)
     assert stats["recall@k"] >= 0.9
     assert stats["build_kernel_launches"] > 0 and stats["search_kernel_launches"] > 0
+    # the search step scores through the per-cell kernel
+    searched = stats["kernel_launches"]["search"]
+    assert searched["gather_scores"] > 0 and searched["frontier_scores"] == 0
 
 
 @pytest.mark.gpu
@@ -121,8 +124,12 @@ def test_distance_matrix_bf16_reps(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(64, 30, 128), (64, 240, 128), (7, 33, 30)],
-                         ids=["search", "frontier-block", "ragged-scalar"])
+@pytest.mark.parametrize("shape", [(64, 30, 128), (64, 240, 128), (7, 33, 30), (960, 1, 32),
+                                   (960, 1, 128), (64, 30, 2100), (5, 3, 16), (1, 1, 4),
+                                   (960, 1, 512), (4, 3, 2100), (6, 5, 300)],
+                         ids=["search", "frontier-block", "ragged-scalar", "reverse-edges-32",
+                              "reverse-edges-128", "wide", "ragged-run", "one-cell",
+                              "reverse-edges-wide", "wide-few-cells", "wide-ragged-run"])
 @pytest.mark.parametrize("name", DISTS)
 def test_gather_scores_matches_plain(name, shape, cuda):
     B, M, m = shape
@@ -137,8 +144,47 @@ def test_gather_scores_matches_plain(name, shape, cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", ["padding-row", "unaligned-base"])
+@pytest.mark.parametrize("name", DISTS)
+def test_gather_scores_padding_row_and_unaligned_base(name, case, cuda):
+    """A row of ids that is all padding, and rows read from a base 4 bytes off
+    a 16-byte word (scalar words), in the run kernel (M=40) and in the
+    per-cell kernel (M=3)."""
+    for B, M, m in [(8, 40, 128), (12, 3, 32)]:
+        dist, ids, (q_rep, q_bias, x_rep, x_bias) = _case(name, cuda, B, M, 500, m)
+        if case == "padding-row":
+            ids[B // 2] = -1
+            rows = x_rep
+        else:
+            rows = torch.empty(x_rep.numel() + 1, device=cuda)[1:].view(x_rep.shape)
+            rows.copy_(x_rep)
+        got = gather_scores(ids, q_rep, q_bias, rows, x_bias, dist.post_id, dist.c0)
+        want = gather_scores_ref(ids, q_rep, x_rep, q_bias, x_bias, dist.post_id, dist.c0)
+        assert torch.equal(torch.isinf(got), ids < 0)
+        torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(64, 240, 128), (64, 120, 128), (64, 120, 32), (32, 32, 16),
+                                   (1, 16, 16), (3, 40, 300)],
+                         ids=["search-nn30", "search", "wave-d32", "wave-d16", "wave-w1",
+                              "wide"])
+@pytest.mark.parametrize("name", DISTS)
+def test_gather_scores_equals_frontier_scores_bit_for_bit(name, shape, cuda):
+    """The batched search step moved from frontier_scores to gather_scores:
+    on aligned reps both give the same float32 sums, so the searches' and the
+    wave builds' results do not change."""
+    B, R, m = shape
+    dist, ids, (q_rep, q_bias, x_rep, x_bias) = _case(name, cuda, B, R, 5000, m)
+    per_cell = gather_scores(ids, q_rep, q_bias, x_rep, x_bias, dist.post_id, dist.c0)
+    per_query = frontier_scores(ids, q_rep, q_bias, x_rep, x_bias, dist.post_id, dist.c0)
+    assert torch.equal(per_cell, per_query)
+
+
+@pytest.mark.gpu
 def test_swgraph_wave_build_on_the_card(cuda):
-    """The wave build launches both gather kernels and keeps the invariants."""
+    """The wave build scores its searches and its reverse edges with
+    gather_scores and keeps the invariants."""
     from repro_torch.core.build_engine import build_swgraph_wave
 
     rng = np.random.default_rng(3)
@@ -147,7 +193,7 @@ def test_swgraph_wave_build_on_the_card(cuda):
     before = ops.launch_counts()
     adj, deg = build_swgraph_wave(get_distance("kl"), X, NN=8, ef_construction=40, wave=32)
     after = ops.launch_counts()
-    assert after["frontier_scores"] > before["frontier_scores"]
+    assert after["frontier_scores"] == before["frontier_scores"]
     assert after["gather_scores"] > before["gather_scores"]
     a = adj.cpu().numpy()
     assert a.max() < 600 and not (a == np.arange(600)[:, None]).any()

@@ -9,9 +9,13 @@
   within 0.005) holds.
 * ``reverse_edge_merge`` equals JAX's on the cases of
   ``tests/test_build_engine.py``'s merge tests, ``rounds=3`` included.
+* ``reverse_edge_scores`` (the M = 1 scores the card takes from
+  ``gather_scores``) equals JAX's for six distances at rtol = atol = 1e-5,
+  the tolerance of ``tests/test_kernels.py``: the two sum in another order.
 
-Every comparison is exact (tolerance 0): ids and degrees are integers, and
-the slot distances the merge keeps are copies of its inputs.
+Every other comparison of adjacency is exact (tolerance 0): ids and degrees
+are integers, and the slot distances the merge keeps are copies of its
+inputs.
 """
 
 import jax
@@ -156,3 +160,24 @@ def test_wave_connect_equals_jax(db):
     np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=1e-6, atol=1e-6)
     # the padded points 113..115 (and the rows past the wave) are left as they were
     assert (got[0][113:].numpy() == adj[113:]).all()
+
+
+@pytest.mark.parametrize("name", ["kl", "itakura_saito", "renyi_0.25", "renyi_2", "l2", "negdot"])
+def test_reverse_edge_scores_equals_jax(name, db):
+    """The wave builder's reverse-edge scores, one (owner, candidate) pair per
+    query with M = 1 (``gather_scores``' path on the card), against
+    ``repro``'s at the tolerance of ``tests/test_kernels.py``."""
+    from repro.core.build_engine import reverse_edge_scores
+
+    rng = np.random.default_rng(5)
+    U = 97
+    flat_i = rng.integers(0, N, U).astype(np.int32)
+    safe_j = rng.integers(0, N, U).astype(np.int32)
+    jd_, tdist = get_distance(name), td.get_distance(name)
+    want = reverse_edge_scores(jd_, jd_.prep_scan(db), jax.vmap(jd_.prep_query)(db),
+                               jnp.asarray(flat_i), jnp.asarray(safe_j))
+    X = _t(db)
+    tqc = {"rep": tdist.prep_right(X), "bias": tdist.bias_right(X)}
+    got = tbe.reverse_edge_scores(tdist, tdist.prep_scan(X), tqc, _t(flat_i), _t(safe_j))
+    assert got.shape == (U,) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
