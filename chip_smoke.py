@@ -26,7 +26,14 @@ Every phase is fatal on failure; nothing is caught and passed over.
    that is no multiple of a warp's cells (5, 3, 16), one cell (1, 1, 4),
    wide rows at too few cells per row for a run (960, 1, 512) and
    (4, 3, 2100), an ``x_rep`` base 4 bytes off a 16-byte word (scalar
-   loads), and ``ops.beam_gather_scores``.
+   loads), and ``ops.beam_gather_scores``.  The wrappers (avg, min, reverse,
+   max, blend(0.25), rankblend(0.5) with its tau calibrated on the data,
+   learned with a Mahalanobis branch over KL at m'=128, and the viewed BM25
+   at m'=2048): their branch-lowered kernel scores against the wrapper's
+   own plain forms, one launch per branch counted, at gather_scores
+   (64, 240), the NN-descent round (two_hop_scores + frontier_scores) on a
+   (4,096, 30) adjacency (rows 0-255 held to the plain version) and
+   distance_matrix at 512x8192 in both modes.
 4. serve defaults: n=20,000, d=32, KL, NN-descent, ef 96, frontier 4, k 10,
    256 queries in batches of 64 through ``launch.serve.build_and_serve``;
    recall@10 >= 0.90.
@@ -79,6 +86,25 @@ Every phase is fatal on failure; nothing is caught and passed over.
 12. graph quality of the NN-descent cell, NN 15 against NN 30, at
     n = GRAPH_QUALITY_N: the share of each node's true NN nearest neighbours
     that the graph holds, and search recall@10 at ef 96 and 512.
+13. the policies at full width, phase 9's cell through the same entry point:
+    (a) built under ``min`` and searched under KL, (b) built and searched
+    under ``min`` with k_c = 512 candidates re-ranked under KL.  The launch
+    counts are set to 0 before each and read after: each build must launch
+    two_hop_scores and frontier_scores twice as often as phase 9's (one per
+    branch); (b)'s search launches gather_scores twice per lock-step and
+    once per batch for the rerank (held exactly on one batch); recall@10
+    must exceed 0.5 for both.  Then the ``min`` build is profiled, and (a)
+    and (b) are timed batch by batch in turns over one graph each and
+    profiled on one batch.
+14. every policy at the serve defaults (n=20,000, d=32, KL, NN-descent)
+    through ``build_and_serve``: avg, min, reverse, l2, max, blend(0.25),
+    rankblend(0.5); then ``--spec TUNED_spec.json`` and
+    ``--spec LEARNED_weights.json`` from the repo; then BM25 against its
+    ``natural`` build on a text collection (vocab 2,048) at n=4,000 and
+    20,000 documents.  Each recall@10 must reach JAX_RECALL (the JAX
+    package's ``launch.serve`` at the same flags, on the CPU) less 0.02;
+    the 20,000-document BM25 pair has no JAX number (the JAX package
+    materialises its gathered rows there, ~40 GB) and is reported.
 
 The last three lines are the card line, a JSON object with the kernels'
 numbers, and ``{"ok": true, "device": {...}}``.
@@ -125,6 +151,14 @@ GS_CHECK_SHAPES = [(64, 30, 128), (64, 240, 128), (960, 1, 32), (960, 1, 128), (
 SWGRAPH_NS = (1_000_000, 200_000, 100_000, 50_000)
 SWGRAPH_BUILD_BUDGET_S = 150.0
 GRAPH_QUALITY_N = 1_000_000
+WRAPPER_KINDS = ("avg", "min", "reverse", "max", "blend(0.25)", "rankblend(0.5)", "learned",
+                 "bm25")
+# recall@10 of the JAX package's repro.launch.serve on the CPU at the same
+# flags (tools/jax_policy_recall.py); phase 14 holds the port to each less 0.02
+JAX_RECALL = {"avg": 0.9902, "min": 0.9766, "reverse": 0.952, "l2": 0.9516, "max": 0.9879,
+              "blend(0.25)": 0.9898, "rankblend(0.5)": 0.991, "TUNED_spec.json": 0.9629,
+              "LEARNED_weights.json": 0.7098, "bm25 none n=4000": 0.7234,
+              "bm25 natural n=4000": 0.7160}
 
 # (B, R): search step = batch x frontier*M, NN-descent round = rows x (K*K + K + 8)
 CHECK_SHAPES = [(64, 120), (4096, 248), (64, 240), (2048, 938)]
@@ -332,6 +366,117 @@ def check_close(label, got, want, tol, pad=None):
     return err
 
 
+def check_wrappers(X_chk, gen, rng) -> dict:
+    """Phase 3 for the wrappers: each kind's branch-lowered kernel scores
+    against its own plain forms on the card; the max abs error by (kernel,
+    kind).  Each site must launch its kernels once per branch."""
+    from repro_torch.core.distances import get_distance, tree_map
+    from repro_torch.core.spec import DistancePolicy
+    from repro_torch.core.symmetrize import LearnedDistance
+    from repro_torch.data.synthetic import text_collection
+    from repro_torch.kernels import ops
+
+    kl = get_distance("kl")
+    L = np.random.default_rng(7).normal(size=(D_FULL, 16)).astype(np.float32) * 0.1
+    learned_w = {"alpha": 0.75, "beta": 0.5, "tau": None, "L": L.tolist()}
+    texts = text_collection(rng, 20_000, vocab=2048, device="cuda")
+    errs = {}
+
+    def plain(dist, ids, qc, consts):
+        safe = torch.where(ids >= 0, ids, 0).long()
+        return torch.where(ids >= 0, dist.score(tree_map(lambda a: a[safe], consts), qc),
+                           torch.inf)
+
+    def launched(fn, kernel, nb, label):
+        ops.reset_launch_counts()
+        out = fn()
+        if ops.launch_counts()[kernel] != nb:
+            raise AssertionError(f"{label}: {ops.launch_counts()[kernel]} launches of {kernel}, "
+                                 f"expected one per branch ({nb})")
+        return out
+
+    for kind in WRAPPER_KINDS:
+        if kind == "bm25":
+            dist, X = texts.bm25(), texts.counts
+        elif kind == "learned":
+            dist, X = LearnedDistance.from_weights(kl, learned_w), X_chk
+        else:
+            dist, X = DistancePolicy.parse(kind).bind(kl, data=X_chk), X_chk
+        nb, n, m = len(dist.branches), X.shape[0], X.shape[1]
+        consts = ops.prepped(dist.prep_scan(X))
+        qc = ops.prepped(dist.prep_queries(X[torch.randint(0, n, (64,), generator=gen,
+                                                            device="cuda")]))
+        ids = random_ids(gen, 64, 240, n)
+        label = f"{dist.name} ({nb} branches)"
+        errs[("gather_scores", kind)] = check_close(
+            f"gather_scores {label} B=64 M=240 m'={m}",
+            launched(lambda: ops.gathered_scores(dist, ids, qc, consts), "gather_scores", nb,
+                     label),
+            plain(dist, ids, qc, consts), TOL, pad=ids < 0)
+        # the NN-descent round on a (4,096, 30) adjacency, as build_nndescent scores it
+        n_j, K_j, rows = 4096, 30, 256
+        cj = ops.prepped(dist.prep_scan(X[:n_j]))
+        qj = ops.prepped(dist.prep_queries(X[:n_j]))
+        safe = torch.randint(0, n_j, (n_j, K_j), generator=gen, device="cuda", dtype=torch.int32)
+        iota = torch.arange(n_j, device="cuda", dtype=torch.int32)[:, None]
+        rest = random_ids(gen, n_j, K_j + 8, n_j)
+        rest = torch.where(rest == iota, -1, rest)
+        out = torch.empty((n_j, K_j * K_j + K_j + 8), device="cuda")
+        launched(lambda: ops.round_scores(dist, safe, rest, qj, cj, out), "two_hop_scores", nb,
+                 label)
+        if ops.launch_counts()["frontier_scores"] != nb:
+            raise AssertionError(f"{label}: the round's frontier_scores ran "
+                                 f"{ops.launch_counts()['frontier_scores']} times, not {nb}")
+        cand = torch.cat([safe[safe[:rows].reshape(-1).long()].reshape(rows, K_j * K_j),
+                          rest[:rows]], dim=1)
+        cand = torch.where(cand == iota[:rows], -1, cand)
+        errs[("round", kind)] = check_close(
+            f"two_hop_scores + frontier_scores {label} n={n_j} K={K_j}, rows 0-{rows - 1}",
+            out[:rows], plain(dist, cand, tree_map(lambda a: a[:rows], qj), cj), TOL,
+            pad=cand < 0)
+        Q, Xd = X[:512], X[512:512 + 8192]
+        for mode in ("left", "right"):
+            errs[("distance_matrix", kind, mode)] = check_close(
+                f"distance_matrix {label} 512x8192x{m} {mode} mode",
+                launched(lambda: ops.query_distance_matrix(dist, Q, Xd, mode=mode),
+                         "distance_matrix", nb, label),
+                dist.query_matrix(Q, Xd, mode=mode), TOL)
+    return errs
+
+
+def bm25_cell(n_db: int, policy: str) -> dict:
+    """Phase 14's BM25 cell: a Zipf text collection (vocab 2,048, 256 held-out
+    queries), NN-descent at the serve defaults under ``policy``, searched
+    under BM25; recall@10 against ``knn_scan`` under BM25."""
+    from repro_torch.core.brute_force import knn_scan
+    from repro_torch.core.index import ANNIndex
+    from repro_torch.core.metrics import recall_at_k
+    from repro_torch.core.spec import RetrievalSpec
+    from repro_torch.data.synthetic import split_queries, text_collection
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(5)
+    tc = text_collection(rng, n_db + 256, vocab=2048, mean_len=60, device="cuda")
+    Q, X = split_queries(tc.counts, 256, rng)
+    dist = tc.bm25()
+    _, true_ids = knn_scan(dist, Q, X, 10)
+    spec = RetrievalSpec(distance="bm25", build_policy=policy, NN=15, ef_search=96, frontier=4,
+                         n_entries=4)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = ANNIndex.build(X, dist, spec=spec, natural=tc.natural,
+                         generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    built = ops.launch_counts()
+    search = idx.searcher()
+    found = torch.cat([search(Q[lo:lo + BATCH])[1] for lo in range(0, 256, BATCH)])
+    return {"n_db": n_db, "build_policy": policy, "build_dist": idx.build_dist.name,
+            "recall@k": recall_at_k(found, true_ids), "build_s": build_s,
+            "build_launches": built}
+
+
 class Laps:
     """Wall seconds of each phase, logged as it ends."""
 
@@ -369,7 +514,7 @@ def main() -> int:
     from repro_torch.core.index import ANNIndex
     from repro_torch.core.metrics import recall_at_k
     from repro_torch.core.nndescent import _sampled_reverse
-    from repro_torch.core.spec import RetrievalSpec
+    from repro_torch.core.spec import RetrievalSpec, load_spec
     from repro_torch.core.swgraph import build_swgraph
     from repro_torch.data.synthetic import lda_like_histograms, split_queries
     from repro_torch.kernels import build, ops
@@ -529,7 +674,9 @@ def main() -> int:
                                  dist.bias_right(Q), dist.bias_left(X_chk[:20_000]),
                                  dist.post_id, dist.c0)
         check_close(f"ops.beam_gather_scores {name}", got, want, TOL, pad=ids < 0)
-    del X_chk, x_rep, x_bias, gs_data
+    del x_rep, x_bias, gs_data
+    wrapper_err = check_wrappers(X_chk, gen, rng)
+    del X_chk
 
     lap("3 check")
 
@@ -964,12 +1111,132 @@ def main() -> int:
 
     lap("12 graph quality")
 
+    # -- 13. the policies at full width: phase 9's cell under min, and min/min + rerank -----
+    base_built = full["kernel_launches"]["build"]
+    n_batches = Q_FULL // BATCH
+    policy_full = {}
+    spec_a = full_spec.replace(build_policy="min")
+    spec_b = full_spec.replace(build_policy="min", search_policy="min", k_c=512)
+    cells = {"a": ("min build, KL search", spec_a),
+             "b": ("min build, min search, k_c 512 reranked under KL", spec_b)}
+    for key, (label, spec) in cells.items():
+        ops.reset_launch_counts()
+        st = build_and_serve(spec=spec, n_db=N_FULL, dim=D_FULL, n_queries=Q_FULL, batch=BATCH,
+                             alpha=0.08, device="cuda", verbose=False)
+        built_k, searched_k = st["kernel_launches"]["build"], st["kernel_launches"]["search"]
+        row = {k: st[k] for k in ("recall@k", "build_s", "qps", "p50_batch_ms", "p99_batch_ms",
+                                  "eval_reduction", "index_sym_resolved", "query_sym_resolved")}
+        row.update(cell=label, phase9_recall=full["recall@k"], phase9_build_s=full["build_s"],
+                   phase9_qps=full["qps"], build_launches=built_k, search_launches=searched_k,
+                   all_launches=ops.launch_counts())
+        policy_full[key] = row
+        log(f"policy at full width, {label}: " + json.dumps(row))
+        for kname in ("two_hop_scores", "frontier_scores"):
+            if built_k[kname] != 2 * base_built[kname]:
+                raise AssertionError(f"{label}: the build launched {kname} {built_k[kname]} "
+                                     f"times, not twice phase 9's {base_built[kname]}")
+        if spec.needs_rerank:
+            extra = searched_k["gather_scores"] - n_batches  # one rerank launch per batch
+            if extra <= 0 or extra % 2:
+                raise AssertionError(f"{label}: {searched_k['gather_scores']} gather_scores "
+                                     f"launches over {n_batches} batches are not two per "
+                                     f"lock-step plus one per batch")
+        elif searched_k["gather_scores"] <= 0:
+            raise AssertionError(f"{label}: the search launched no gather_scores")
+        if not st["recall@k"] > 0.5:
+            raise AssertionError(f"{label}: recall@10 {st['recall@k']} <= 0.5 at n=1e6")
+    # the min build profiled, then both searches over one graph each, batch by
+    # batch in turns (a, b, b, a, ...): the host's share moves more between
+    # batches of one run than between the two paths
+    built = {}
+    profile_device(lambda: built.setdefault("b", ANNIndex.build(
+        X, spec=spec_b, generator=torch.Generator(device="cuda").manual_seed(0))),
+        "NN-descent build n=1e6 under min")
+    built["a"] = ANNIndex.build(X, spec=spec_a,
+                                generator=torch.Generator(device="cuda").manual_seed(0))
+    searches = {key: idx.searcher() for key, idx in built.items()}
+    # one batch of (b), counted exactly: per branch one seed launch and one per
+    # lock-step (the last finds every query done), then one rerank launch
+    ops.reset_launch_counts()
+    _, _, _, hops_b = searches["b"](Q[:BATCH])
+    torch.cuda.synchronize()
+    want_b = 2 * (int(hops_b.max()) + 2) + 1
+    log(f"rerank batch: {ops.launch_counts()['gather_scores']} gather_scores launches, "
+        f"{int(hops_b.max())} hops at most, expected {want_b}")
+    if ops.launch_counts()["gather_scores"] != want_b:
+        raise AssertionError(f"rerank batch launched gather_scores "
+                             f"{ops.launch_counts()['gather_scores']} times, not {want_b}")
+    searches["a"](Q[:BATCH])
+    turns = {"a": [], "b": []}
+    for i in range(8):
+        qb = Q[BATCH * (1 + i):BATCH * (2 + i)]
+        for key in ("a", "b") if i % 2 == 0 else ("b", "a"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            searches[key](qb)
+            torch.cuda.synchronize()
+            turns[key].append(1e3 * (time.perf_counter() - t0))
+    log("search batches in turns, ms: " + json.dumps(
+        {key: {"each": v, "median": float(np.median(v))} for key, v in turns.items()}))
+    for key, (label, _) in cells.items():
+        policy_full[key]["batch_ms_in_turns"] = float(np.median(turns[key]))
+        profile_device(lambda: searches[key](Q[BATCH:2 * BATCH]), f"search batch of 64, {label}")
+    del built, searches
+
+    lap("13 policies at full width")
+
+    # -- 14. every policy at the serve defaults, the repo's artifacts, BM25 vs natural ------
+    policy_rows = []
+
+    def held(label, recall, extra):
+        row = {"run": label, "recall@k": recall, **extra}
+        if label in JAX_RECALL:
+            row["jax_recall@k"] = JAX_RECALL[label]
+            row["floor"] = round(JAX_RECALL[label] - 0.02, 4)
+        policy_rows.append(row)
+        log("policy at the serve defaults: " + json.dumps(row))
+        if "floor" in row and recall < row["floor"]:
+            raise AssertionError(f"{label}: recall@10 {recall} < {row['floor']} "
+                                 f"(JAX {JAX_RECALL[label]} less 0.02)")
+
+    for policy in ("avg", "min", "reverse", "l2", "max", "blend(0.25)", "rankblend(0.5)"):
+        st = build_and_serve(index_sym=policy, n_db=20_000, dim=32, n_queries=256, batch=64,
+                             ef_search=96, frontier=4, device="cuda", verbose=False)
+        built_k = st["kernel_launches"]["build"]
+        branches = 1 if policy in ("reverse", "l2") else 2
+        if built_k["two_hop_scores"] != branches * 8:
+            raise AssertionError(f"{policy}: {built_k['two_hop_scores']} two_hop_scores "
+                                 f"launches, not {branches} per round")
+        held(policy, st["recall@k"], {k: st[k] for k in ("index_sym_resolved", "build_s",
+                                                         "qps", "eval_reduction")})
+    for path in ("TUNED_spec.json", "LEARNED_weights.json"):
+        spec = load_spec(str(ROOT / path))
+        st = build_and_serve(spec=spec, n_db=20_000, dim=32, n_queries=256, batch=64,
+                             device="cuda", verbose=False)
+        built_k = st["kernel_launches"]["build"]
+        if built_k["gather_scores"] <= 0 or built_k["gather_scores"] % 2:
+            raise AssertionError(f"{path}: {built_k['gather_scores']} gather_scores launches "
+                                 f"in a two-branch build")
+        held(path, st["recall@k"], {"spec_fingerprint": st["spec_fingerprint"],
+                                    "build_policy": str(spec.build_policy),
+                                    "build_s": st["build_s"], "qps": st["qps"]})
+    for n_db in (4_000, 20_000):
+        for policy in ("none", "natural"):
+            row = bm25_cell(n_db, policy)
+            held(f"bm25 {policy} n={n_db}", row.pop("recall@k"), row)
+
+    lap("14 policies at the serve defaults")
+
     def err_of(kernel_name):
         return max(v for k, v in max_err.items() if k[0] == kernel_name and k[1] == "kl")
 
     def all_err(kernel_name):
         return max(v for k, v in max_err.items() if k[0] == kernel_name)
 
+    def wrapper_errs(*sites):
+        return max(v for k, v in wrapper_err.items() if k[0] in sites)
+
+    policy_a, policy_b = policy_full["a"], policy_full["b"]
     main_row, gs_main = fs_rows[0], gs_steps[0]
     dm_main = dm_rows[0]
     kernels = [{
@@ -985,8 +1252,11 @@ def main() -> int:
         "bound_by": main_row["bound_by"],
         "library_ms": None,
         "shape": main_row["shape"],
-        "path": "NN-descent build of the main path, n=1e6 (phase 9)",
+        "path": "NN-descent build of the main path, n=1e6 (phase 9); once per branch under "
+                f"a policy: {policy_a['build_launches']['frontier_scores']} launches in the "
+                "min build at n=1e6 (phase 13)",
         "max_abs_err_all_distances": all_err("frontier_scores"),
+        "max_abs_err_wrappers": wrapper_errs("round"),
         "other_shapes": fs_rows[1:],
     }, {
         "name": "two_hop_scores",
@@ -1001,9 +1271,13 @@ def main() -> int:
         "bound_by": rt["join_bound_by"],
         "library_ms": None,
         "shape": f"NN-descent round join n=1e6 K={K_nn} m'=128, real candidate block",
-        "path": "NN-descent main path, n=1e6 (phase 9), one launch per round",
+        "path": "NN-descent main path, n=1e6 (phase 9), one launch per round; once per "
+                f"round and branch under a policy: "
+                f"{policy_a['build_launches']['two_hop_scores']} launches in the min build at "
+                "n=1e6 (phase 13)",
         "plain_rows": plain_rows,
         "max_abs_err_all_distances": all_err("two_hop_scores"),
+        "max_abs_err_wrappers": wrapper_errs("round"),
         "round": rt,
     }, {
         "name": "distance_matrix",
@@ -1020,8 +1294,11 @@ def main() -> int:
         "library": "torch.matmul, TF32 off, without the epilogue",
         "shape": dm_main["shape"],
         "path": "knn_scan ground truth of the NN-descent main path (phase 9); also "
-                f"build_sharded (phase 8: {sharded_launches['distance_matrix']} launch)",
+                f"build_sharded (phase 8: {sharded_launches['distance_matrix']} launch), entry "
+                "selection and rankblend's tau (once per branch), the ground truth of "
+                "phases 13 and 14",
         "max_abs_err_all_distances": all_err("distance_matrix"),
+        "max_abs_err_wrappers": wrapper_errs("distance_matrix"),
         "other_shapes": dm_rows[1:],
     }, {
         "name": "gather_scores",
@@ -1039,10 +1316,15 @@ def main() -> int:
         "shape": gs_main["shape"],
         "path": "search steps of the NN-descent main path, n=1e6 (phase 9); also the "
                 f"SW-graph wave build's searches and reverse edges (phase 5: "
-                f"{sw_launches['gather_scores']} launches)",
+                f"{sw_launches['gather_scores']} launches); twice per lock-step and once "
+                "per batch for the rerank under a min search policy: "
+                f"{policy_b['search_launches']['gather_scores']} launches in the timed "
+                "search at n=1e6 (phase 13)",
         "max_abs_err_all_distances": all_err("gather_scores"),
+        "max_abs_err_wrappers": wrapper_errs("gather_scores"),
         "other_shapes": gs_steps[1:] + [gs_rev32, gs_rev128, gs_wide, gs_rev_wide],
     }]
+    log("policies: " + json.dumps({"full_width": policy_full, "serve_defaults": policy_rows}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.index import ANNIndex, check_supported, make_build_info
+from repro_torch.core.index import ANNIndex, bind_policies, check_supported, make_build_info
 from repro_torch.core.spec import RetrievalSpec
 
 
@@ -31,15 +31,16 @@ def index_from_jax(arrays: dict, spec_dict: dict, device="cuda") -> ANNIndex:
     if neighbors.shape[0] != X.shape[0]:
         raise ValueError(f"neighbors has {neighbors.shape[0]} rows, X has {X.shape[0]}")
     dist = spec.base_distance()
+    build_policy, search_policy, build_dist, search_dist = bind_policies(spec, dist, X)
     degrees = (neighbors >= 0).sum(dim=1, dtype=torch.int32)
     return ANNIndex(
         X=X,
         neighbors=neighbors,
         dist=dist,
-        search_dist=dist,
+        search_dist=search_dist,
         query_sym=str(spec.search_policy),
         entries=entries,
-        build_info=make_build_info(spec, degrees),
-        build_dist=spec.build_policy.bind(dist),
+        build_info=make_build_info(spec, degrees, build_policy, search_policy),
+        build_dist=build_dist,
         spec=spec,
     )

@@ -4,8 +4,9 @@ All B queries advance in lock-step.  Each step:
 
   1. every active query pops its ``frontier`` best unexpanded beam entries,
   2. their neighbor rows are gathered as one (B, frontier*M) id block,
-  3. the block is scored in one fused call (the CUDA gather kernel
-     ``gather_scores`` on the card, its plain PyTorch version on the CPU),
+  3. the block is scored by one launch of the CUDA gather kernel
+     ``gather_scores`` per branch of the distance (its plain PyTorch
+     version on the CPU),
   4. a batched (B, ef + C) stable merge refreshes every beam,
   5. per-query convergence masking freezes finished queries.
 
@@ -27,8 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.distances import Distance
-from repro_torch.kernels.ops import pair_scores
+from repro_torch.kernels.ops import gathered_scores, prepped, query_distance_matrix
 
 INF = float("inf")
 
@@ -59,7 +59,8 @@ def select_entries(dist, X, n_entries: int = 4, generator=None, sample: int = 25
     """Entry points for the beam: left-medoid + random spread.
 
     The medoid minimises the mean left-query distance d(x_i, .) towards a
-    random sample ``probe`` of the database; the remaining entries come from
+    random sample ``probe`` of the database (one ``query_distance_matrix``
+    block, under any distance); the remaining entries come from
     the random ids ``rand`` with the medoid excluded.  ``probe`` (s,) and
     ``rand`` (min(4 * n_entries, n),) are drawn from ``generator`` without
     replacement unless given: a test injects the JAX package's draws.
@@ -69,7 +70,7 @@ def select_entries(dist, X, n_entries: int = 4, generator=None, sample: int = 25
     s = min(sample, n)
     if probe is None:
         probe = torch.randperm(n, generator=generator, device=X.device)[:s]
-    D = dist.query_matrix(X[probe.long()], X, mode="left")
+    D = query_distance_matrix(dist, X[probe.long()], X, mode="left")
     medoid = torch.argmin(torch.mean(D, dim=0)).to(torch.int32)
     if n_entries == 1:
         return medoid[None]
@@ -317,17 +318,18 @@ def _merge_beams(beam, kept, ef: int):
 # ---------------------------------------------------------------------------
 
 
-def make_step_searcher(dist: Distance, neighbors, X, ef: int, k: int, entries=None,
+def make_step_searcher(dist, neighbors, X, ef: int, k: int, entries=None,
                        frontier: int = 4, compact: int = 32, max_steps: int | None = None,
                        adaptive: bool = False, patience: int = 1):
     """Batched searcher over the step-synchronized engine.
 
     Returns ``search(Q) -> (dists (B,k), ids (B,k), n_evals (B,), hops (B,))``.
-    Scoring goes through ``ops.pair_scores``: the CUDA kernel
-    ``gather_scores`` for tensors on the card, the plain version for tensors
-    on the CPU.
+    ``dist`` is any distance (the bound search policy under a rerank spec).
+    Scoring goes through ``ops.gathered_scores``: one launch of the CUDA
+    kernel ``gather_scores`` per branch for tensors on the card, the plain
+    version for tensors on the CPU.
     """
-    consts = {name: a.contiguous() for name, a in dist.prep_scan(X).items()}
+    consts = prepped(dist.prep_scan(X))
     if entries is None:
         entries = torch.zeros((1,), dtype=torch.int32, device=X.device)
     # order-preserving dedup: the bit-packed visited seeding counts each
@@ -338,12 +340,10 @@ def make_step_searcher(dist: Distance, neighbors, X, ef: int, k: int, entries=No
 
     def search(Q):
         B = Q.shape[0]
-        q_rep = dist.prep_right(Q).contiguous()
-        q_bias = dist.bias_right(Q).contiguous()
+        qc = prepped(dist.prep_queries(Q))
 
         def score_rows(ids):
-            return pair_scores(dist, ids.contiguous(), q_rep, q_bias, consts["rep"],
-                               consts["bias"])
+            return gathered_scores(dist, ids, qc, consts)
 
         st = batched_beam_search(
             neighbors, score_rows, entries, B, ef,

@@ -10,9 +10,11 @@ the other engines and builders against this one.
 The JAX package runs one ``while_loop`` per query under ``vmap``; here the
 B queries run in one batched loop with a per-query live mask, and a query
 whose loop would have ended passes through each later step unchanged, so
-its beam, ``n_evals`` and ``steps`` are the per-query values.  Scoring is
-the plain gathered dot product and post-combine (``score_gathered``) on
-every device: this engine runs no kernel.
+its beam, ``n_evals`` and ``steps`` are the per-query values.  Scoring
+goes through ``ops.gathered_scores``: ``gather_scores`` on the card (one
+launch per branch of the distance), on the CPU its plain version, a
+product and a sum per branch with the same rounding for every batch shape
+(so a W=1 wave build and the sequential build score alike).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.distances import apply_post
+from repro_torch.kernels.ops import gathered_scores, prepped
 
 INF = float("inf")
 
@@ -35,32 +37,18 @@ class BeamState(NamedTuple):
     steps: torch.Tensor  # (B,) i32
 
 
-def score_gathered(dist, consts, qc, ids):
-    """(B, R) float32 left-query distances d(x[ids[b, r]], q[b]).
-
-    ``consts`` is ``{"rep": (n, m'), "bias": (n,)}`` from ``dist.prep_scan``;
-    ``qc`` the same for the B queries (``prep_right``/``bias_right``); ``ids``
-    (B, R) must be valid row ids.  A product and a sum rather than a matmul:
-    the same rounding for every batch shape, so a W=1 wave build and the
-    sequential build score alike.
-    """
-    ids = ids.long()
-    s = torch.sum(consts["rep"][ids] * qc["rep"][:, None, :], dim=-1)
-    return apply_post(dist.post_id, s, consts["bias"][ids], qc["bias"][:, None],
-                      dist.c0).float()
-
-
 def beam_search_impl(neighbors, consts, qc, dist, entry: int, ef: int, n_active=None,
                      max_steps: int | None = None) -> BeamState:
     """Beam search for B queries at once, each as the JAX single-query loop.
 
-    ``neighbors`` (n, M) int32 with -1 padding; ``consts``/``qc`` as in
-    ``score_gathered``, qc holding B queries; ``entry`` the entry node;
+    ``neighbors`` (n, M) int32 with -1 padding; ``consts`` the prepped
+    ``dist.prep_scan(X)``, ``qc`` the B queries' prepped
+    ``dist.prep_queries(Q)``; ``entry`` the entry node;
     ``n_active`` (int or 0-d tensor) makes only nodes < n_active searchable
     (the sequential builder's prefix).  Returns the final ``BeamState``.
     """
     n, M = neighbors.shape
-    B = qc["rep"].shape[0]
+    B = dist.branch_reps(qc)[0]["rep"].shape[0]
     dev = neighbors.device
     if max_steps is None:
         max_steps = n
@@ -72,7 +60,7 @@ def beam_search_impl(neighbors, consts, qc, dist, entry: int, ef: int, n_active=
         visited[:, :n] = (torch.arange(n, device=dev) >= n_active)[None, :]
     visited[:, entry] = True
     entry_ids = torch.full((B, 1), entry, dtype=torch.int32, device=dev)
-    d0 = score_gathered(dist, consts, qc, entry_ids)[:, 0]
+    d0 = gathered_scores(dist, entry_ids, qc, consts)[:, 0]
 
     beam_d = torch.full((B, ef), INF, dtype=torch.float32, device=dev)
     beam_d[:, 0] = d0
@@ -99,7 +87,7 @@ def beam_search_impl(neighbors, consts, qc, dist, entry: int, ef: int, n_active=
         # in one row is scored twice, as in the JAX .at[].max update
         valid = (nbrs >= 0) & ~torch.gather(visited, 1, safe) & live[:, None]
         visited[rows_b, torch.where(valid, safe, n)] = True
-        d = torch.where(valid, score_gathered(dist, consts, qc, safe), INF)
+        d = torch.where(valid, gathered_scores(dist, safe, qc, consts), INF)
 
         all_d = torch.cat([beam_d, d], dim=1)
         all_i = torch.cat([beam_i, nbrs.to(torch.int32)], dim=1)
@@ -122,10 +110,10 @@ def make_batched_searcher(dist, neighbors, X, ef: int, k: int, entry: int = 0,
     Returns ``search(Q) -> (dists (B,k), ids (B,k), n_evals (B,), hops (B,))``
     with distances under ``dist`` in the paper's left-query convention.
     """
-    consts = {name: a.contiguous() for name, a in dist.prep_scan(X).items()}
+    consts = prepped(dist.prep_scan(X))
 
     def search(Q):
-        qc = {"rep": dist.prep_right(Q), "bias": dist.bias_right(Q)}
+        qc = prepped(dist.prep_queries(Q))
         st = beam_search_impl(neighbors, consts, qc, dist, entry, ef, max_steps=max_steps)
         return st.beam_d[:, :k], st.beam_i[:, :k], st.n_evals, st.steps
 

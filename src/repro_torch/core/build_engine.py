@@ -10,10 +10,11 @@ forward edges land as one scatter, and reverse edges go through a
 degree-capped scatter-with-eviction merge.  At W=1 the build equals the
 sequential ``swgraph.build_swgraph`` edge for edge.
 
-Scoring follows the tensors' device.  On the card a ``Distance`` scores the
-construction searches' candidate blocks and the reverse-edge candidates
-with the per-cell gather kernel ``gather_scores``; on the CPU both take the
-plain gathered dot product that the sequential builder uses.
+Scoring follows the tensors' device, for any build distance.  On the card
+the construction searches' candidate blocks, the reverse-edge candidates
+and the intra-wave block go through the per-cell gather kernel
+``gather_scores``, one launch per branch of the distance; on the CPU all
+take the plain gathered dot product that the sequential builder uses.
 
 The JAX package's ``.at[].set(mode="drop")`` scatters become writes into a
 sentinel row n, which the builder keeps below its adjacency and slices off
@@ -31,9 +32,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.batched_beam import _smallest, batched_beam_search
-from repro_torch.core.beam_search import score_gathered
-from repro_torch.core.distances import Distance
-from repro_torch.kernels.ops import pair_scores, query_distance_matrix
+from repro_torch.core.distances import tree_map
+from repro_torch.kernels.ops import gathered_scores, prepped, query_distance_matrix
 
 INF = float("inf")
 
@@ -100,15 +100,11 @@ def reverse_edge_scores(dist, consts, qc_all, flat_i, safe_j):
     """d_build(x_i, x_j) for reverse candidates: i the candidate (left), j the
     owner (query side, gathered from the prepped ``qc_all``).
 
-    On the card a ``Distance`` goes through the per-cell gather kernel (one
-    (owner, candidate) cell per query); elsewhere the plain gathered dot
-    product of ``score_gathered``.
+    One (owner, candidate) cell per query: on the card the per-cell gather
+    kernel, once per branch of the distance.
     """
-    qc = {name: a[safe_j.long()].contiguous() for name, a in qc_all.items()}
-    ids = flat_i.to(torch.int32)[:, None].contiguous()
-    if isinstance(dist, Distance) and ids.device.type == "cuda":
-        return pair_scores(dist, ids, qc["rep"], qc["bias"], consts["rep"], consts["bias"])[:, 0]
-    return score_gathered(dist, consts, qc, ids)[:, 0]
+    qc = tree_map(lambda a: a[safe_j.long()].contiguous(), qc_all)
+    return gathered_scores(dist, flat_i[:, None], qc, consts)[:, 0]
 
 
 def _wave_connect_(dist, consts, qc_all, adj_s, adj_d_s, pids, ok_pt, beam_i, beam_d, *,
@@ -122,9 +118,9 @@ def _wave_connect_(dist, consts, qc_all, adj_s, adj_d_s, pids, ok_pt, beam_i, be
     ds = beam_d[:, :NN]
 
     if L > 0:
-        qc = {name: a[safe_p.long()] for name, a in qc_all.items()}
+        qc = tree_map(lambda a: a[safe_p.long()], qc_all)
         # D_intra[a, b] = d_build(x_{p_b}, x_{p_a}): row a is the query
-        D_intra = score_gathered(dist, consts, qc, safe_p[None, :].expand(W, W))
+        D_intra = gathered_scores(dist, safe_p[None, :].expand(W, W), qc, consts)
         iw = torch.arange(W, device=dev)
         bad = (iw[None, :] == iw[:, None]) | ~ok_pt[None, :] | ~ok_pt[:, None]
         D_intra = torch.where(bad, INF, D_intra)
@@ -197,8 +193,8 @@ def build_swgraph_wave(dist, X, NN: int = 15, ef_construction: int = 100,
         raise ValueError(f"M_max {M_max} < NN {NN}")
     n = X.shape[0]
     dev = X.device
-    consts = {name: a.contiguous() for name, a in dist.prep_scan(X).items()}
-    qc_all = {"rep": dist.prep_right(X).contiguous(), "bias": dist.bias_right(X).contiguous()}
+    consts = prepped(dist.prep_scan(X))
+    qc_all = prepped(dist.prep_queries(X))
     ef = max(ef_construction, NN)
     W = int(max(1, min(wave, n - 1)))
     R = int(min(W, 8 if rev_rounds is None else rev_rounds))
@@ -211,22 +207,15 @@ def build_swgraph_wave(dist, X, NN: int = 15, ef_construction: int = 100,
     adj_s = torch.full((n + 1, M_max), -1, dtype=torch.int32, device=dev)
     adj_d_s = torch.full((n + 1, M_max), INF, dtype=torch.float32, device=dev)
     entries = torch.zeros((1,), dtype=torch.int32, device=dev)
-    kernel_path = isinstance(dist, Distance) and dev.type == "cuda"
 
     for w in range(n_waves):
         pids = pids_all[w]
         base = pids[0]  # every point of the wave sees exactly the prefix; 0-d, no sync
         ok_pt = pids < n
-        qc = {name: a[torch.where(ok_pt, pids, 0).long()].contiguous()
-              for name, a in qc_all.items()}
+        qc = tree_map(lambda a: a[torch.where(ok_pt, pids, 0).long()].contiguous(), qc_all)
 
-        if kernel_path:
-            def score_rows(ids, qc=qc):
-                return pair_scores(dist, ids.contiguous(), qc["rep"], qc["bias"],
-                                   consts["rep"], consts["bias"])
-        else:
-            def score_rows(ids, qc=qc):
-                return score_gathered(dist, consts, qc, ids)
+        def score_rows(ids, qc=qc):
+            return gathered_scores(dist, ids, qc, consts)
 
         st = batched_beam_search(adj_s[:n], score_rows, entries, W, ef, n_active=base,
                                  frontier=T)
@@ -318,10 +307,7 @@ def build_sharded(dist, X_local, *, NN: int = 15, builder: str = "wave", wave: i
     all_Xs = _all_gather(X_local[sample_idx], group)
     all_gids = _all_gather(gids, group)
     # D[b, t] = d_build(sample_t, x_b): the owner-row slot convention
-    if isinstance(dist, Distance):
-        D = query_distance_matrix(dist, X_local, all_Xs)
-    else:
-        D = dist.query_matrix(X_local, all_Xs, mode="left")
+    D = query_distance_matrix(dist, X_local, all_Xs)
     own = torch.div(all_gids, n_local, rounding_mode="floor") == shard
     D = torch.where(own[None, :], INF, D)
     cross_d, pos = _smallest(D, min(cross_links, all_gids.shape[0]))

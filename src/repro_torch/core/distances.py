@@ -15,12 +15,18 @@ The post-combine ids are shared with the CUDA kernel
     POST_RENYI  : log(max(s, tiny)) * c0         (Renyi, c0 = 1/(alpha-1))
     POST_NEG    : -s                             (BM25 / negative inner product)
     POST_L2     : bias_l - 2 s + bias_r          (squared Euclidean)
+
+Every distance, the wrappers of ``symmetrize.py`` included, also lowers to
+its matmul-form BRANCHES (``branches``, ``branch_reps``, ``combine_``): a
+``Distance`` is one branch, a symmetrized or combined distance two or three
+plus a pointwise combine.  The kernel sites score each branch with one
+launch and combine the outputs (``repro_torch.kernels.ops``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, ClassVar, NamedTuple
 
 import torch
 
@@ -31,6 +37,27 @@ POST_L2 = 3
 
 _TINY = 1e-30
 EPS = 1e-6  # histogram floor; matches the data generators
+
+
+class Branch(NamedTuple):
+    """One matmul-form branch of a distance: what a kernel takes beside the reps.
+
+    ``query_left`` marks a reversed branch, whose query is the LEFT argument
+    of the base distance: its plain version adds the query's bias before
+    the row's, as the JAX package's ``ReversedDistance.score`` does (the
+    kernels add the row's first, a difference of at most one ulp).
+    """
+
+    post_id: int
+    c0: float
+    query_left: bool
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to every tensor of a nested dict of prepped constants."""
+    if isinstance(tree, dict):
+        return {key: tree_map(fn, v) for key, v in tree.items()}
+    return fn(tree)
 
 
 def apply_post(post_id: int, s, bias_l, bias_r, c0: float = 0.0):
@@ -66,6 +93,7 @@ class Distance:
     c0: float = 0.0
     symmetric: bool = False
     needs_simplex: bool = True  # defined over positive histograms
+    query_left: ClassVar[bool] = False  # a Distance is its own forward branch
 
     def matrix(self, U, V):
         """D[i, j] = d(U[i], V[j]) via one matmul."""
@@ -105,10 +133,31 @@ class Distance:
         """Per-query constants matching ``prep_scan`` (q: (m,) raw vector)."""
         return {"rep": self.prep_right(q[None, :])[0], "bias": self.bias_right(q[None, :])[0]}
 
+    def prep_queries(self, Q):
+        """``prep_query`` of every row of Q (B, m) at once."""
+        return {"rep": self.prep_right(Q), "bias": self.bias_right(Q)}
+
     def score(self, rows, qc):
-        """rows: dict from prep_scan gathered to (R, ...); qc: from prep_query."""
-        s = rows["rep"] @ qc["rep"]
-        return apply_post(self.post_id, s, rows["bias"], qc["bias"], self.c0)
+        """rows: dict from prep_scan gathered to (R, ...); qc: from prep_query.
+
+        Also batched: rows gathered to (B, R, ...) with qc from ``prep_queries``.
+        """
+        s = (rows["rep"] @ qc["rep"][..., :, None])[..., 0]
+        return apply_post(self.post_id, s, rows["bias"], qc["bias"][..., None], self.c0)
+
+    # -- branch lowering (the kernel sites' contract) ------------------------
+
+    @property
+    def branches(self) -> tuple:
+        return (Branch(self.post_id, self.c0, False),)
+
+    def branch_reps(self, prepped) -> list:
+        """The ``{"rep", "bias"}`` dicts of ``prepped`` in branch order."""
+        return [prepped]
+
+    def combine_(self, outs):
+        """Combine the branches' outputs (here the one) into the first, in place."""
+        return outs[0]
 
 
 def _safe(x):

@@ -5,39 +5,53 @@
     dists, ids, n_evals, hops = idx.searcher()(Q)
 
 Builders: NN-descent, and SW-graph with the wave-parallel or the
-sequential engine.  Engines: the batched lock-step engine and the
-single-query reference engine, both under the original distance.  The
-symmetrized policies, rerank, online mutation and the scheduler of
-``repro`` raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+sequential engine, under any build policy (the graph-construction
+distance).  Engines: the batched lock-step engine and the single-query
+reference engine, under the original distance, or under a bound search
+policy whose k_c candidates are re-ranked under the original distance
+(the paper's full-symmetrization scenario).  Online mutation and the
+scheduler of ``repro`` raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.core.batched_beam import make_step_searcher, select_entries
 from repro_torch.core.beam_search import make_batched_searcher
 from repro_torch.core.build_engine import build_swgraph_wave
+from repro_torch.core.filter_refine import rerank
 from repro_torch.core.nndescent import build_nndescent
 from repro_torch.core.spec import RetrievalSpec
 from repro_torch.core.swgraph import build_swgraph
+from repro_torch.kernels.ops import prepped
 
-_ITEM_RERANK = "ROADMAP item M8 (symmetrize.py policies, filter_refine.py rerank)"
 _ITEM_ONLINE = "ROADMAP item M11 (online.py)"
 _ITEM_SCHEDULER = "ROADMAP item M12 (scheduler.py)"
 
 
 def check_supported(spec: RetrievalSpec) -> None:
-    if spec.needs_rerank:
-        raise NotImplementedError(
-            f"search_policy {str(spec.search_policy)!r} (rerank) is not ported yet: "
-            f"{_ITEM_RERANK}")
     if spec.capacity is not None:
         raise NotImplementedError(f"capacity / online mutation is not ported yet: {_ITEM_ONLINE}")
+
+
+def bind_policies(spec: RetrievalSpec, dist, X, natural: Optional[Callable] = None):
+    """``(build_policy, search_policy, build_dist, search_dist)`` for ``spec``
+    over the base distance ``dist``.
+
+    Data-calibrated parameters (rankblend without tau) resolve against X
+    once; the spec itself stays as written.  ``search_dist`` is ``dist``
+    unless the spec reranks.
+    """
+    build_policy = spec.build_policy.resolve(dist, X)
+    search_policy = spec.search_policy.resolve(dist, X)
+    build_dist = build_policy.bind(dist, natural=natural)
+    search_dist = search_policy.bind(dist, natural=natural) if spec.needs_rerank else dist
+    return build_policy, search_policy, build_dist, search_dist
 
 
 @dataclasses.dataclass
@@ -47,7 +61,7 @@ class ANNIndex:
     X: torch.Tensor
     neighbors: torch.Tensor  # (n, M) int32
     dist: object  # original distance
-    search_dist: object  # distance guiding the beam (equals dist in this slice)
+    search_dist: object  # distance guiding the beam (may equal dist)
     query_sym: str
     entries: Optional[torch.Tensor] = None  # (E,) int32 beam entry points
     build_info: dict = dataclasses.field(default_factory=dict)
@@ -61,16 +75,24 @@ class ANNIndex:
 
     @classmethod
     def build(cls, X, dist=None, *, spec: Optional[RetrievalSpec] = None,
-              generator: Optional[torch.Generator] = None) -> "ANNIndex":
+              generator: Optional[torch.Generator] = None,
+              natural: Optional[Callable] = None) -> "ANNIndex":
         """Build an index from a ``RetrievalSpec``.
 
         Args:
             X: (n, m) float32 database on the device the index should live on.
-            dist: optional explicit base distance; otherwise ``spec.distance``.
-            spec: the scenario (defaults to ``RetrievalSpec()``).
+            dist: optional explicit base distance (e.g. a ``ViewedDistance``
+                such as BM25, which the registry cannot name); otherwise
+                ``spec.distance``.
+            spec: the scenario (defaults to ``RetrievalSpec()``).  A
+                rankblend policy without tau is calibrated on X; the
+                concrete policies land in ``build_info["index_sym_resolved"]``
+                / ``["query_sym_resolved"]``.
             generator: ``torch.Generator`` on X's device for the NN-descent
                 and entry-point draws (a fixed seed 0 when omitted); the
                 SW-graph builders draw nothing.
+            natural: optional callable returning the distance-specific
+                natural symmetrization (Eq. 4), for the ``natural`` policy.
         """
         spec = spec if spec is not None else RetrievalSpec()
         check_supported(spec)
@@ -78,8 +100,8 @@ class ANNIndex:
             dist = spec.base_distance()
         if generator is None:
             generator = torch.Generator(device=X.device).manual_seed(0)
-        build_dist = spec.build_policy.bind(dist)
-        search_dist = dist
+        build_policy, search_policy, build_dist, search_dist = bind_policies(
+            spec, dist, X, natural)
 
         if spec.builder == "swgraph" and spec.build_engine == "wave":
             neighbors, degrees = build_swgraph_wave(
@@ -103,7 +125,7 @@ class ANNIndex:
             search_dist=search_dist,
             query_sym=str(spec.search_policy),
             entries=entries,
-            build_info=make_build_info(spec, degrees),
+            build_info=make_build_info(spec, degrees, build_policy, search_policy),
             build_dist=build_dist,
             spec=spec,
         )
@@ -124,7 +146,10 @@ class ANNIndex:
         """Return ``search(Q) -> (dists, ids, n_evals, hops)``.
 
         Knobs resolve spec-first: explicit arguments override ``spec``
-        (default: the spec the index was built with).
+        (default: the spec the index was built with).  Under a rerank spec
+        (``search_policy != none``) the beam runs under the bound search
+        distance with ef >= k_c, and its k_c candidates are re-ranked under
+        the original distance (counted into n_evals).
         """
         self._check_search_policy(spec)
         spec = spec if spec is not None else self.spec
@@ -134,19 +159,33 @@ class ANNIndex:
         frontier = spec.frontier if frontier is None else frontier
         adaptive = spec.adaptive if adaptive is None else adaptive
         patience = spec.patience if patience is None else patience
+        k_c = spec.k_c if k_c is None else k_c
         if engine not in ("batched", "reference"):
             raise ValueError(f"unknown engine {engine!r}; known: batched, reference")
-        if k_c is not None or self.query_sym != "none":
-            raise NotImplementedError(f"rerank (k_c) is not ported yet: {_ITEM_RERANK}")
-        ef = max(ef_search, k)
+        if engine == "reference" and adaptive:
+            raise ValueError("adaptive frontier requires engine='batched'")
+        if self.query_sym == "none":
+            return self._make_searcher(self.dist, max(ef_search, k), k, engine, frontier,
+                                       adaptive, patience)
+
+        k_c = k_c or max(ef_search, k)
+        inner = self._make_searcher(self.search_dist, max(ef_search, k_c), k_c, engine,
+                                    frontier, adaptive, patience)
+        consts = prepped(self.dist.prep_scan(self.X))  # the original distance, prepped once
+
+        def search(Q):
+            _, cand, n_evals, hops = inner(Q)
+            d, ids = rerank(self.dist, Q, self.X, cand, k, consts=consts)
+            return d, ids, n_evals + k_c, hops
+
+        return search
+
+    def _make_searcher(self, dist, ef: int, k: int, engine: str, frontier: int,
+                       adaptive: bool, patience: int):
         if engine == "reference":
-            if adaptive:
-                raise ValueError("adaptive frontier requires engine='batched'")
-            return make_batched_searcher(self.dist, self.neighbors, self.X, ef, k,
-                                         entry=self.entry)
-        return make_step_searcher(self.dist, self.neighbors, self.X, ef, k,
-                                  entries=self.entries, frontier=frontier,
-                                  adaptive=adaptive, patience=patience)
+            return make_batched_searcher(dist, self.neighbors, self.X, ef, k, entry=self.entry)
+        return make_step_searcher(dist, self.neighbors, self.X, ef, k, entries=self.entries,
+                                  frontier=frontier, adaptive=adaptive, patience=patience)
 
     def search(self, Q, k: Optional[int] = None, ef_search: Optional[int] = None,
                k_c: Optional[int] = None, engine: Optional[str] = None,
@@ -161,8 +200,9 @@ class ANNIndex:
         raise NotImplementedError(f"online mutation is not ported yet: {_ITEM_ONLINE}")
 
 
-def make_build_info(spec: RetrievalSpec, degrees) -> dict:
-    """``build_info`` with the keys and values ``repro`` records for ``spec``."""
+def make_build_info(spec: RetrievalSpec, degrees, build_policy, search_policy) -> dict:
+    """``build_info`` with the keys and values ``repro`` records for ``spec``
+    and the policies as resolved (``bind_policies``)."""
     swgraph = spec.builder == "swgraph"
     return dict(
         builder=spec.builder,
@@ -170,8 +210,8 @@ def make_build_info(spec: RetrievalSpec, degrees) -> dict:
         wave=spec.wave if swgraph and spec.build_engine == "wave" else None,
         index_sym=str(spec.build_policy),
         query_sym=str(spec.search_policy),
-        index_sym_resolved=str(spec.build_policy),
-        query_sym_resolved=str(spec.search_policy),
+        index_sym_resolved=str(build_policy),
+        query_sym_resolved=str(search_policy),
         NN=spec.NN,
         ef_construction=spec.ef_construction,
         mean_degree=float(degrees.float().mean()),

@@ -10,7 +10,9 @@ database row acts as its own query, with the database prepped once per build.
 On the card the K*K two-hop columns are scored grouped by the middle node
 (``two_hop_scores``) and the reverse and random columns by
 ``frontier_scores``, both straight into one (n, K + R) score block that also
-holds the current neighbours, so a round concatenates no scores.
+holds the current neighbours, so a round concatenates no scores.  Under a
+symmetrized, combined or learned build distance each branch is one such
+launch pair into a block of its own, combined in place into the first.
 
 The random draws live in one ``NNDescentDraws`` object.  ``draw_nndescent``
 makes them from a ``torch.Generator``; a test can instead pass the JAX
@@ -23,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.ops import frontier_gather_scores, nndescent_round_scores
+from repro_torch.kernels.ops import prepped, round_scores, row_scores
 
 INF = float("inf")
 
@@ -52,10 +54,8 @@ def draw_nndescent(n: int, K: int, iters: int, n_random: int, M_out: int,
 
 def _score_rows(dist, consts, qc_all, ids):
     """d_build(X[ids[i, c]], X[i]) for every node i, candidate c. (n, C)."""
-    safe = torch.where(ids >= 0, ids, 0).to(torch.int32).contiguous()
-    return frontier_gather_scores(
-        dist, safe, qc_all["rep"], qc_all["bias"], consts["rep"], consts["bias"]
-    ).float()
+    safe = torch.where(ids >= 0, ids, 0)
+    return row_scores(dist, safe, qc_all, consts).float()
 
 
 def _dedup_topk(d, ids, K: int):
@@ -105,9 +105,8 @@ def build_nndescent(dist, X, generator=None, K: int = 16, iters: int = 8,
     elif (draws.init.shape != (n, K) or draws.rev_slots.shape != (iters, K)
           or draws.rnd.shape != (iters, n, n_random) or draws.final_slots.shape != (K,)):
         raise ValueError(f"draws do not fit n={n}, K={K}, iters={iters}, n_random={n_random}")
-    consts = {name: a.contiguous() for name, a in dist.prep_scan(X).items()}
-    # the whole database prepped as queries once
-    qc_all = {"rep": dist.prep_right(X).contiguous(), "bias": dist.bias_right(X).contiguous()}
+    consts = prepped(dist.prep_scan(X))
+    qc_all = prepped(dist.prep_queries(X))  # the whole database prepped as queries once
     iota = torch.arange(n, dtype=torch.int32, device=X.device)
 
     # --- init: random neighbors (exclude self by +1 shift mod n) ---
@@ -128,8 +127,7 @@ def build_nndescent(dist, X, generator=None, K: int = 16, iters: int = 8,
         cand[:, KK:KK + K] = _sampled_reverse(adj, K, draws.rev_slots[r])
         cand[:, KK + K:] = draws.rnd[r]
         cand.masked_fill_(cand == iota[:, None], -1)  # no self loops
-        nndescent_round_scores(dist, safe, cand[:, KK:], qc_all["rep"], qc_all["bias"],
-                               consts["rep"], consts["bias"], out=d[:, K:])
+        round_scores(dist, safe, cand[:, KK:], qc_all, consts, out=d[:, K:])
         adj_d, adj = _dedup_topk(d, ids, K)
 
     if add_reverse:

@@ -1,31 +1,44 @@
 """RetrievalSpec and DistancePolicy (PyTorch port of ``repro.core.spec``).
 
-``RetrievalSpec`` is the frozen object that describes a whole retrieval
-scenario: base distance, build/search policies, builder, engine and
-scheduler knobs.  Its fields, defaults, validation, JSON form and
-fingerprint are those of ``repro``: ``to_json()`` and ``fingerprint()`` give
-the same bytes in both packages, so a spec written by one loads in the other.
+``DistancePolicy`` names how a base distance is transformed before use: the
+symmetrization modes (none/avg/min/reverse/l2/natural) and the combinators
 
-``DistancePolicy`` parses and prints every policy kind of ``repro``.  In
-this slice ``bind`` lowers only ``none``; the symmetrized, combined and
-learned policies come with the port of ``symmetrize.py`` (ROADMAP item M8).
+    Blend(alpha)            alpha*d(u,v) + (1-alpha)*d(v,u)
+    MaxSym()                max(d(u,v), d(v,u))
+    RankBlend(alpha, tau)   alpha*d(u,v) + (1-alpha)*proxy(d(v,u))
+    Learned(ref)            a trained construction distance, by fingerprint
+
+``bind`` lowers a policy over a base distance to a wrapper of
+``symmetrize.py``, which the engines and kernels score branch by branch.
+
+``RetrievalSpec`` is the frozen object that describes a whole retrieval
+scenario: base distance, build/search policies and rerank ``k_c``, builder,
+engine and scheduler knobs.  Its fields, defaults, validation, JSON form and
+fingerprint are those of ``repro``: ``to_json()`` and ``fingerprint()`` give
+the same bytes in both packages, so a spec or a sealed artifact written by
+one loads in the other.  The QoS demotion ladder (``demotion_ladder``,
+``class_spec``) serves only the scheduler and is not ported yet (ROADMAP
+item M12).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import itertools
 import json
 import re
-from typing import Optional
+from typing import Callable, Optional
 
-POLICY_KINDS = ("none", "avg", "min", "reverse", "l2", "natural",
-                "max", "blend", "rankblend", "learned")
+from repro_torch.core.symmetrize import (SYM_MODES, CombinedDistance, LearnedDistance,
+                                         calibrate_tau, get_learned_weights,
+                                         learned_weights_fingerprint, register_learned_weights,
+                                         reverse_of, symmetrized)
+
+POLICY_KINDS = SYM_MODES + ("max", "blend", "rankblend", "learned")
 
 _POLICY_RE = re.compile(r"^([a-z0-9_]+)(?:\(([^)]*)\))?$")
 _LEARNED_REF_RE = re.compile(r"^[0-9a-f]{12}$")
-
-_SYMMETRIZE_ITEM = "ROADMAP item M8 (symmetrize.py policies, filter_refine.py rerank)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,17 +119,73 @@ class DistancePolicy:
             tau=params[1] if len(params) > 1 else None,
         )
 
-    def bind(self, base):
-        """Lower the policy over ``base``.  Only ``none`` lowers in this slice."""
-        if self.is_none:
-            return base
-        # every other kind, named so tools/jaxlint (JL004) sees each one handled
-        if self.kind in ("avg", "min", "reverse", "l2", "natural", "max", "blend",
-                         "rankblend", "learned"):
-            raise NotImplementedError(
-                f"policy {str(self)!r} needs the symmetrized/combined distances, "
-                f"not ported yet: {_SYMMETRIZE_ITEM}")
+    def resolve(self, base=None, data=None) -> "DistancePolicy":
+        """Make a data-calibrated parameter concrete.
+
+        Only ``rankblend`` with ``tau=None`` resolves: given ``base`` and a
+        database sample ``data``, tau becomes the median reversed-distance
+        scale (``calibrate_tau``, deterministic in the data); without data
+        the fixed constant 1.0.  Every other policy returns itself.
+        """
+        if self.kind == "rankblend" and self.tau is None:
+            tau = calibrate_tau(base, data) if base is not None and data is not None else 1.0
+            return dataclasses.replace(self, tau=tau)
+        return self
+
+    def bind(self, base, natural: Optional[Callable] = None, data=None):
+        """Lower the policy over ``base``, returning a distance.
+
+        ``blend`` at alpha 0.5, 0 and 1 lowers to ``avg``, ``reverse`` and
+        the original distance, so that it equals them bit for bit.  ``data``
+        (an (n, m) database sample) resolves a data-calibrated tau first.
+        """
+        if self.kind in SYM_MODES:
+            return symmetrized(base, self.kind, natural=natural)
+        if self.kind == "learned":
+            return LearnedDistance.from_weights(base, get_learned_weights(self.ref),
+                                                fingerprint=self.ref)
+        if self.kind == "max":
+            return CombinedDistance(base, "max")
+        if self.kind == "blend":
+            if self.alpha == 1.0:
+                return base
+            if self.alpha == 0.5:
+                return symmetrized(base, "avg")
+            if self.alpha == 0.0:
+                return reverse_of(base)
+            return CombinedDistance(base, "blend", alpha=self.alpha)
+        if self.kind == "rankblend":
+            p = self.resolve(base, data)
+            return CombinedDistance(base, "rankblend", alpha=p.alpha, tau=p.tau)
         raise ValueError(f"unknown policy kind {self.kind!r}")
+
+
+def Blend(alpha: float) -> DistancePolicy:  # noqa: N802 - combinator constructor
+    """alpha*d(u,v) + (1-alpha)*d(v,u)."""
+    return DistancePolicy("blend", alpha=float(alpha))
+
+
+def MaxSym() -> DistancePolicy:  # noqa: N802
+    """max(d(u,v), d(v,u)): the pessimistic symmetrization."""
+    return DistancePolicy("max")
+
+
+def RankBlend(alpha: float, tau: Optional[float] = 1.0) -> DistancePolicy:  # noqa: N802
+    """Convex mix of d(u,v) with a monotone proxy of the reversed distance;
+    ``tau=None`` is calibrated on the database when the policy binds."""
+    return DistancePolicy("rankblend", alpha=float(alpha),
+                          tau=None if tau is None else float(tau))
+
+
+def Learned(weights_or_ref) -> DistancePolicy:  # noqa: N802
+    """The learned construction distance, by the content fingerprint of its
+    weights: a weights dict (registered on the spot) or a 12-hex ref whose
+    weights are registered already (``load_learned_artifact``)."""
+    if isinstance(weights_or_ref, dict):
+        ref = register_learned_weights(weights_or_ref)
+    else:
+        ref = str(weights_or_ref)
+    return DistancePolicy("learned", ref=ref)
 
 
 NONE_POLICY = DistancePolicy("none")
@@ -188,6 +257,16 @@ class RetrievalSpec:
 
         return get_distance(self.distance)
 
+    def bind_build(self, base=None, natural: Optional[Callable] = None, data=None):
+        """Lower ``build_policy`` over the base distance (graph construction)."""
+        base = base if base is not None else self.base_distance()
+        return self.build_policy.bind(base, natural=natural, data=data)
+
+    def bind_search(self, base=None, natural: Optional[Callable] = None, data=None):
+        """Lower ``search_policy`` over the base distance (beam guidance)."""
+        base = base if base is not None else self.base_distance()
+        return self.search_policy.bind(base, natural=natural, data=data)
+
     @property
     def needs_rerank(self) -> bool:
         """True when the beam runs under a modified distance and the results
@@ -230,3 +309,164 @@ class RetrievalSpec:
 
     def replace(self, **changes) -> "RetrievalSpec":
         return dataclasses.replace(self, **changes)
+
+    def grid(self, **axes) -> list["RetrievalSpec"]:
+        """One spec per combination of ``axes`` (field -> values), in
+        ``itertools.product`` order."""
+        if not axes:
+            return [self]
+        names = list(axes)
+        return [self.replace(**dict(zip(names, combo)))
+                for combo in itertools.product(*(axes[n] for n in names))]
+
+
+# ---------------------------------------------------------------------------
+# Pareto dominance (the auto-tuner's objective algebra)
+# ---------------------------------------------------------------------------
+
+
+def dominates(a: dict, b: dict, *, maximize=(), minimize=()) -> bool:
+    """True iff objective point ``a`` is at least as good as ``b`` on every
+    listed objective and strictly better on one.  A missing key raises."""
+    if not maximize and not minimize:
+        raise ValueError("dominates() needs at least one objective key")
+    as_good = all(a[m] >= b[m] for m in maximize) and all(a[m] <= b[m] for m in minimize)
+    strictly = any(a[m] > b[m] for m in maximize) or any(a[m] < b[m] for m in minimize)
+    return as_good and strictly
+
+
+def pareto_frontier(points, *, maximize=(), minimize=(), key=None) -> list:
+    """The non-dominated subset of ``points`` in input order; ties keep all.
+
+    ``key(point) -> dict`` extracts the objectives (identity by default).
+    """
+    key = key if key is not None else (lambda p: p)
+    objs = [key(p) for p in points]
+    return [p for i, p in enumerate(points)
+            if not any(dominates(objs[j], objs[i], maximize=maximize, minimize=minimize)
+                       for j in range(len(points)) if j != i)]
+
+
+# ---------------------------------------------------------------------------
+# sealed artifacts: the auto-tuner's tuned spec and the trainer's learned weights
+# ---------------------------------------------------------------------------
+
+TUNED_ARTIFACT_KIND = "repro.autotune/tuned-spec@1"
+LEARNED_ARTIFACT_KIND = "repro.learned/construction-distance@1"
+
+
+def _doc(src) -> dict:
+    """An artifact as a dict, from a dict, a JSON string or a path."""
+    if isinstance(src, dict):
+        return src
+    if "{" not in src:
+        with open(src) as f:
+            src = f.read()
+    return json.loads(src)
+
+
+def tuned_artifact(spec: RetrievalSpec, objectives: dict, *, frontier=(),
+                   calibration: Optional[dict] = None,
+                   provenance: Optional[dict] = None) -> dict:
+    """The tuned-spec artifact: the chosen spec, its fingerprint (the seal),
+    its objectives, and the ``(spec, objectives)`` frontier it came from."""
+    return {
+        "kind": TUNED_ARTIFACT_KIND,
+        "tuned_spec": spec.to_dict(),
+        "spec_fingerprint": spec.fingerprint(),
+        "objectives": dict(objectives),
+        "frontier": [{"spec": s.to_dict(), "spec_fingerprint": s.fingerprint(), **o}
+                     for s, o in frontier],
+        "calibration": dict(calibration or {}),
+        "provenance": {"tool": "repro.core.autotune", **(provenance or {})},
+    }
+
+
+def load_tuned_artifact(src) -> tuple[RetrievalSpec, dict]:
+    """``(spec, artifact)`` from a tuned-spec artifact (path, JSON or dict).
+
+    ``ValueError`` on an unknown ``kind`` or when the recorded
+    ``spec_fingerprint`` does not match the embedded spec (it was edited).
+    """
+    doc = _doc(src)
+    kind = doc.get("kind")
+    if kind != TUNED_ARTIFACT_KIND:
+        raise ValueError(f"not a tuned-spec artifact (kind={kind!r}; "
+                         f"expected {TUNED_ARTIFACT_KIND!r})")
+    spec = RetrievalSpec.from_dict(doc["tuned_spec"])
+    if spec.fingerprint() != doc.get("spec_fingerprint"):
+        raise ValueError(
+            f"tuned-spec fingerprint mismatch: artifact says {doc.get('spec_fingerprint')!r} "
+            f"but the embedded spec hashes to {spec.fingerprint()!r}; the artifact was "
+            f"edited after tuning")
+    return spec, doc
+
+
+def learned_artifact(spec: RetrievalSpec, weights: dict, objectives: dict, *,
+                     anchor: Optional[dict] = None, candidates=(),
+                     calibration: Optional[dict] = None,
+                     provenance: Optional[dict] = None) -> dict:
+    """The learned-construction-distance artifact: the weights and the spec
+    whose ``build_policy`` is ``learned(<their fingerprint>)``, both sealed."""
+    wfp = learned_weights_fingerprint(weights)
+    if spec.build_policy.kind != "learned" or spec.build_policy.ref != wfp:
+        raise ValueError(f"spec build_policy {spec.build_policy} does not reference the "
+                         f"sealed weights (fingerprint {wfp})")
+    return {
+        "kind": LEARNED_ARTIFACT_KIND,
+        "spec": spec.to_dict(),
+        "spec_fingerprint": spec.fingerprint(),
+        "weights": dict(weights),
+        "weights_fingerprint": wfp,
+        "objectives": dict(objectives),
+        "anchor": dict(anchor or {}),
+        "candidates": [dict(c) for c in candidates],
+        "calibration": dict(calibration or {}),
+        "provenance": {"tool": "repro.core.learned", **(provenance or {})},
+    }
+
+
+def load_learned_artifact(src) -> tuple[RetrievalSpec, dict]:
+    """``(spec, artifact)`` from a learned-weights artifact; registers the weights.
+
+    Three seals: the weights' recomputed fingerprint equals the recorded
+    one, the spec's ``build_policy`` references exactly those weights, and
+    the spec's fingerprint equals the recorded one.
+    """
+    doc = _doc(src)
+    kind = doc.get("kind")
+    if kind != LEARNED_ARTIFACT_KIND:
+        raise ValueError(f"not a learned-weights artifact (kind={kind!r}; "
+                         f"expected {LEARNED_ARTIFACT_KIND!r})")
+    weights = doc.get("weights")
+    if not isinstance(weights, dict):
+        raise ValueError("learned artifact carries no weights dict")
+    wfp = learned_weights_fingerprint(weights)
+    if wfp != doc.get("weights_fingerprint"):
+        raise ValueError(
+            f"learned weights fingerprint mismatch: artifact says "
+            f"{doc.get('weights_fingerprint')!r} but the embedded weights hash to {wfp!r}; "
+            f"the artifact was edited after training")
+    spec = RetrievalSpec.from_dict(doc["spec"])
+    if spec.build_policy.kind != "learned" or spec.build_policy.ref != wfp:
+        raise ValueError(f"learned artifact spec build_policy {spec.build_policy} does not "
+                         f"reference the sealed weights ({wfp})")
+    if spec.fingerprint() != doc.get("spec_fingerprint"):
+        raise ValueError(
+            f"learned-spec fingerprint mismatch: artifact says "
+            f"{doc.get('spec_fingerprint')!r} but the embedded spec hashes to "
+            f"{spec.fingerprint()!r}")
+    register_learned_weights(weights, fingerprint=wfp)
+    return spec, doc
+
+
+def load_spec(src) -> RetrievalSpec:
+    """A ``RetrievalSpec`` from a plain spec, a tuned-spec artifact or a
+    learned-weights artifact (a path, a JSON string or a dict), each seal
+    checked: what ``launch/serve.py --spec`` reads."""
+    doc = _doc(src)
+    if doc.get("kind") == TUNED_ARTIFACT_KIND:
+        return load_tuned_artifact(doc)[0]
+    if doc.get("kind") == LEARNED_ARTIFACT_KIND:
+        return load_learned_artifact(doc)[0]
+    return RetrievalSpec.from_dict(doc)

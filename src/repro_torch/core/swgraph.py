@@ -17,7 +17,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.beam_search import beam_search_impl, score_gathered
+from repro_torch.core.beam_search import beam_search_impl
+from repro_torch.core.distances import tree_map
+from repro_torch.kernels.ops import gathered_scores, prepped
 
 INF = float("inf")
 
@@ -34,8 +36,8 @@ def build_swgraph(dist, X, NN: int = 15, ef_construction: int = 100,
         raise ValueError(f"M_max {M_max} < NN {NN}")
     n = X.shape[0]
     dev = X.device
-    consts = {name: a.contiguous() for name, a in dist.prep_scan(X).items()}
-    qc_all = {"rep": dist.prep_right(X).contiguous(), "bias": dist.bias_right(X).contiguous()}
+    consts = prepped(dist.prep_scan(X))
+    qc_all = prepped(dist.prep_queries(X))
     ef = max(ef_construction, NN)
 
     # row n is a sentinel that absorbs the writes of invalid reverse edges
@@ -43,7 +45,7 @@ def build_swgraph(dist, X, NN: int = 15, ef_construction: int = 100,
     adj_d = torch.full((n + 1, M_max), INF, dtype=torch.float32, device=dev)
     sentinel = torch.tensor(n, device=dev)
     for i in range(1, n):
-        qc = {name: a[i:i + 1] for name, a in qc_all.items()}
+        qc = tree_map(lambda a: a[i:i + 1], qc_all)
         st = beam_search_impl(adj[:n], consts, qc, dist, 0, ef, n_active=i)
         ids = st.beam_i[0, :NN]
         ds = st.beam_d[0, :NN]
@@ -59,8 +61,8 @@ def build_swgraph(dist, X, NN: int = 15, ef_construction: int = 100,
         # vectorized step here.
         j_safe = torch.where(valid, ids, 0).long()
         # d_build(x_i, x_j): i is the candidate (left), j the owner (query side)
-        qc_j = {name: a[j_safe] for name, a in qc_all.items()}
-        d_ij = score_gathered(dist, consts, qc_j, torch.full_like(ids, i)[:, None])[:, 0]
+        qc_j = tree_map(lambda a: a[j_safe], qc_all)
+        d_ij = gathered_scores(dist, torch.full_like(ids, i)[:, None], qc_j, consts)[:, 0]
         rows_d = adj_d[j_safe]
         slot = torch.argmax(rows_d, dim=1)  # free slots are +inf -> the first chosen
         do = valid & (d_ij < rows_d.gather(1, slot[:, None])[:, 0])

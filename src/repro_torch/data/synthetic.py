@@ -1,20 +1,27 @@
-"""Synthetic histogram collections (PyTorch port of ``repro.data.synthetic``).
+"""Synthetic collections (PyTorch port of ``repro.data.synthetic``).
 
   RandHist-d   : uniform samples from the d-simplex (Dirichlet(1,...,1)).
   Wiki-d/RCV-d : LDA-like topic histograms, sparse Dirichlet(alpha << 1).
+  Manner       : Zipf-sampled term counts with the BM25 views: query = raw
+                 TF, document = saturated TF x IDF, and the natural
+                 shared-sqrt(IDF) symmetrization of Eq. (4).
 
 Draws come from a seeded ``numpy.random.Generator`` and are then moved to the
 device as float32.  They cannot reproduce ``jax.random``, so tests that
-compare the two packages feed the port ``repro``'s arrays.
+compare the two packages feed the port ``repro``'s arrays (for text, its
+term counts through ``TextCollection.from_counts``).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.distances import EPS
+from repro_torch.core.distances import EPS, neg_inner_product
+from repro_torch.core.symmetrize import ViewedDistance
 
 
 def _to_device(x: np.ndarray, device) -> torch.Tensor:
@@ -38,3 +45,66 @@ def split_queries(X, n_queries: int, rng: np.random.Generator):
     """Paper protocol: random split into queries and indexable points."""
     perm = torch.from_numpy(rng.permutation(X.shape[0])).to(X.device)
     return X[perm[:n_queries]], X[perm[n_queries:]]
+
+
+@dataclasses.dataclass
+class TextCollection:
+    """Term-count matrix and the role-dependent BM25 views.
+
+    ``counts`` is the raw (n, V) term-count matrix (hashed vocabulary).
+    ``bm25()`` is the paper's BM25 as a ``ViewedDistance``: left (document)
+    view = saturated TF x IDF, right (query) view = raw TF.  ``natural()``
+    is the Eq.-4 shared-sqrt(IDF) symmetrization.
+    """
+
+    counts: torch.Tensor  # (n, V) float32 term counts
+    idf: torch.Tensor  # (V,)
+    avg_len: float
+    k1: float = 1.2
+    b: float = 0.75
+
+    @classmethod
+    def from_counts(cls, counts) -> "TextCollection":
+        """The collection over a (n, V) float32 count tensor: document
+        frequencies, IDF and the mean document length from the counts."""
+        n = counts.shape[0]
+        df = torch.sum(counts > 0, dim=0).to(torch.float32)
+        idf = torch.log(1.0 + (n - df + 0.5) / (df + 0.5))
+        avg_len = float(np.mean(counts.sum(dim=1).double().cpu().numpy()))
+        return cls(counts=counts, idf=idf, avg_len=avg_len)
+
+    def _saturated_tf(self, C):
+        length = torch.sum(C, dim=-1, keepdim=True)
+        denom = C + self.k1 * (1.0 - self.b + self.b * length / self.avg_len)
+        return C * (self.k1 + 1.0) / torch.clamp(denom, min=1e-9)
+
+    def doc_view(self, C):
+        return self._saturated_tf(C) * self.idf.to(C.device)[None, :]
+
+    def query_view(self, C):
+        return C  # raw query term frequencies (standard BM25)
+
+    def natural_view(self, C):
+        return self._saturated_tf(C) * torch.sqrt(self.idf.to(C.device))[None, :]
+
+    def bm25(self) -> ViewedDistance:
+        return ViewedDistance(neg_inner_product("bm25"), left_view=self.doc_view,
+                              right_view=self.query_view, view_name="bm25")
+
+    def natural(self) -> ViewedDistance:
+        return ViewedDistance(neg_inner_product("bm25nat"), left_view=self.natural_view,
+                              right_view=self.natural_view, view_name="natural")
+
+
+def text_collection(rng: np.random.Generator, n: int, vocab: int = 2048, mean_len: int = 60,
+                    device="cuda") -> TextCollection:
+    """Zipf(1.1)-sampled documents of Poisson(mean_len) terms (at least 5)
+    -> hashed term-count matrix (the Manner proxy), on ``device``."""
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    probs = ranks ** -1.1
+    probs /= probs.sum()
+    lengths = np.maximum(rng.poisson(mean_len, n), 5)
+    counts = np.zeros((n, vocab), dtype=np.float32)
+    for i in range(n):
+        np.add.at(counts[i], rng.choice(vocab, size=int(lengths[i]), p=probs), 1.0)
+    return TextCollection.from_counts(torch.from_numpy(counts).to(resolve_device(device)))

@@ -31,26 +31,38 @@ def exact_float32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
-def distance_matrix_ref(q_rep, x_rep, q_bias, x_bias, post_id: int, c0: float = 0.0):
+def _post(post_id, s, x_bias, q_bias, c0, query_left):
+    """The post-combine with the row's bias first, or with the query's first
+    for a reversed branch (``query_left``), as the JAX package orders them."""
+    if query_left:
+        return apply_post(post_id, s, q_bias, x_bias, c0)
+    return apply_post(post_id, s, x_bias, q_bias, c0)
+
+
+def distance_matrix_ref(q_rep, x_rep, q_bias, x_bias, post_id: int, c0: float = 0.0,
+                        query_left: bool = False):
     """(B, N) float32 left-query distances from prepped reps: the plain
     ``distance_matrix``.
 
     q_rep (B, m') = prep_right(Q); x_rep (N, m') = prep_left(X); q_bias (B,),
     x_bias (N,) the matching biases.  D[b, i] = post(q_rep[b] . x_rep[i],
-    bias_l=x_bias[i], bias_r=q_bias[b]).  bf16 reps are widened to float32
+    bias_l=x_bias[i], bias_r=q_bias[b]); the biases swap places for a
+    reversed branch (``query_left``).  bf16 reps are widened to float32
     first; the output is always float32.
     """
     with exact_float32_matmul():
         s = q_rep.float() @ x_rep.float().T
-    return apply_post(post_id, s, x_bias[None, :].float(), q_bias[:, None].float(), c0)
+    return _post(post_id, s, x_bias[None, :].float(), q_bias[:, None].float(), c0, query_left)
 
 
-def gather_scores_ref(ids, q_rep, x_rep, q_bias, x_bias, post_id: int, c0: float = 0.0):
+def gather_scores_ref(ids, q_rep, x_rep, q_bias, x_bias, post_id: int, c0: float = 0.0,
+                      query_left: bool = False):
     """Distances of gathered rows per query: the plain ``frontier_scores``
     and the plain ``gather_scores`` (one function, two kernels).
 
     ids (B, R) int row indices into x_rep (n, m'); -1 = padding -> +inf.
-    Returns (B, R) float32 left-query distances d(x[ids[b, r]], q[b]).
+    Returns (B, R) float32 left-query distances d(x[ids[b, r]], q[b]) (the
+    biases swap places for a reversed branch, ``query_left``).
     Materialises the (B, R, m') gather, so only the CPU path and row subsets
     on the card run it.
     """
@@ -60,11 +72,12 @@ def gather_scores_ref(ids, q_rep, x_rep, q_bias, x_bias, post_id: int, c0: float
     # a product and a sum, not einsum: on the CPU einsum goes to a BLAS batched
     # matmul whose rounding changed with the process's allocation history
     s = torch.sum(rows.float() * q_rep.float()[:, None, :], dim=-1)
-    d = apply_post(post_id, s, x_bias[safe].float(), q_bias[:, None].float(), c0)
+    d = _post(post_id, s, x_bias[safe].float(), q_bias[:, None].float(), c0, query_left)
     return torch.where(valid, d, torch.inf)
 
 
-def two_hop_scores_ref(safe_adj, q_rep, q_bias, x_rep, x_bias, post_id: int, c0: float = 0.0):
+def two_hop_scores_ref(safe_adj, q_rep, q_bias, x_rep, x_bias, post_id: int, c0: float = 0.0,
+                       query_left: bool = False):
     """The plain ``two_hop_scores``: materialise the join ``safe_adj[safe_adj]``
     (n, K*K), set self loops to -1 and score it row by row.
     """
@@ -72,4 +85,4 @@ def two_hop_scores_ref(safe_adj, q_rep, q_bias, x_rep, x_bias, post_id: int, c0:
     cand = safe_adj[safe_adj.reshape(-1).long()].reshape(n, K * K)
     self_loop = cand == torch.arange(n, dtype=cand.dtype, device=cand.device)[:, None]
     cand = torch.where(self_loop, -1, cand)
-    return gather_scores_ref(cand, q_rep, x_rep, q_bias, x_bias, post_id, c0)
+    return gather_scores_ref(cand, q_rep, x_rep, q_bias, x_bias, post_id, c0, query_left)

@@ -1,15 +1,20 @@
 """Retrieval serving driver (PyTorch port of ``repro.launch.serve``, static batches).
 
 Builds an index over LDA-like histograms (NN-descent, or SW-graph with the
-wave or the sequential engine), answers the held-out queries in fixed
-batches through the batched or the reference engine, and scores them
-against an exact scan:
+wave or the sequential engine) under a build policy, answers the held-out
+queries in fixed batches through the batched or the reference engine, and
+scores them against an exact scan:
 
     python -m repro_torch.launch.serve --n-db 20000 --dim 32 --queries 256 --batch 64
     python -m repro_torch.launch.serve --builder swgraph --wave 64
+    python -m repro_torch.launch.serve --index-sym min
+    python -m repro_torch.launch.serve --spec TUNED_spec.json
 
-It runs on the card unless ``--device cpu`` is given.  The continuous,
-churn, QoS and sharded serving paths of ``repro`` are not in this slice.
+``--spec`` takes a plain spec, a tuned-spec artifact or a learned-weights
+artifact (seals checked, ``core.spec.load_spec``) and defines the whole
+scenario.  It runs on the card unless ``--device cpu`` is given.  The
+continuous, churn, QoS and sharded serving paths of ``repro`` are not in
+this slice.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ from repro_torch.core.brute_force import knn_scan
 from repro_torch.core.distances import get_distance
 from repro_torch.core.index import ANNIndex
 from repro_torch.core.metrics import recall_at_k, speedup_model
-from repro_torch.core.spec import RetrievalSpec
+from repro_torch.core.spec import RetrievalSpec, load_spec
 from repro_torch.data.synthetic import lda_like_histograms, split_queries
 from repro_torch.kernels.ops import launch_counts
 
@@ -44,6 +49,7 @@ def _since(counts0: dict) -> dict:
 def build_and_serve(*, spec: RetrievalSpec | None = None, distance: str = "kl",
                     n_db: int = 20_000, dim: int = 32, n_queries: int = 256,
                     batch: int = 64, k: int = 10, ef_search: int = 96,
+                    index_sym: str = "none",
                     builder: str = "nndescent", build_engine: str = "wave", wave: int = 64,
                     engine: str = "batched", frontier: int = 4,
                     n_entries: int = 4, alpha: float = 0.08, seed: int = 0,
@@ -62,7 +68,7 @@ def build_and_serve(*, spec: RetrievalSpec | None = None, distance: str = "kl",
     if spec is None:
         # the same scenario repro's serve driver records for these flags
         spec = RetrievalSpec(
-            distance=distance, build_policy="none", builder=builder,
+            distance=distance, build_policy=index_sym, builder=builder,
             build_engine=build_engine, wave=wave, NN=15, ef_construction=100,
             n_entries=n_entries, capacity=None, k=k, ef_search=ef_search,
             engine=engine, frontier=frontier, slots=48, sched_frontier=12,
@@ -115,6 +121,8 @@ def build_and_serve(*, spec: RetrievalSpec | None = None, distance: str = "kl",
         "build_s": build_s,
         "builder": spec.builder,
         "build_engine": idx.build_info["build_engine"],
+        "index_sym_resolved": idx.build_info["index_sym_resolved"],
+        "query_sym_resolved": idx.build_info["query_sym_resolved"],
         "engine": engine,
         "served": n_queries,
         "recall@k": recall,
@@ -132,7 +140,8 @@ def build_and_serve(*, spec: RetrievalSpec | None = None, distance: str = "kl",
         "spec_fingerprint": spec.fingerprint(),
     }
     if verbose:
-        print(f"[serve] dist={distance} n={n_db} dim={dim} -> "
+        print(f"[serve] dist={distance} build={spec.build_policy} search={spec.search_policy} "
+              f"n={n_db} dim={dim} -> "
               f"{ {k_: v for k_, v in stats.items() if k_ != 'spec'} }")
     return stats
 
@@ -141,33 +150,43 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda",
                     help="torch device; the default cuda raises when no card is present")
-    ap.add_argument("--distance", default="kl")
+    ap.add_argument("--spec", default=None,
+                    help="a RetrievalSpec JSON, a tuned-spec artifact or a learned-weights "
+                         "artifact (a path or the JSON text; seals checked); it defines the "
+                         "scenario and may not be combined with the scenario flags")
+    # scenario flags default to None so that a clash with --spec is seen
+    ap.add_argument("--distance", default=None)
     ap.add_argument("--n-db", type=int, default=20_000)
     ap.add_argument("--dim", type=int, default=32)
     ap.add_argument("--queries", type=int, default=256)
     ap.add_argument("--batch", type=int, default=64)
-    ap.add_argument("--ef", type=int, default=96, dest="ef_search")
-    ap.add_argument("--builder", default="nndescent", choices=["nndescent", "swgraph"])
-    ap.add_argument("--build-engine", default="wave", choices=["wave", "sequential"],
+    ap.add_argument("--ef", type=int, default=None, dest="ef_search")
+    ap.add_argument("--index-sym", default=None,
+                    help="graph-construction distance policy (avg, min, reverse, l2, max, "
+                         "blend(a), rankblend(a[,tau]), learned(ref))")
+    ap.add_argument("--builder", default=None, choices=["nndescent", "swgraph"])
+    ap.add_argument("--build-engine", default=None, choices=["wave", "sequential"],
                     help="swgraph construction engine (wave-parallel vs reference)")
-    ap.add_argument("--wave", type=int, default=64,
+    ap.add_argument("--wave", type=int, default=None,
                     help="points inserted per construction wave (swgraph builder)")
-    ap.add_argument("--engine", default="batched", choices=["batched", "reference"])
-    ap.add_argument("--frontier", type=int, default=4,
+    ap.add_argument("--engine", default=None, choices=["batched", "reference"])
+    ap.add_argument("--frontier", type=int, default=None,
                     help="beam candidates expanded per lock-step (batched engine)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--spec", default=None,
-                    help="RetrievalSpec JSON (a path or the JSON text); it replaces "
-                         "--distance/--ef/--builder/--build-engine/--wave/--engine/"
-                         "--frontier")
     args = ap.parse_args(argv)
-    spec = RetrievalSpec.from_json(args.spec) if args.spec else None
-    return build_and_serve(spec=spec, distance=args.distance, n_db=args.n_db, dim=args.dim,
-                           n_queries=args.queries, batch=args.batch,
-                           ef_search=args.ef_search, builder=args.builder,
-                           build_engine=args.build_engine, wave=args.wave,
-                           engine=args.engine, frontier=args.frontier,
-                           seed=args.seed, device=args.device)
+    scenario = {"distance": args.distance, "ef_search": args.ef_search,
+                "index_sym": args.index_sym, "builder": args.builder,
+                "build_engine": args.build_engine, "wave": args.wave, "engine": args.engine,
+                "frontier": args.frontier}
+    spec = None
+    if args.spec:
+        clash = sorted(k for k, v in scenario.items() if v is not None)
+        if clash:
+            ap.error(f"--spec defines the scenario; conflicting flags: {clash}")
+        spec = load_spec(args.spec)
+    return build_and_serve(spec=spec, n_db=args.n_db, dim=args.dim, n_queries=args.queries,
+                           batch=args.batch, seed=args.seed, device=args.device,
+                           **{k: v for k, v in scenario.items() if v is not None})
 
 
 if __name__ == "__main__":

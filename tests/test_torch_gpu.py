@@ -400,3 +400,136 @@ def test_distance_matrix_epilogue_paths(name, shape, cuda):
     torch.testing.assert_close(distance_matrix(*reps, dist.post_id, dist.c0),
                                distance_matrix_ref(*reps, dist.post_id, dist.c0),
                                rtol=2e-2, atol=2e-2)
+
+
+# -- the construction and search policies: every wrapper, branch by branch --------------
+
+WRAPPERS = ["avg", "min", "reverse", "max", "blend(0.25)", "rankblend(0.5)", "learned", "bm25",
+            "bm25-avg"]
+
+
+def _wrapper(kind, dev):
+    """(distance, database rows) for a wrapper kind, on the card."""
+    from repro_torch.core.spec import DistancePolicy
+    from repro_torch.core.symmetrize import LearnedDistance, symmetrized
+    from repro_torch.data.synthetic import text_collection
+
+    rng = np.random.default_rng(11)
+    if kind.startswith("bm25"):
+        tc = text_collection(rng, 5000, vocab=2048, device=dev)
+        bm25 = tc.bm25()
+        return (symmetrized(bm25, "avg") if kind == "bm25-avg" else bm25), tc.counts
+    X = _hist(rng, 5000, 128, dev)
+    kl = get_distance("kl")
+    if kind == "learned":
+        L = rng.normal(size=(128, 16)).astype(np.float32) * 0.1
+        w = {"alpha": 0.75, "beta": 0.5, "tau": 0.8, "L": L.tolist()}
+        return LearnedDistance.from_weights(kl, w), X
+    return DistancePolicy.parse(kind).bind(kl, data=X), X
+
+
+def _plain_scores(dist, ids, qc, consts):
+    """The wrapper's own plain ``score`` of the gathered rows, +inf at ids < 0."""
+    from repro_torch.core.distances import tree_map
+
+    safe = torch.where(ids >= 0, ids, 0).long()
+    return torch.where(ids >= 0, dist.score(tree_map(lambda a: a[safe], consts), qc), torch.inf)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", WRAPPERS)
+def test_wrapper_branches_through_the_kernels_match_plain(kind, cuda):
+    """One launch per branch of each kernel, the combine on the card, equal
+    to the wrapper's plain forms to 1e-5: gather_scores at the search step
+    (64, 240), the NN-descent round (two_hop_scores + frontier_scores) on a
+    (4,096, 30) adjacency, distance_matrix at 512 x 4,096 in both modes."""
+    from repro_torch.core.distances import tree_map
+
+    dist, X = _wrapper(kind, cuda)
+    nb = len(dist.branches)
+    n = X.shape[0]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    consts = ops.prepped(dist.prep_scan(X))
+    qc = ops.prepped(dist.prep_queries(X[:64]))
+    ids = torch.randint(0, n, (64, 240), generator=gen, device=cuda, dtype=torch.int32)
+    ids[:, ::7] = -1
+    before = ops.launch_counts()
+    got = ops.gathered_scores(dist, ids, qc, consts)
+    assert ops.launch_counts()["gather_scores"] == before["gather_scores"] + nb
+    want = _plain_scores(dist, ids, qc, consts)
+    assert torch.equal(torch.isinf(got), ids < 0)
+    torch.testing.assert_close(got, want, **TOL)
+
+    n_j, K = 4096, 30
+    cj, qj = ops.prepped(dist.prep_scan(X[:n_j])), ops.prepped(dist.prep_queries(X[:n_j]))
+    safe = torch.randint(0, n_j, (n_j, K), generator=gen, device=cuda, dtype=torch.int32)
+    rest = torch.randint(-1, n_j, (n_j, K + 8), generator=gen, device=cuda, dtype=torch.int32)
+    iota = torch.arange(n_j, device=cuda, dtype=torch.int32)[:, None]
+    rest = torch.where(rest == iota, -1, rest)
+    out = torch.empty((n_j, K * K + K + 8), device=cuda)
+    before = ops.launch_counts()
+    ops.round_scores(dist, safe, rest, qj, cj, out)
+    after = ops.launch_counts()
+    assert after["two_hop_scores"] - before["two_hop_scores"] == nb
+    assert after["frontier_scores"] - before["frontier_scores"] == nb
+    rows = 256  # the plain version materialises (rows, K*K + K + 8, m')
+    cand = torch.cat([safe[safe[:rows].reshape(-1).long()].reshape(rows, K * K), rest[:rows]], 1)
+    cand = torch.where(cand == iota[:rows], -1, cand)
+    want = _plain_scores(dist, cand, tree_map(lambda a: a[:rows], qj), cj)
+    assert torch.equal(torch.isinf(out[:rows]), cand < 0)
+    torch.testing.assert_close(out[:rows], want, **TOL)
+
+    Q, Xd = X[:512], X[512:512 + 4096]
+    for mode in ("left", "right"):
+        before = ops.launch_counts()["distance_matrix"]
+        got = ops.query_distance_matrix(dist, Q, Xd, mode=mode)
+        assert ops.launch_counts()["distance_matrix"] == before + nb
+        torch.testing.assert_close(got, dist.query_matrix(Q, Xd, mode=mode), **TOL)
+
+
+@pytest.mark.gpu
+def test_no_wrapper_reaches_a_plain_version_on_the_card(cuda, monkeypatch):
+    """Builds (NN-descent, SW-graph wave and sequential), both engines, the
+    rerank and the ground truth under symmetrized and combined distances:
+    every score comes from a kernel, per branch, and no plain version runs."""
+    from repro_torch.core import symmetrize
+    from repro_torch.core.brute_force import knn_scan
+    from repro_torch.core.index import ANNIndex
+    from repro_torch.core.spec import RetrievalSpec
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card")
+
+    for name in ("gather_scores_ref", "distance_matrix_ref", "two_hop_scores_ref"):
+        monkeypatch.setattr(ops, name, refuse)
+    for form in ("score", "matrix", "query_matrix", "pairwise", "pairwise_batch"):
+        monkeypatch.setattr(symmetrize._PartsDistance, form, refuse)
+    rng = np.random.default_rng(12)
+    X, Q = _hist(rng, 3000, 32, cuda), _hist(rng, 64, 32, cuda)
+    for changes in (dict(build_policy="min", search_policy="min", k_c=40),
+                    dict(build_policy="rankblend(0.5)", builder="swgraph", wave=32),
+                    dict(build_policy="avg", builder="swgraph", build_engine="sequential",
+                         NN=6, ef_construction=24)):
+        spec = RetrievalSpec(NN=changes.pop("NN", 10), nnd_iters=3, ef_search=48, **changes)
+        ops.reset_launch_counts()
+        idx = ANNIndex.build(X[:1000] if spec.build_engine == "sequential" else X, spec=spec)
+        built = ops.launch_counts()
+        if spec.builder == "nndescent":
+            # two branches: one launch pair per round and one init launch per branch
+            assert built["two_hop_scores"] == 2 * spec.nnd_iters
+            assert built["frontier_scores"] == 2 * (spec.nnd_iters + 1)
+        else:
+            assert built["gather_scores"] > 0 and built["gather_scores"] % 2 == 0
+        for engine in ("batched", "reference"):
+            ops.reset_launch_counts()
+            d, ids, n_evals, hops = idx.searcher(engine=engine)(Q)
+            torch.cuda.synchronize()
+            searched = ops.launch_counts()
+            assert bool(torch.isfinite(d).all()) and bool((ids >= 0).all())
+            if spec.needs_rerank and engine == "batched":
+                # seed + one step per lock-step, per branch, and one rerank launch
+                assert searched["gather_scores"] == 2 * (int(hops.max()) + 2) + 1
+            assert searched["gather_scores"] > 0
+    ops.reset_launch_counts()
+    knn_scan(symmetrize.SymmetrizedDistance(get_distance("kl"), "min"), Q, X, 10, chunk=1024)
+    assert ops.launch_counts()["distance_matrix"] == 2 * 3

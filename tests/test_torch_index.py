@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from repro.core import ANNIndex, get_distance, knn_scan, recall_at_k
+from repro.core import distances as jd
 from repro.core import spec as jspec
 from repro.data.synthetic import lda_like_histograms, split_queries
 from repro_torch import default_device, resolve_device
@@ -202,17 +203,23 @@ def test_policy_round_trip_and_bind(text):
     base = td.get_distance("kl")
     if t.is_none:
         assert t.bind(base) is base
+    elif text == "natural":  # needs a dataset-supplied distance in both packages
+        for p, b in ((t, base), (j, jd.get_distance("kl"))):
+            with pytest.raises(ValueError, match="natural"):
+                p.bind(b)
+    elif text.startswith("learned"):  # no weights registered under this ref
+        for p, b in ((t, base), (j, jd.get_distance("kl"))):
+            with pytest.raises(KeyError, match="no learned weights"):
+                p.bind(b)
     else:
-        with pytest.raises(NotImplementedError, match="M8"):
-            t.bind(base)
+        assert t.bind(base).name == j.bind(jd.get_distance("kl")).name
 
 
 def test_unported_paths_raise_naming_their_roadmap_item(data):
     _, db = data
     X = _t(db)[:200]
-    for changes, item in [({"capacity": 400}, "M11"), ({"search_policy": "min"}, "M8")]:
-        with pytest.raises(NotImplementedError, match=item):
-            TIndex.build(X, spec=tspec.RetrievalSpec(**changes))
+    with pytest.raises(NotImplementedError, match="M11"):
+        TIndex.build(X, spec=tspec.RetrievalSpec(capacity=400))
     idx = TIndex.build(X, spec=tspec.RetrievalSpec(NN=8, nnd_iters=2))
     with pytest.raises(NotImplementedError, match="M12"):
         idx.scheduler()
@@ -220,10 +227,12 @@ def test_unported_paths_raise_naming_their_roadmap_item(data):
         idx.searcher(engine="reference", adaptive=True)
     with pytest.raises(ValueError, match="unknown engine"):
         idx.searcher(engine="beam")
-    with pytest.raises(NotImplementedError, match="M8"):
-        idx.searcher(k_c=20)
     with pytest.raises(NotImplementedError, match="M11"):
         idx.ensure_online()
+    # rerank (ROADMAP M8) is ported: k_c without a search policy is ignored, as in repro
+    Q = X[:8]
+    for a, b in zip(idx.searcher(k_c=20)(Q), idx.searcher()(Q)):
+        assert torch.equal(a, b)
 
 
 N_SW = 300
