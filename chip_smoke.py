@@ -47,7 +47,7 @@ Every phase is fatal on failure; nothing is caught and passed over.
    picks the largest n of 10^6, 200,000, 100,000 and 50,000 whose build fits
    SWGRAPH_BUILD_BUDGET_S; at that n, recall@10 at ef 96 and 512 beside an
    NN-descent build (the full cell's NN 30) on the same data.  No floor.
-7. sequential and reference paths: ``build_swgraph`` at n=2,000, d=16,
+7. sequential and reference paths: ``build_swgraph`` at n=1,000, d=16,
    NN 8, ef_construction 40 against ``build_swgraph_wave`` at W=1 (equal
    adjacency); a batch of 64 through the reference engine against the
    batched engine at frontier 1 from entry 0 under kl (equal ids, n_evals
@@ -74,7 +74,11 @@ Every phase is fatal on failure; nothing is caught and passed over.
     steps (64, 240) and (64, 120) at m'=128, at the reverse edges
     (960, 1, 32) of the serve data and (960, 1, 128) of the d=128 SW-graph
     cell, at wide rows (64, 30, 2100) and at reverse edges of wide rows
-    (960, 1, 2100); frontier_scores at the NN-descent rounds.  The
+    (960, 1, 2100), at the online index's shapes of phase 16's cell (an
+    insert or repair wave's search step (32, 240), a repair wave's reverse
+    edges (960, 1) with ids over n=10^6, and ``from_graph``'s edge distances
+    over the real (10^6 + 512, 60) adjacency, its plain version on 4,096
+    rows); frontier_scores at the NN-descent rounds.  The
     NN-descent round is timed on the real candidate block of the phase 9
     build (rebuilt from the same data and seed): the general kernel over
     all R columns against the grouped join plus the general kernel over the
@@ -105,6 +109,23 @@ Every phase is fatal on failure; nothing is caught and passed over.
     package's ``launch.serve`` at the same flags, on the CPU) less 0.02;
     the 20,000-document BM25 pair has no JAX number (the JAX package
     materialises its gathered rows there, ~40 GB) and is reported.
+15. churn at the serve defaults through ``build_and_serve`` with
+    ``churn_rounds=4, churn_insert=256, churn_delete=200`` (capacity n +
+    1,024): recall@k_after_churn must reach JAX_CHURN_RECALL (the JAX
+    package's driver at the same flags, on the CPU) less 0.02, with
+    capacity_used < n + inserted (slots recycled); the counts are set to 0
+    before the run and each phase is counted on its own: gather_scores must
+    launch in the build (``from_graph``), the inserts, the compaction and
+    the search, distance_matrix in the audit.  Then, on a fresh index with
+    256 inserts and 16 deletes, ``compact_slice`` drained at max_nodes = wave
+    on a copy of the state must leave ``compact()``'s adjacency.
+16. churn at full width, phase 9's cell (n=10^6, d=128, NN 30, ef 512,
+    1,024 queries, capacity n + 512): ``ANNIndex.build`` and ``run_churn``
+    with 2 rounds of 256 inserts; the deletes per round are sized so that
+    ``compact()`` is predicted to fit COMPACT_BUDGET_S from phase 15's time
+    per repaired node.  The same launch checks; recall@k_after_churn must
+    exceed 0.5.  One more insert round and a compact after 4 deletes are
+    profiled.
 
 The last three lines are the card line, a JSON object with the kernels'
 numbers, and ``{"ok": true, "device": {...}}``.
@@ -149,7 +170,11 @@ DM_CHECK_SHAPES = [(128, 4096, 8), (128, 4096, 32), (128, 4096, 128), (512, 8192
 GS_CHECK_SHAPES = [(64, 30, 128), (64, 240, 128), (960, 1, 32), (960, 1, 128), (64, 30, 2100),
                    (5, 3, 16), (1, 1, 4), (960, 1, 512), (4, 3, 2100)]
 SWGRAPH_NS = (1_000_000, 200_000, 100_000, 50_000)
-SWGRAPH_BUILD_BUDGET_S = 150.0
+# phase 7's n: 1,000 (it was 2,000 before the churn phases joined the script;
+# the sequential paths are host-bound, one lock-step per kernel launch)
+SEQ_N = 1_000
+# 75 s (150 s, which chose n = 100,000, before the churn phases joined the script)
+SWGRAPH_BUILD_BUDGET_S = 75.0
 GRAPH_QUALITY_N = 1_000_000
 WRAPPER_KINDS = ("avg", "min", "reverse", "max", "blend(0.25)", "rankblend(0.5)", "learned",
                  "bm25")
@@ -159,6 +184,15 @@ JAX_RECALL = {"avg": 0.9902, "min": 0.9766, "reverse": 0.952, "l2": 0.9516, "max
               "blend(0.25)": 0.9898, "rankblend(0.5)": 0.991, "TUNED_spec.json": 0.9629,
               "LEARNED_weights.json": 0.7098, "bm25 none n=4000": 0.7234,
               "bm25 natural n=4000": 0.7160}
+
+# recall@k_after_churn of the JAX package's repro.launch.serve on the CPU at the
+# serve defaults with --churn-rounds 4 --churn-insert 256 --churn-delete 200
+# (tools/jax_policy_recall.py --runs churn); phase 15 holds the port to it less 0.02
+JAX_CHURN_RECALL = 0.9441
+# phase 16: the deletes per round are sized so that compact() is predicted to
+# fit this many seconds
+COMPACT_BUDGET_S = 60.0
+CHURN_ROUNDS_FULL, CHURN_INSERT_FULL = 2, 256
 
 # (B, R): search step = batch x frontier*M, NN-descent round = rows x (K*K + K + 8)
 CHECK_SHAPES = [(64, 120), (4096, 248), (64, 240), (2048, 938)]
@@ -524,7 +558,8 @@ def main() -> int:
     from repro_torch.kernels.gather_topk import gather_scores
     from repro_torch.kernels.ref import (distance_matrix_ref, exact_float32_matmul,
                                          gather_scores_ref, two_hop_scores_ref)
-    from repro_torch.launch.serve import build_and_serve
+    from repro_torch.convert import online_from_jax
+    from repro_torch.launch.serve import build_and_serve, run_churn
 
     # the serve scenario with the graph degree doubled (NN 30, M 60) and ef 512:
     # at NN 15 the NN-descent graph holds few of each node's true neighbours
@@ -757,8 +792,8 @@ def main() -> int:
 
     # -- 7. sequential builder and reference engine ------------------------------------------
     rng = np.random.default_rng(2)
-    data = lda_like_histograms(rng, 2_000 + 64, 16, device="cuda")
-    X_seq, Q_seq = data[:2_000], data[2_000:]
+    data = lda_like_histograms(rng, SEQ_N + 64, 16, device="cuda")
+    X_seq, Q_seq = data[:SEQ_N], data[SEQ_N:]
     t0 = time.perf_counter()
     adj_seq, _ = build_swgraph(kl, X_seq, NN=8, ef_construction=40)
     torch.cuda.synchronize()
@@ -768,7 +803,7 @@ def main() -> int:
     torch.cuda.synchronize()
     t_w1 = time.perf_counter() - t0
     same = float((adj_seq == adj_w1).float().mean())
-    log(f"sequential vs W=1 n=2000 d=16: {t_seq:.3f} s vs {t_w1:.3f} s, "
+    log(f"sequential vs W=1 n={SEQ_N} d=16: {t_seq:.3f} s vs {t_w1:.3f} s, "
         f"equal entries {same:.6f}")
     if not torch.equal(adj_seq, adj_w1):
         raise AssertionError("W=1 wave build differs from the sequential build on the card")
@@ -940,6 +975,20 @@ def main() -> int:
     argsw1 = rev_args(qrw, qbw, 20_000, sets=8)
     gs_rev_wide = gs_time("reverse edges at wide rows B=960 M=1 m'=2100", xrw, xbw, argsw1, 64)
     del Xw, xrw, qrw, argsw, argsw1, args32, args128
+    # the online index at phase 16's cell (ids over n = 1e6): an insert or
+    # repair wave's search step, 32 queries x frontier 4 x M 60, and a repair
+    # wave's reverse edges, 32 x NN 30 (owner, candidate) cells
+    args_wave = []
+    for _ in range(32):
+        rows = torch.randint(0, N_FULL, (32,), generator=gen, device="cuda")
+        args_wave.append((random_ids(gen, 32, 4 * 2 * full_spec.NN, N_FULL),
+                          qa_rep[rows].contiguous(), qa_bias[rows].contiguous()))
+    gs_online = [
+        gs_time(f"online wave search step B=32 R={4 * 2 * full_spec.NN} m'=128 (ids over n=1e6)",
+                x_rep, x_bias, args_wave, 320),
+        gs_time("online repair-wave reverse edges B=960 M=1 m'=128 (ids over n=1e6)",
+                x_rep, x_bias, rev_args(qa_rep, qa_bias, N_FULL), 320)]
+    del args_wave
 
     # the NN-descent round on its real candidate block: the forward adjacency
     # of the phase 9 build (rebuilt from the same data and seed), with the
@@ -948,6 +997,7 @@ def main() -> int:
                               generator=torch.Generator(device="cuda").manual_seed(0))
     K_nn, n_rnd = full_spec.NN, 8
     adj = idx_full.neighbors[:, :K_nn].contiguous()
+    nbrs_full = idx_full.neighbors
     del idx_full
     safe = torch.where(adj >= 0, adj, 0).to(torch.int32).contiguous()
     KK = K_nn * K_nn
@@ -1025,6 +1075,30 @@ def main() -> int:
                "in_degree_p99": float(torch.quantile(indeg, 0.99))})
     log("time NN-descent round, real candidate block: " + json.dumps(rt))
     del cand, out_general, out_grouped, join_out, sub, hub_edges, hub_i, hub_cols
+    # from_graph's edge distances at phase 16's capacity: gather_scores with
+    # ids = the (capacity, M) adjacency, every row its own query
+    pad_rows = CHURN_ROUNDS_FULL * CHURN_INSERT_FULL
+    M_full = nbrs_full.shape[1]
+    adj_cap = torch.cat([nbrs_full, torch.full((pad_rows, M_full), -1, dtype=torch.int32,
+                                                        device="cuda")]).contiguous()
+    qe_rep = torch.cat([qa_rep, torch.zeros((pad_rows, D_FULL), device="cuda")]).contiguous()
+    qe_bias = torch.cat([qa_bias, torch.zeros((pad_rows,), device="cuda")]).contiguous()
+    e_ms, e_by, e_g = bound(adj_cap, D_FULL)
+    edge_rows = 4096  # the plain version materialises (rows, M, m')
+    edge_sub = [(adj_cap[:edge_rows].contiguous(), qe_rep[:edge_rows], qe_bias[:edge_rows])]
+    gs_edge = {"shape": f"from_graph edge distances B={N_FULL + pad_rows} M={M_full} m'=128 "
+                        f"(the real adjacency)",
+               "B": N_FULL + pad_rows, "R": M_full, "m": D_FULL,
+               "ms": device_ms(gs, [(adj_cap, qe_rep, qe_bias)], 5, GS_KERNELS),
+               "ms_again": device_ms(gs, [(adj_cap, qe_rep, qe_bias)], 5, GS_KERNELS),
+               "event_ms": time_ms(gs, [(adj_cap, qe_rep, qe_bias)], 5),
+               "bound_ms": e_ms, "bound_by": e_by, "gathered_rows_ms": e_g,
+               "plain_rows": edge_rows, "plain_ms": device_ms(plain, edge_sub, 5),
+               "kernel_ms_same_rows": device_ms(gs, edge_sub, 20, GS_KERNELS)}
+    check_close("gather_scores from_graph edge distances, rows 0-4095 vs plain",
+                gs(*edge_sub[0]), plain(*edge_sub[0]), TOL, pad=edge_sub[0][0] < 0)
+    log("time gather_scores " + json.dumps(gs_edge))
+    del adj_cap, qe_rep, qe_bias, edge_sub, nbrs_full
 
     # distance_matrix: a knn_scan chunk (the main path's ground truth),
     # build_sharded's stitch, 512 rows, and a knn_scan chunk at d = 30,
@@ -1227,6 +1301,116 @@ def main() -> int:
 
     lap("14 policies at the serve defaults")
 
+    # -- 15. churn at the serve defaults ------------------------------------------------------
+    ops.reset_launch_counts()
+    served = build_and_serve(n_db=20_000, dim=32, n_queries=256, batch=64, ef_search=96,
+                             frontier=4, churn_rounds=4, churn_insert=256, churn_delete=200,
+                             device="cuda", verbose=False)
+    churn15_all = ops.launch_counts()
+    churn15 = served["churn"]
+    churn15.update(jax_recall=JAX_CHURN_RECALL, floor=round(JAX_CHURN_RECALL - 0.02, 4),
+                   static_recall=served["recall@k"], build_s=served["build_s"],
+                   build_launches=served["kernel_launches"]["build"], all_launches=churn15_all)
+    log("churn at the serve defaults n=20000 d=32: " + json.dumps(churn15))
+    if churn15["recall@k_after_churn"] < churn15["floor"]:
+        raise AssertionError(f"recall@10 after churn {churn15['recall@k_after_churn']} < "
+                             f"{churn15['floor']} (JAX {JAX_CHURN_RECALL} less 0.02)")
+    if not churn15["capacity_used"] < 20_000 + churn15["inserted"]:
+        raise AssertionError(f"no slot recycled: capacity_used {churn15['capacity_used']}")
+    phase_k = churn15["kernel_launches"]
+    if not (all(phase_k[p]["gather_scores"] > 0 for p in ("insert", "compact", "search"))
+            and phase_k["audit"]["distance_matrix"] > 0
+            and served["kernel_launches"]["build"]["gather_scores"] > 0):
+        raise AssertionError(f"kernel not launched on the churn path: {phase_k}")
+    # compact_slice drained at max_nodes = wave against one compact() on a copy
+    # of the same state
+    rng = np.random.default_rng(0)  # the serve-default data and its churn pool
+    data = lda_like_histograms(rng, 20_000 + 256, 32, device="cuda")
+    _, rest = split_queries(data, 256, rng)
+    X_c = rest[:20_000]
+    pool_c = lda_like_histograms(rng, 1024, 32, device="cuda")
+    idx_c = ANNIndex.build(X_c, spec=full_spec.replace(NN=15, ef_search=96, capacity=21_024),
+                           generator=torch.Generator(device="cuda").manual_seed(0))
+    o_c = idx_c.online
+    idx_c.insert(pool_c[:256])
+    idx_c.delete(np.random.default_rng(1).choice(20_000, size=16, replace=False))
+    state = {"X": o_c.X.cpu().numpy(), "adj": o_c.adj.cpu().numpy(),
+             "adj_d": o_c.adj_d.cpu().numpy(), "alive": o_c.alive.cpu().numpy(),
+             "entries": o_c.entries.cpu().numpy(), "n_total": o_c.n_total,
+             "free": list(o_c._free), "killed_epoch": o_c.killed_epoch,
+             "mutation_epoch": o_c.mutation_epoch, "compact_dirty": o_c._compact_dirty}
+    copy_c = online_from_jax(state, idx_c.spec.to_dict(), device="cuda")
+    ops.reset_launch_counts()
+    slices = 0
+    while copy_c.compact_slice(max_nodes=copy_c.wave)["remaining"]:
+        slices += 1
+    copy_c.compact_slice(max_nodes=copy_c.wave)
+    slice_launches = ops.launch_counts()
+    stats_c = idx_c.compact()
+    same = torch.equal(copy_c.adj, o_c.adj) and torch.equal(copy_c.adj_d, o_c.adj_d)
+    log(f"compact_slice drained in {slices + 2} slices vs compact() {stats_c}: adjacency "
+        f"{'equal' if same else 'DIFFERS'}; the slices launched {slice_launches}")
+    if not same or slice_launches["gather_scores"] <= 0:
+        raise AssertionError("compact_slice drained at max_nodes = wave differs from compact()")
+    del data, rest, X_c, pool_c, idx_c, o_c, copy_c
+
+    lap("15 churn at the serve defaults")
+
+    # -- 16. churn at full width: phase 9's cell -----------------------------------------------
+    pool_n = CHURN_ROUNDS_FULL * CHURN_INSERT_FULL
+    rng = np.random.default_rng(0)  # phase 9's data; the pool is drawn after the queries
+    data = lda_like_histograms(rng, N_FULL + Q_FULL, D_FULL, device="cuda")
+    Q, rest = split_queries(data, Q_FULL, rng)
+    X = rest[:N_FULL]
+    del data, rest
+    pool = lda_like_histograms(rng, pool_n + CHURN_INSERT_FULL, D_FULL, device="cuda")
+    pool, extra = pool[:pool_n], pool[pool_n:]
+    spec16 = full_spec.replace(capacity=N_FULL + pool_n)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx16 = ANNIndex.build(X, spec=spec16, generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    build16_s = time.perf_counter() - t0
+    build16 = ops.launch_counts()
+    # the deletes: each round's inserts recycle the tombstones of the round
+    # before (deletes <= inserts), so compact() finds the last round's; each
+    # leaves ~ out-degree + in-degree = 2 x mean degree nodes to repair, and
+    # phase 15's compact gives the seconds per repaired node (x1.5 for the
+    # larger graph's longer searches)
+    per_node_s = churn15["compact_s"] / max(churn15["compact_repaired"], 1)
+    per_delete = 2 * idx16.build_info["mean_degree"]
+    del16 = int(np.clip(COMPACT_BUDGET_S / (1.5 * per_delete * per_node_s), 16,
+                        CHURN_INSERT_FULL))
+    log(f"full-width churn: {del16} deletes per round, so that compact() is predicted to fit "
+        f"{COMPACT_BUDGET_S} s ({del16} tombstones left by the last round, {per_delete:.1f} "
+        f"nodes to repair per tombstone, {per_node_s * 1e3:.3f} ms per repaired node at the "
+        f"serve defaults, x1.5)")
+    ops.reset_launch_counts()
+    churn16 = run_churn(idx16, Q, pool, rounds=CHURN_ROUNDS_FULL, insert_n=CHURN_INSERT_FULL,
+                        delete_n=del16, batch=BATCH, k=full_spec.k, ef_search=full_spec.ef_search,
+                        frontier=full_spec.frontier, verbose=False)
+    churn16_all = ops.launch_counts()
+    churn16.update(build_s=build16_s, build_launches=build16, all_launches=churn16_all,
+                   deletes_per_round=del16)
+    log("churn at full width n=1000000 d=128: " + json.dumps(churn16))
+    phase_k = churn16["kernel_launches"]
+    if not (all(phase_k[p]["gather_scores"] > 0 for p in ("insert", "compact", "search"))
+            and phase_k["audit"]["distance_matrix"] > 0 and build16["gather_scores"] > 0):
+        raise AssertionError(f"kernel not launched on the full-width churn path: {phase_k}")
+    if not churn16["recall@k_after_churn"] > 0.5:
+        raise AssertionError(f"recall@10 after churn {churn16['recall@k_after_churn']} <= 0.5")
+    if not churn16["capacity_used"] < N_FULL + churn16["inserted"]:
+        raise AssertionError(f"no slot recycled: capacity_used {churn16['capacity_used']}")
+    n_extra = min(CHURN_INSERT_FULL, idx16.online.free_slots)
+    profile_device(lambda: idx16.insert(extra[:n_extra]),
+                   f"insert round of {n_extra} (waves of 32), n=1e6 d=128 (phase 16)")
+    idx16.delete(np.random.default_rng(2).choice(N_FULL, size=4, replace=False))
+    profile_device(lambda: idx16.compact(), "compact after 4 deletes, n=1e6 d=128 (phase 16)")
+    del idx16, X, Q, pool, extra
+
+    lap("16 churn at full width")
+
     def err_of(kernel_name):
         return max(v for k, v in max_err.items() if k[0] == kernel_name and k[1] == "kl")
 
@@ -1296,7 +1480,9 @@ def main() -> int:
         "path": "knn_scan ground truth of the NN-descent main path (phase 9); also "
                 f"build_sharded (phase 8: {sharded_launches['distance_matrix']} launch), entry "
                 "selection and rankblend's tau (once per branch), the ground truth of "
-                "phases 13 and 14",
+                "phases 13 and 14, the churn audit's scan of the surviving rows (phases 15 "
+                f"and 16: {churn16['kernel_launches']['audit']['distance_matrix']} launches "
+                "at full width)",
         "max_abs_err_all_distances": all_err("distance_matrix"),
         "max_abs_err_wrappers": wrapper_errs("distance_matrix"),
         "other_shapes": dm_rows[1:],
@@ -1319,12 +1505,21 @@ def main() -> int:
                 f"{sw_launches['gather_scores']} launches); twice per lock-step and once "
                 "per batch for the rerank under a min search policy: "
                 f"{policy_b['search_launches']['gather_scores']} launches in the timed "
-                "search at n=1e6 (phase 13)",
+                "search at n=1e6 (phase 13); every scoring site of the online index: "
+                "from_graph's edge distances, each insert and repair wave's search, "
+                "intra-wave block and reverse edges, and the alive-masked search (phases 15 "
+                "and 16, churn_launches)",
         "max_abs_err_all_distances": all_err("gather_scores"),
         "max_abs_err_wrappers": wrapper_errs("gather_scores"),
-        "other_shapes": gs_steps[1:] + [gs_rev32, gs_rev128, gs_wide, gs_rev_wide],
+        "other_shapes": gs_steps[1:] + [gs_rev32, gs_rev128, gs_wide, gs_rev_wide, gs_edge]
+        + gs_online,
+        "churn_launches": {"serve_defaults": churn15["kernel_launches"],
+                           "serve_defaults_build": churn15["build_launches"],
+                           "full_width": churn16["kernel_launches"],
+                           "full_width_build": churn16["build_launches"]},
     }]
     log("policies: " + json.dumps({"full_width": policy_full, "serve_defaults": policy_rows}))
+    log("churn: " + json.dumps({"serve_defaults": churn15, "full_width": churn16}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

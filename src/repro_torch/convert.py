@@ -1,39 +1,45 @@
 """Carry an index built by the JAX package across to the port.
 
-``arrays`` holds numpy ``X`` (n, m), ``neighbors`` (n, M) and ``entries`` (E,),
-taken with ``np.asarray`` from a ``repro`` ``ANNIndex``; ``spec_dict`` is its
-``spec.to_dict()``.  Nothing here imports JAX: the caller hands over plain
-arrays, as a model's weights would be handed over.
+``index_from_jax`` takes numpy ``X`` (n, m), ``neighbors`` (n, M) and
+``entries`` (E,), taken with ``np.asarray`` from a ``repro`` ``ANNIndex``;
+``online_from_jax`` takes the state of a ``repro`` ``OnlineIndex``, mid-churn
+if need be.  ``spec_dict`` is the index's ``spec.to_dict()``.  Nothing here
+imports JAX: the caller hands over plain arrays, as a model's weights would
+be handed over.
 """
 
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.index import ANNIndex, bind_policies, check_supported, make_build_info
+from repro_torch.core.index import ANNIndex, bind_policies, make_build_info
+from repro_torch.core.online import OnlineIndex
 from repro_torch.core.spec import RetrievalSpec
 
 
+def _tensor(arrays, name, dtype, dev):
+    # np.array copies: arrays taken from JAX are read-only buffers
+    return torch.from_numpy(np.array(arrays[name], dtype=dtype)).to(dev)
+
+
 def index_from_jax(arrays: dict, spec_dict: dict, device="cuda") -> ANNIndex:
-    """The port's ``ANNIndex`` over the JAX-built graph, on ``device``."""
+    """The port's ``ANNIndex`` over the JAX-built graph, on ``device``; mutable
+    (with fresh online state) when the spec has a ``capacity``, as ``build``."""
     dev = resolve_device(device)
     spec = RetrievalSpec.from_dict(spec_dict)
-    check_supported(spec)
-    def tensor(name, dtype):
-        # np.array copies: arrays taken from JAX are read-only buffers
-        return torch.from_numpy(np.array(arrays[name], dtype=dtype)).to(dev)
-
-    X = tensor("X", np.float32)
-    neighbors = tensor("neighbors", np.int32)
-    entries = tensor("entries", np.int32)
+    X = _tensor(arrays, "X", np.float32, dev)
+    neighbors = _tensor(arrays, "neighbors", np.int32, dev)
+    entries = _tensor(arrays, "entries", np.int32, dev)
     if neighbors.shape[0] != X.shape[0]:
         raise ValueError(f"neighbors has {neighbors.shape[0]} rows, X has {X.shape[0]}")
     dist = spec.base_distance()
     build_policy, search_policy, build_dist, search_dist = bind_policies(spec, dist, X)
     degrees = (neighbors >= 0).sum(dim=1, dtype=torch.int32)
-    return ANNIndex(
+    idx = ANNIndex(
         X=X,
         neighbors=neighbors,
         dist=dist,
@@ -42,5 +48,45 @@ def index_from_jax(arrays: dict, spec_dict: dict, device="cuda") -> ANNIndex:
         entries=entries,
         build_info=make_build_info(spec, degrees, build_policy, search_policy),
         build_dist=build_dist,
+        capacity=spec.capacity,
         spec=spec,
     )
+    if spec.capacity is not None:
+        idx.ensure_online()
+    return idx
+
+
+def online_from_jax(arrays: dict, spec_dict: dict, device="cuda") -> OnlineIndex:
+    """The port's ``OnlineIndex`` holding a ``repro`` ``OnlineIndex``'s state, on ``device``.
+
+    ``arrays`` holds numpy ``X`` (capacity, m), ``adj`` and ``adj_d``
+    (capacity, M), ``alive`` (capacity,), ``entries`` (E,) and
+    ``killed_epoch`` (capacity,), and the host state ``n_total``, ``free``
+    (the free list, oldest first) and ``mutation_epoch``.  Optional:
+    ``repair_pending`` and ``compact_dirty`` (a partly drained
+    ``compact_slice``) and ``rng_state`` (``_rng.bit_generator.state``, so
+    the entry refresh draws what ``repro``'s would).  The knobs are those
+    ``ANNIndex.ensure_online`` gives for the spec.  A data-calibrated policy
+    parameter resolves against the live rows.
+    """
+    dev = resolve_device(device)
+    spec = RetrievalSpec.from_dict(spec_dict)
+    X = _tensor(arrays, "X", np.float32, dev)
+    alive = _tensor(arrays, "alive", bool, dev)
+    dist = spec.base_distance()
+    _, _, build_dist, search_dist = bind_policies(spec, dist, X[alive])
+    # ensure_online's wave: the build's wave for a SW-graph wave build, else 32
+    wave = spec.wave if (spec.builder, spec.build_engine) == ("swgraph", "wave") else 32
+    o = OnlineIndex(
+        X, _tensor(arrays, "adj", np.int32, dev), _tensor(arrays, "adj_d", np.float32, dev),
+        alive, int(arrays["n_total"]), build_dist, search_dist,
+        np.asarray(arrays["entries"], np.int32),
+        NN=spec.NN, ef_construction=spec.ef_construction, wave=wave, spec=spec)
+    o._free = [int(i) for i in arrays["free"]]
+    o.killed_epoch = np.array(arrays["killed_epoch"], np.int64)
+    o.mutation_epoch = int(arrays["mutation_epoch"])
+    o._repair_pending = collections.deque(int(u) for u in arrays.get("repair_pending", ()))
+    o._compact_dirty = bool(arrays.get("compact_dirty", False))
+    if "rng_state" in arrays:
+        o._rng.bit_generator.state = arrays["rng_state"]
+    return o

@@ -103,21 +103,27 @@ def _pack_bits(ids, nw: int):
 
 
 def seed_beams(score_rows, entries, B: int, ef: int, n: int,
-               n_active=None) -> BatchBeamState:
+               n_active=None, alive=None) -> BatchBeamState:
     """Score the shared entry nodes for B queries and seed their beams.
 
     ``n_active`` (a 0-d int tensor on the entries' device, or None) makes
-    only nodes < n_active searchable: every node >= n_active is pre-marked
-    visited in the packed bitset, and an entry >= n_active seeds as
-    (inf, -1) padding that is never expanded.  A tensor, not an int, so the
-    wave builder can move it every wave without a host sync.
+    only nodes < n_active searchable; ``alive`` ((n,) bool on the same
+    device, or None, the online index's tombstone mask) makes only the
+    nodes it flags searchable.  Every blocked node is pre-marked visited in
+    the packed bitset, and a blocked entry seeds as (inf, -1) padding that
+    is never expanded and not counted in ``n_evals``.  Both are tensors, so
+    the wave builder and the online index move them without a host sync.
     """
     E = entries.shape[0]
     dev = entries.device
-    masked = n_active is not None
+    masked = n_active is not None or alive is not None
     d0 = score_rows(entries[None, :].expand(B, E).contiguous()).float()
     if masked:
-        entry_ok = entries < n_active
+        entry_ok = torch.ones((E,), dtype=torch.bool, device=dev)
+        if n_active is not None:
+            entry_ok &= entries < n_active
+        if alive is not None:
+            entry_ok &= alive[entries.long()]
         d0 = torch.where(entry_ok[None, :], d0, INF)
     d0_sorted, order0 = _smallest(d0, min(E, ef))
     take = d0_sorted.shape[1]
@@ -133,7 +139,13 @@ def seed_beams(score_rows, entries, B: int, ef: int, n: int,
     nw = -(-n // 32)
     seed = _pack_bits(entries, nw)
     if masked:
-        blocked = torch.arange(nw * 32, device=dev) >= n_active
+        # bit v set iff v is not searchable: the suffix and the tombstones
+        blocked = torch.zeros(nw * 32, dtype=torch.bool, device=dev)
+        if n_active is not None:
+            blocked |= torch.arange(nw * 32, device=dev) >= n_active
+        if alive is not None:
+            blocked[:n] |= ~alive
+            blocked[n:] = True
         seed = seed | _pack_mask(blocked, nw)
     visited = seed.expand(B, nw).contiguous()
     if masked:
@@ -260,15 +272,17 @@ def adaptive_width_update(core: BatchBeamState, t_cur, stall, worst, T: int,
 
 def batched_beam_search(neighbors, score_rows, entries, B: int, ef: int,
                         max_steps: int | None = None, frontier: int = 1,
-                        compact: int = 32, n_active=None, adaptive: bool = False,
-                        patience: int = 1):
+                        compact: int = 32, n_active=None, alive=None,
+                        adaptive: bool = False, patience: int = 1):
     """Run B queries to convergence in lock-step.  Returns BatchBeamState.
 
     ``score_rows`` maps (B, R) int32 ids to (B, R) float32 left-query
     distances; invalid slots in its output are masked here, so it may score
     placeholder id 0 freely.  ``n_active`` (0-d int tensor) searches only
     the prefix of nodes < n_active, as the wave builder does against the
-    frozen prefix graph (see ``seed_beams``).  ``adaptive=True`` carries the
+    frozen prefix graph; ``alive`` ((n,) bool) searches only the nodes it
+    flags, as the online index does around its tombstones (see
+    ``seed_beams``).  ``adaptive=True`` carries the
     per-query frontier width (``frontier`` becomes its maximum).
     """
     n, M = neighbors.shape
@@ -277,7 +291,7 @@ def batched_beam_search(neighbors, score_rows, entries, B: int, ef: int,
     T = min(frontier, ef)
     if max_steps is None:
         max_steps = n
-    st = seed_beams(score_rows, entries, B, ef, n, n_active=n_active)
+    st = seed_beams(score_rows, entries, B, ef, n, n_active=n_active, alive=alive)
     C = frontier_compact_width(T, M, compact)
     dev = st.beam_d.device
     if adaptive:

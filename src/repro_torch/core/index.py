@@ -9,9 +9,12 @@ sequential engine, under any build policy (the graph-construction
 distance).  Engines: the batched lock-step engine and the single-query
 reference engine, under the original distance, or under a bound search
 policy whose k_c candidates are re-ranked under the original distance
-(the paper's full-symmetrization scenario).  Online mutation and the
-scheduler of ``repro`` raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+(the paper's full-symmetrization scenario).  With a ``capacity`` (in the
+spec, or on the first mutation) the index is MUTABLE: ``insert``,
+``delete`` and ``compact`` go through ``core.online.OnlineIndex`` and the
+batched searcher serves the live, tombstone-masked graph.  The scheduler
+of ``repro`` raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.
 """
 
 from __future__ import annotations
@@ -26,17 +29,12 @@ from repro_torch.core.beam_search import make_batched_searcher
 from repro_torch.core.build_engine import build_swgraph_wave
 from repro_torch.core.filter_refine import rerank
 from repro_torch.core.nndescent import build_nndescent
+from repro_torch.core.online import OnlineIndex
 from repro_torch.core.spec import RetrievalSpec
 from repro_torch.core.swgraph import build_swgraph
 from repro_torch.kernels.ops import prepped
 
-_ITEM_ONLINE = "ROADMAP item M11 (online.py)"
 _ITEM_SCHEDULER = "ROADMAP item M12 (scheduler.py)"
-
-
-def check_supported(spec: RetrievalSpec) -> None:
-    if spec.capacity is not None:
-        raise NotImplementedError(f"capacity / online mutation is not ported yet: {_ITEM_ONLINE}")
 
 
 def bind_policies(spec: RetrievalSpec, dist, X, natural: Optional[Callable] = None):
@@ -56,7 +54,11 @@ def bind_policies(spec: RetrievalSpec, dist, X, natural: Optional[Callable] = No
 
 @dataclasses.dataclass
 class ANNIndex:
-    """A built neighborhood-graph index over a database X."""
+    """A built neighborhood-graph index over a database X.
+
+    With a ``capacity`` (set at build time or on the first mutation) the
+    index becomes mutable through ``online``, an ``OnlineIndex``.
+    """
 
     X: torch.Tensor
     neighbors: torch.Tensor  # (n, M) int32
@@ -66,6 +68,8 @@ class ANNIndex:
     entries: Optional[torch.Tensor] = None  # (E,) int32 beam entry points
     build_info: dict = dataclasses.field(default_factory=dict)
     build_dist: object = None  # index-time distance
+    capacity: Optional[int] = None  # mutable-index slot budget
+    online: Optional[OnlineIndex] = None  # created on the first mutation
     spec: RetrievalSpec = dataclasses.field(default_factory=RetrievalSpec)
 
     @property
@@ -95,7 +99,6 @@ class ANNIndex:
                 natural symmetrization (Eq. 4), for the ``natural`` policy.
         """
         spec = spec if spec is not None else RetrievalSpec()
-        check_supported(spec)
         if dist is None:
             dist = spec.base_distance()
         if generator is None:
@@ -118,7 +121,7 @@ class ANNIndex:
                 build_dist, X, generator, K=spec.NN, iters=spec.nnd_iters, M_out=spec.M_max,
             )
         entries = select_entries(search_dist, X, n_entries=spec.n_entries, generator=generator)
-        return cls(
+        idx = cls(
             X=X,
             neighbors=neighbors,
             dist=dist,
@@ -127,8 +130,56 @@ class ANNIndex:
             entries=entries,
             build_info=make_build_info(spec, degrees, build_policy, search_policy),
             build_dist=build_dist,
+            capacity=spec.capacity,
             spec=spec,
         )
+        if spec.capacity is not None:
+            idx.ensure_online()
+        return idx
+
+    # ----------------------------------------------------------------- online
+
+    def ensure_online(self, capacity: Optional[int] = None) -> OnlineIndex:
+        """Convert to a mutable index (idempotent); the slot budget is
+        ``capacity``, else the index's, else 2 n.  See ``OnlineIndex``."""
+        if self.online is None:
+            cap = capacity or self.capacity or 2 * int(self.X.shape[0])
+            self.online = OnlineIndex.from_graph(
+                self.X, self.neighbors, self.build_dist or self.dist, self.search_dist,
+                capacity=cap, entries=self.entries,
+                NN=self.build_info.get("NN") or self.neighbors.shape[1] // 2,
+                ef_construction=self.build_info.get("ef_construction") or 100,
+                wave=self.build_info.get("wave") or 32, spec=self.spec)
+            self.capacity = self.online.capacity
+        return self.online
+
+    def insert(self, X_new):
+        """Insert points into the live graph; returns their slot ids (a deleted
+        id's slot may be recycled, see ``OnlineIndex.insert``)."""
+        ids = self.ensure_online().insert(X_new)
+        self._sync_from_online()
+        return ids
+
+    def delete(self, ids) -> int:
+        """Tombstone points by id; returns how many were newly deleted."""
+        n = self.ensure_online().delete(ids)
+        # tombstoning changes only the alive mask: resync just the entries
+        self.entries = self.online.entries
+        return n
+
+    def compact(self) -> dict:
+        """Re-link the graph around tombstones (no full rebuild)."""
+        stats = self.ensure_online().compact()
+        self._sync_from_online()
+        return stats
+
+    def _sync_from_online(self) -> None:
+        """Mirror the mutable state so X/neighbors stay inspectable (views that
+        include tombstoned rows: serving goes through the online searcher)."""
+        o = self.online
+        self.X = o.X[:o.n_total]
+        self.neighbors = o.adj[:o.n_total]
+        self.entries = o.entries
 
     # ----------------------------------------------------------------- search
 
@@ -171,6 +222,16 @@ class ANNIndex:
         k_c = k_c or max(ef_search, k)
         inner = self._make_searcher(self.search_dist, max(ef_search, k_c), k_c, engine,
                                     frontier, adaptive, patience)
+        if self.online is not None:
+            # the live rows, prepped on every call: inserts rewrite them
+            online = self.online
+
+            def search(Q):
+                _, cand, n_evals, hops = inner(Q)
+                d, ids = rerank(self.dist, Q, online.X, cand, k)
+                return d, ids, n_evals + k_c, hops
+
+            return search
         consts = prepped(self.dist.prep_scan(self.X))  # the original distance, prepped once
 
         def search(Q):
@@ -182,6 +243,12 @@ class ANNIndex:
 
     def _make_searcher(self, dist, ef: int, k: int, engine: str, frontier: int,
                        adaptive: bool, patience: int):
+        if self.online is not None:
+            if engine != "batched":
+                raise ValueError(f"engine {engine!r} does not support the online mutable "
+                                 f"index; use engine='batched'")
+            return self.online.searcher(k, ef, frontier=frontier, adaptive=adaptive,
+                                        patience=patience)
         if engine == "reference":
             return make_batched_searcher(dist, self.neighbors, self.X, ef, k, entry=self.entry)
         return make_step_searcher(dist, self.neighbors, self.X, ef, k, entries=self.entries,
@@ -195,9 +262,6 @@ class ANNIndex:
 
     def scheduler(self, *args, **kwargs):
         raise NotImplementedError(f"the slot scheduler is not ported yet: {_ITEM_SCHEDULER}")
-
-    def ensure_online(self, capacity: Optional[int] = None):
-        raise NotImplementedError(f"online mutation is not ported yet: {_ITEM_ONLINE}")
 
 
 def make_build_info(spec: RetrievalSpec, degrees, build_policy, search_policy) -> dict:

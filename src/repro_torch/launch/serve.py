@@ -1,4 +1,5 @@
-"""Retrieval serving driver (PyTorch port of ``repro.launch.serve``, static batches).
+"""Retrieval serving driver (PyTorch port of ``repro.launch.serve``: static
+batches and the churn endpoint).
 
 Builds an index over LDA-like histograms (NN-descent, or SW-graph with the
 wave or the sequential engine) under a build policy, answers the held-out
@@ -9,12 +10,17 @@ scores them against an exact scan:
     python -m repro_torch.launch.serve --builder swgraph --wave 64
     python -m repro_torch.launch.serve --index-sym min
     python -m repro_torch.launch.serve --spec TUNED_spec.json
+    python -m repro_torch.launch.serve --churn-rounds 4 --churn-insert 256 --churn-delete 200
 
 ``--spec`` takes a plain spec, a tuned-spec artifact or a learned-weights
 artifact (seals checked, ``core.spec.load_spec``) and defines the whole
-scenario.  It runs on the card unless ``--device cpu`` is given.  The
-continuous, churn, QoS and sharded serving paths of ``repro`` are not in
-this slice.
+scenario.  With ``--churn-rounds`` the index is built with a ``--capacity``
+slot budget (by default n_db + every churn insert) and kept live through
+rounds of insert / delete / query traffic (``core.online``); the loop ends
+with a ``compact()`` and a recall audit against an exact scan of the
+surviving rows.  It runs on the card unless ``--device cpu`` is given.  The
+continuous, QoS and sharded serving paths of ``repro`` are not in this
+slice.
 """
 
 from __future__ import annotations
@@ -46,23 +52,100 @@ def _since(counts0: dict) -> dict:
     return {name: n - counts0[name] for name, n in launch_counts().items()}
 
 
+def run_churn(idx, Q, pool, *, rounds: int, insert_n: int, delete_n: int, batch: int,
+              k: int, ef_search: int, frontier: int, verbose: bool = True) -> dict:
+    """Steady-state mutation endpoints: rounds of insert / delete / query churn.
+
+    ``pool``: (rounds * insert_n, m) fresh points to stream in.  Deletes
+    draw uniformly from the alive ids (``np.random.default_rng(0)``).  Each
+    phase is timed with a device sync around it.  Returns the throughput
+    of each phase, the churn query latency, a ``compact()``, a recall audit
+    of the whole query set against an exact scan of the surviving rows, and
+    the kernel launches of each phase by kernel (all 0 on the CPU).
+    """
+    online = idx.ensure_online()
+    dev = Q.device
+    search = idx.searcher(k, ef_search, frontier=frontier, adaptive=False)
+    search(Q[:batch])  # steady-state timings
+    _sync(dev)
+    rng = np.random.default_rng(0)
+    phases = ("insert", "delete", "search", "compact", "audit")
+    launches = {phase: dict.fromkeys(launch_counts(), 0) for phase in phases}
+    seconds = dict.fromkeys(phases, 0.0)
+    q_t, n_ins, n_del = [], 0, 0
+
+    def timed(phase, fn):
+        counts0 = launch_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        seconds[phase] += dt
+        for name, n in _since(counts0).items():
+            launches[phase][name] += n
+        return out, dt
+
+    for r in range(rounds):
+        chunk = pool[r * insert_n:(r + 1) * insert_n]
+        timed("insert", lambda: idx.insert(chunk))
+        n_ins += chunk.shape[0]
+        alive_ids = np.flatnonzero(online.alive.cpu().numpy())
+        victims = rng.choice(alive_ids, size=min(delete_n, len(alive_ids)), replace=False)
+        timed("delete", lambda: idx.delete(victims))
+        n_del += len(victims)
+        qb = Q[(r * batch) % max(1, Q.shape[0] - batch):][:batch]
+        q_t.append(timed("search", lambda: search(qb))[1] / qb.shape[0])
+    compact_stats, compact_s = timed("compact", idx.compact)
+
+    def audit():
+        # the exact scan of the surviving rows, then the live search
+        surv = torch.nonzero(online.alive).squeeze(1)
+        _, true_pos = knn_scan(idx.dist, Q, online.X[surv], k)
+        return surv[true_pos.long()], search(Q)[1]
+
+    (true_global, ids), _ = timed("audit", audit)
+    stats = {
+        "rounds": rounds,
+        "inserted": n_ins,
+        "deleted": n_del,
+        "inserts_per_s": n_ins / max(seconds["insert"], 1e-9),
+        "deletes_per_s": n_del / max(seconds["delete"], 1e-9),
+        "churn_p50_latency_ms": 1e3 * float(np.percentile(q_t, 50)),
+        "compact_s": compact_s,
+        "compact_repaired": compact_stats["repaired"],
+        "recall@k_after_churn": recall_at_k(ids, true_global.cpu().numpy()),
+        "n_alive": online.n_alive,
+        "capacity_used": online.n_total,
+        "phase_s": seconds,
+        "kernel_launches": launches,
+    }
+    if verbose:
+        print(f"[serve/churn] {stats}")
+    return stats
+
+
 def build_and_serve(*, spec: RetrievalSpec | None = None, distance: str = "kl",
                     n_db: int = 20_000, dim: int = 32, n_queries: int = 256,
                     batch: int = 64, k: int = 10, ef_search: int = 96,
                     index_sym: str = "none",
                     builder: str = "nndescent", build_engine: str = "wave", wave: int = 64,
                     engine: str = "batched", frontier: int = 4,
-                    n_entries: int = 4, alpha: float = 0.08, seed: int = 0,
+                    n_entries: int = 4, capacity: int | None = None, churn_rounds: int = 0,
+                    churn_insert: int = 256, churn_delete: int = 200,
+                    alpha: float = 0.08, seed: int = 0,
                     device="cuda", verbose: bool = True) -> dict:
-    """Build, warm, serve ``n_queries`` in batches of ``batch``, score.
+    """Build, warm, serve ``n_queries`` in batches of ``batch``, score; then,
+    with ``churn_rounds`` > 0, ``run_churn`` over the live index.
 
     ``spec`` is the whole scenario when given (its distance, k, ef_search,
-    engine and frontier override the loose arguments); the other arguments
-    are the workload.  Returns the stats dict: build seconds, recall@k
+    engine, frontier and capacity override the loose arguments); the other
+    arguments are the workload.  ``capacity`` defaults to n_db + every churn
+    insert when churning.  Returns the stats dict: build seconds, recall@k
     against ``knn_scan``, distance-evaluation reduction, per-query and
-    per-batch latency percentiles, queries per second, and the CUDA kernel
+    per-batch latency percentiles, queries per second, the CUDA kernel
     launches made by the build and by the timed batches, in total and by
-    kernel (all 0 on the CPU).
+    kernel (all 0 on the CPU), and ``churn`` when churning.
     """
     dev = resolve_device(device)
     if spec is None:
@@ -70,17 +153,28 @@ def build_and_serve(*, spec: RetrievalSpec | None = None, distance: str = "kl",
         spec = RetrievalSpec(
             distance=distance, build_policy=index_sym, builder=builder,
             build_engine=build_engine, wave=wave, NN=15, ef_construction=100,
-            n_entries=n_entries, capacity=None, k=k, ef_search=ef_search,
+            n_entries=n_entries, capacity=capacity, k=k, ef_search=ef_search,
             engine=engine, frontier=frontier, slots=48, sched_frontier=12,
             adaptive=False, steps_per_sync=4,
         )
     else:
         distance, k, ef_search = spec.distance, spec.k, spec.ef_search
-        engine, frontier = spec.engine, spec.frontier
+        engine, frontier, capacity = spec.engine, spec.frontier, spec.capacity
     rng = np.random.default_rng(seed)
     data = lda_like_histograms(rng, n_db + n_queries, dim, alpha=alpha, device=dev)
     Q, rest = split_queries(data, n_queries, rng)
     X = rest[:n_db]
+    # the churn pool comes after the queries from the same generator, so the
+    # served data does not depend on the churn flags
+    pool_n = churn_rounds * churn_insert
+    pool = lda_like_histograms(rng, pool_n, dim, alpha=alpha, device=dev) if pool_n else None
+    if churn_rounds > 0 and capacity is None:
+        capacity = n_db + pool_n
+    if capacity != spec.capacity:
+        spec = spec.replace(capacity=capacity)
+    if capacity is not None and engine != "batched":
+        raise ValueError("mutable (--capacity / --churn-rounds) serving requires "
+                         "--engine batched")
     dist = get_distance(distance)
     generator = torch.Generator(device=dev).manual_seed(seed)
 
@@ -143,6 +237,10 @@ def build_and_serve(*, spec: RetrievalSpec | None = None, distance: str = "kl",
         print(f"[serve] dist={distance} build={spec.build_policy} search={spec.search_policy} "
               f"n={n_db} dim={dim} -> "
               f"{ {k_: v for k_, v in stats.items() if k_ != 'spec'} }")
+    if churn_rounds > 0:
+        stats["churn"] = run_churn(idx, Q, pool, rounds=churn_rounds, insert_n=churn_insert,
+                                   delete_n=churn_delete, batch=batch, k=k,
+                                   ef_search=ef_search, frontier=frontier, verbose=verbose)
     return stats
 
 
@@ -172,12 +270,25 @@ def main(argv=None) -> dict:
     ap.add_argument("--engine", default=None, choices=["batched", "reference"])
     ap.add_argument("--frontier", type=int, default=None,
                     help="beam candidates expanded per lock-step (batched engine)")
+    ap.add_argument("--entries", type=int, default=None, dest="n_entries",
+                    help="entry points seeded per query (medoid + random)")
+    ap.add_argument("--capacity", type=int, default=None,
+                    help="mutable-index slot budget (enables insert/delete; defaults to "
+                         "n_db + total churn inserts)")
+    ap.add_argument("--churn-rounds", type=int, default=0,
+                    help="rounds of steady-state insert/delete/query churn after the "
+                         "initial serve phase")
+    ap.add_argument("--churn-insert", type=int, default=256,
+                    help="points inserted per churn round")
+    ap.add_argument("--churn-delete", type=int, default=200,
+                    help="points tombstoned per churn round")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     scenario = {"distance": args.distance, "ef_search": args.ef_search,
                 "index_sym": args.index_sym, "builder": args.builder,
                 "build_engine": args.build_engine, "wave": args.wave, "engine": args.engine,
-                "frontier": args.frontier}
+                "frontier": args.frontier, "n_entries": args.n_entries,
+                "capacity": args.capacity}
     spec = None
     if args.spec:
         clash = sorted(k for k, v in scenario.items() if v is not None)
@@ -185,7 +296,9 @@ def main(argv=None) -> dict:
             ap.error(f"--spec defines the scenario; conflicting flags: {clash}")
         spec = load_spec(args.spec)
     return build_and_serve(spec=spec, n_db=args.n_db, dim=args.dim, n_queries=args.queries,
-                           batch=args.batch, seed=args.seed, device=args.device,
+                           batch=args.batch, churn_rounds=args.churn_rounds,
+                           churn_insert=args.churn_insert, churn_delete=args.churn_delete,
+                           seed=args.seed, device=args.device,
                            **{k: v for k, v in scenario.items() if v is not None})
 
 

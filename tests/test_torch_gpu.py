@@ -533,3 +533,139 @@ def test_no_wrapper_reaches_a_plain_version_on_the_card(cuda, monkeypatch):
     ops.reset_launch_counts()
     knn_scan(symmetrize.SymmetrizedDistance(get_distance("kl"), "min"), Q, X, 10, chunk=1024)
     assert ops.launch_counts()["distance_matrix"] == 2 * 3
+
+    # the online index under min / min + rerank: every mutation and the masked
+    # search score per branch through gather_scores
+    from repro_torch.core.online import OnlineIndex
+
+    spec = RetrievalSpec(build_policy="min", search_policy="min", k_c=40, builder="swgraph",
+                         wave=32, NN=10, ef_search=48, capacity=1200)
+    idx = ANNIndex.build(X[:1000], spec=spec)
+    launched = {}
+
+    def counted(phase, fn):
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launched[phase] = ops.launch_counts()
+        return out
+
+    counted("from_graph", lambda: OnlineIndex.from_graph(X[:1000], idx.online.adj[:1000],
+                                                         idx.build_dist, capacity=1200))
+    assert launched["from_graph"]["gather_scores"] == 2  # one (capacity, M) launch per branch
+    counted("insert", lambda: idx.insert(X[1000:1100]))
+    counted("delete", lambda: idx.delete(np.arange(0, 1100, 9)))
+    d, ids, _, _ = counted("search", lambda: idx.searcher()(Q))
+    assert bool(torch.isfinite(d).all()) and not bool(torch.isin(
+        ids, torch.arange(0, 1100, 9, device=cuda)).any())
+    counted("compact_slice", lambda: [idx.online.compact_slice() for _ in range(3)])
+    counted("compact", idx.compact)
+    for phase in ("insert", "compact_slice", "compact"):
+        n = launched[phase]["gather_scores"]
+        assert n > 0 and n % 2 == 0, (phase, launched[phase])  # two branches
+    # two per lock-step and one for the rerank
+    assert launched["search"]["gather_scores"] % 2 == 1
+    assert launched["delete"]["gather_scores"] == 0
+    surv = torch.nonzero(idx.online.alive).squeeze(1)
+    counted("audit", lambda: knn_scan(idx.dist, Q, idx.online.X[surv], 10))
+    assert launched["audit"]["distance_matrix"] == 1
+
+
+def _online_state(o):
+    """An ``OnlineIndex``'s state as the numpy arrays ``online_from_jax`` takes."""
+    return {"X": o.X.cpu().numpy(), "adj": o.adj.cpu().numpy(), "adj_d": o.adj_d.cpu().numpy(),
+            "alive": o.alive.cpu().numpy(), "entries": o.entries.cpu().numpy(),
+            "n_total": o.n_total, "free": list(o._free), "killed_epoch": o.killed_epoch,
+            "mutation_epoch": o.mutation_epoch, "repair_pending": list(o._repair_pending),
+            "compact_dirty": o._compact_dirty, "rng_state": o._rng.bit_generator.state}
+
+
+def _ids_or_recall(label, got, want, true_ids):
+    """The card's ids against the CPU path's: equal, or recall@10 within 0.005
+    (against ``true_ids``).  Prints which holds."""
+    from repro_torch.core.metrics import recall_at_k
+
+    same = float((got.cpu() == want.cpu()).float().mean())
+    r_got, r_want = recall_at_k(got, true_ids), recall_at_k(want, true_ids)
+    held = "ids equal" if same == 1.0 else f"recall@10 within 0.005 ({r_got} vs {r_want})"
+    print(f"[card vs cpu] {label}: ids equal {same:.6f}, {held}")
+    assert same == 1.0 or abs(r_got - r_want) <= 0.005, (label, same, r_got, r_want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("builder", ["swgraph", "nndescent"])
+def test_online_index_on_the_card_matches_the_cpu_path(builder, cuda):
+    """One churn episode on the card and on the CPU from the same state: after
+    insert, delete, compact, a drained compact_slice and an insert into
+    recycled slots, the card's search gives the CPU path's ids, or recall@10
+    within 0.005; every scoring phase launched gather_scores."""
+    from repro_torch.convert import online_from_jax
+    from repro_torch.core.brute_force import knn_scan
+    from repro_torch.core.index import ANNIndex
+    from repro_torch.core.spec import RetrievalSpec
+
+    rng = np.random.default_rng(21)
+    X = _hist(rng, 2000 + 256 + 64, 32, "cpu")
+    db, pool, Q = X[:2000], X[2000:2256], X[2256:]
+    spec = RetrievalSpec(builder=builder, NN=10, nnd_iters=4, wave=32, ef_search=64,
+                         capacity=2300)
+    state = _online_state(ANNIndex.build(db, spec=spec).online)
+    pair = {dev: online_from_jax(state, spec.to_dict(), device=dev) for dev in ("cpu", "cuda")}
+    kill = np.random.default_rng(5)
+
+    def step(label, fn):
+        ops.reset_launch_counts()
+        for o in pair.values():
+            fn(o)
+        torch.cuda.synchronize()
+        searched = {dev: o.searcher(10, 64, frontier=4)(Q.to(dev))[1]
+                    for dev, o in pair.items()}
+        o = pair["cpu"]
+        surv = torch.nonzero(o.alive).squeeze(1)
+        truth = surv[knn_scan(get_distance("kl"), Q, o.X[surv], 10)[1].long()]
+        _ids_or_recall(f"{builder} {label}", searched["cuda"], searched["cpu"], truth)
+        return ops.launch_counts()
+
+    assert step("insert", lambda o: o.insert(pool[:128].to(o.X.device)))["gather_scores"] > 0
+    victims = kill.choice(2000, size=150, replace=False)
+    step("delete", lambda o: o.delete(victims))
+    assert step("compact", lambda o: o.compact())["gather_scores"] > 0
+    more = kill.choice(np.flatnonzero(pair["cpu"].alive.numpy()), size=60, replace=False)
+
+    def drain(o):
+        o.delete(more)
+        while o.compact_slice()["remaining"]:
+            pass
+
+    assert step("compact_slice", drain)["gather_scores"] > 0
+    step("insert into recycled slots", lambda o: o.insert(pool[128:].to(o.X.device)))
+    assert pair["cuda"].n_total == pair["cpu"].n_total < 2000 + 256
+
+
+@pytest.mark.gpu
+def test_m9_gate_cell_on_the_card_matches_the_cpu_path(cuda):
+    """ROADMAP M9's gate cell (KL, n = 4,096, d = 32, SW-graph wave 64, NN 15,
+    frontier 1): the graph the CPU path builds (equal to repro's, held by
+    ``tests/test_torch_index.py``), carried to the card by ``index_from_jax``
+    and searched through the kernels, gives the CPU path's ids or recall@10
+    within 0.005.  No JAX here: the data comes from the port's generator."""
+    from repro_torch.convert import index_from_jax
+    from repro_torch.core.brute_force import knn_scan
+    from repro_torch.core.index import ANNIndex
+    from repro_torch.core.spec import RetrievalSpec
+    from repro_torch.data.synthetic import lda_like_histograms, split_queries
+
+    rng = np.random.default_rng(0)
+    Q, X = split_queries(lda_like_histograms(rng, 4096 + 128, 32, device="cpu"), 128, rng)
+    spec = RetrievalSpec(distance="kl", builder="swgraph", build_engine="wave", wave=64, NN=15,
+                         ef_construction=100, k=10, frontier=1)
+    cpu = ANNIndex.build(X, spec=spec)
+    arrays = {"X": X.numpy(), "neighbors": cpu.neighbors.numpy(),
+              "entries": cpu.entries.numpy()}
+    card = index_from_jax(arrays, spec.to_dict(), device="cuda")
+    ops.reset_launch_counts()
+    got = card.searcher()(Q.to(cuda))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["gather_scores"] > 0
+    want = cpu.searcher()(Q)
+    _ids_or_recall("M9 gate cell", got[1], want[1], knn_scan(get_distance("kl"), Q, X, 10)[1])

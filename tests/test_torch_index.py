@@ -35,6 +35,17 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 N_DB, N_Q, DIM, K = 2000, 200, 16, 10
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """One intra-op thread: the port's lock-step loops launch many tiny ops,
+    and a thread pool per test worker oversubscribes the cores (~10x slower
+    under parallel workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))
 
@@ -218,8 +229,9 @@ def test_policy_round_trip_and_bind(text):
 def test_unported_paths_raise_naming_their_roadmap_item(data):
     _, db = data
     X = _t(db)[:200]
-    with pytest.raises(NotImplementedError, match="M11"):
-        TIndex.build(X, spec=tspec.RetrievalSpec(capacity=400))
+    # online mutation (ROADMAP M11) is ported: a capacity spec builds a mutable index
+    mutable = TIndex.build(X, spec=tspec.RetrievalSpec(capacity=400, NN=8, nnd_iters=2))
+    assert mutable.online is not None and mutable.online.capacity == mutable.capacity == 400
     idx = TIndex.build(X, spec=tspec.RetrievalSpec(NN=8, nnd_iters=2))
     with pytest.raises(NotImplementedError, match="M12"):
         idx.scheduler()
@@ -227,12 +239,37 @@ def test_unported_paths_raise_naming_their_roadmap_item(data):
         idx.searcher(engine="reference", adaptive=True)
     with pytest.raises(ValueError, match="unknown engine"):
         idx.searcher(engine="beam")
-    with pytest.raises(NotImplementedError, match="M11"):
-        idx.ensure_online()
     # rerank (ROADMAP M8) is ported: k_c without a search policy is ignored, as in repro
     Q = X[:8]
     for a, b in zip(idx.searcher(k_c=20)(Q), idx.searcher()(Q)):
         assert torch.equal(a, b)
+    # ensure_online converts lazily (2 n by default) and serves the same ids
+    want = idx.searcher()(Q)
+    online = idx.ensure_online()
+    assert online.capacity == 400 and idx.ensure_online() is online
+    for a, b in zip(idx.searcher()(Q), want):
+        assert torch.equal(a, b)
+
+
+def test_m9_gate_kl_4096_equals_repro():
+    """ROADMAP M9's gate at its workload, the ``bench_spec`` cell (KL,
+    n = 4,096, d = 32, SW-graph wave 64, NN 15, frontier 1): the port's own
+    ``ANNIndex.build`` gives repro's adjacency, and with repro's entry draws
+    replayed ``searcher()`` returns repro's ids, evals and hops."""
+    key = jax.random.PRNGKey(0)
+    data = lda_like_histograms(key, 4096 + 128, 32)
+    Q, X = split_queries(data, 128, jax.random.fold_in(key, 1))
+    changes = dict(distance="kl", builder="swgraph", build_engine="wave", wave=64, NN=15,
+                   ef_construction=100, k=10, frontier=1)
+    jidx = ANNIndex.build(X, spec=jspec.RetrievalSpec(**changes), key=jax.random.fold_in(key, 2))
+    tidx = TIndex.build(_t(X), spec=tspec.RetrievalSpec(**changes))
+    np.testing.assert_array_equal(tidx.neighbors.numpy(), np.asarray(jidx.neighbors))
+    tidx.entries = _t(jidx.entries)  # repro's entry draws (jax.random) replayed
+    want = [np.asarray(a) for a in jidx.searcher()(Q)]
+    got = [a.numpy() for a in tidx.searcher()(_t(Q))]
+    for name, g, w in zip(("ids", "evals", "hops"), got[1:], want[1:]):
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-6, atol=1e-6)
 
 
 N_SW = 300

@@ -50,6 +50,17 @@ ALL_POLICIES = ["none", "avg", "min", "reverse", "l2", "natural", "max", "blend(
                 "rankblend(0.5)", "rankblend(0.5,2.0)", "learned"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """One intra-op thread: the port's lock-step loops launch many tiny ops,
+    and a thread pool per test worker oversubscribes the cores (~10x slower
+    under parallel workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))
 

@@ -1,7 +1,8 @@
 """Recall@10 of the JAX package for each construction policy: the floors
 that ``chip_smoke.py`` (phase 14, ``JAX_RECALL``) holds the port to.
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/jax_policy_recall.py [--bm25-docs 4000]
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/jax_policy_recall.py [--bm25-docs 4000] \
+        [--runs serve bm25 churn]
 
 One JSON line per run:
 
@@ -13,7 +14,11 @@ One JSON line per run:
   mean 60 terms, 256 held-out queries), NN-descent at the serve defaults
   built under ``none`` and under ``natural``, searched under BM25.  The JAX
   package scores a viewed distance by gathering its rows, about 2.2 GB per
-  1,000 documents, so keep ``--bm25-docs`` within the host's memory.
+  1,000 documents, so keep ``--bm25-docs`` within the host's memory;
+* churn: ``build_and_serve`` at its defaults with ``--churn-rounds 4
+  --churn-insert 256 --churn-delete 200`` (the online index), whose
+  ``recall@k_after_churn`` is the floor of ``chip_smoke.py``'s phase 15
+  (``JAX_CHURN_RECALL``).
 
 Everything is drawn from fixed ``jax.random`` keys: the same numbers on
 every run.  A JAX program: run it where the JAX package runs.
@@ -39,6 +44,7 @@ from repro.launch.serve import build_and_serve
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 POLICIES = ("avg", "min", "reverse", "l2", "max", "blend(0.25)", "rankblend(0.5)")
 ARTIFACTS = ("TUNED_spec.json", "LEARNED_weights.json")
+CHURN = dict(churn_rounds=4, churn_insert=256, churn_delete=200)
 
 
 def serve_runs():
@@ -63,11 +69,20 @@ def bm25_runs(n_db: int, n_q: int = 256):
         yield f"bm25 {policy} n={n_db}", recall_at_k(ids, np.asarray(true_ids))
 
 
+def churn_runs():
+    churn = build_and_serve(verbose=False, **CHURN)["churn"]
+    yield "churn", churn["recall@k_after_churn"]
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bm25-docs", type=int, default=4000)
+    ap.add_argument("--runs", nargs="+", choices=("serve", "bm25", "churn"),
+                    default=["serve", "bm25", "churn"])
     args = ap.parse_args(argv)
-    for runs in (serve_runs(), bm25_runs(args.bm25_docs)):
+    make = {"serve": serve_runs, "bm25": lambda: bm25_runs(args.bm25_docs),
+            "churn": churn_runs}
+    for runs in (make[name]() for name in args.runs):
         t0 = time.perf_counter()
         for label, recall in runs:
             print(json.dumps({"run": label, "recall@k": recall,
