@@ -78,7 +78,11 @@ Every phase is fatal on failure; nothing is caught and passed over.
     insert or repair wave's search step (32, 240), a repair wave's reverse
     edges (960, 1) with ids over n=10^6, and ``from_graph``'s edge distances
     over the real (10^6 + 512, 60) adjacency, its plain version on 4,096
-    rows); frontier_scores at the NN-descent rounds.  The
+    rows), and at the slot scheduler's shapes, each also held to the plain
+    version: a tick's lock-step over 48 slots at frontier 12, (48, 720) with
+    ids over n=10^6 at m'=128 and (48, 360) over the serve data at m'=32,
+    and the retire-time rerank of one request, (1, 512) over n=10^6;
+    frontier_scores at the NN-descent rounds.  The
     NN-descent round is timed on the real candidate block of the phase 9
     build (rebuilt from the same data and seed): the general kernel over
     all R columns against the grouped join plus the general kernel over the
@@ -126,6 +130,25 @@ Every phase is fatal on failure; nothing is caught and passed over.
     per repaired node.  The same launch checks; recall@k_after_churn must
     exceed 0.5.  One more insert round and a compact after 4 deletes are
     profiled.
+17. continuous at the serve defaults through ``build_and_serve`` with
+    ``continuous=True`` (48 slots, frontier 12, utilization 0.4: static,
+    dynamic and slot-scheduler latency over one Poisson trace), then again
+    with ``slo_ms`` = 1.5 x the p50 it just measured, 2 tenants and the class
+    mix 0.6/0.4 (SLO admission against FIFO).  Every request of every stream
+    is answered exactly once; the continuous recall@10 must reach
+    JAX_CONTINUOUS_RECALL (the JAX driver at the same flags, on the CPU)
+    less 0.02 and must not fall more than 0.005 below the static line;
+    gather_scores must launch in both runs and no plain version may run on
+    a CUDA tensor.  Latency, in-SLO share, goodput, demoted and shed are
+    reported, not gated.
+18. continuous at full width, phase 9's cell: 64 queries submitted up front
+    to 64 slots at the searcher's frontier (no refill) must give the
+    one-shot search's ids, n_evals and hops; then 1,024 queries as a
+    Poisson trace at utilization 0.4 through 48 slots at frontier 12, whose
+    recall@10 must not fall more than 0.005 below phase 9's.  Ticks,
+    lock-steps per tick, ms per tick and the launches by site (admission,
+    lock-steps) are printed, and no plain version may run on a CUDA
+    tensor; one window of ticks is profiled.
 
 The last three lines are the card line, a JSON object with the kernels'
 numbers, and ``{"ok": true, "device": {...}}``.
@@ -189,6 +212,12 @@ JAX_RECALL = {"avg": 0.9902, "min": 0.9766, "reverse": 0.952, "l2": 0.9516, "max
 # serve defaults with --churn-rounds 4 --churn-insert 256 --churn-delete 200
 # (tools/jax_policy_recall.py --runs churn); phase 15 holds the port to it less 0.02
 JAX_CHURN_RECALL = 0.9441
+# recall@10 of the continuous line of the JAX package's repro.launch.serve on the
+# CPU at the serve defaults with --continuous (tools/jax_policy_recall.py --runs
+# continuous; its static line 0.9207); phase 17 holds the port to it less 0.02
+JAX_CONTINUOUS_RECALL = 0.9246
+# the scheduler's serve defaults (repro.launch.serve --slots, --cont-frontier)
+SCHED_SLOTS, SCHED_FRONTIER = 48, 12
 # phase 16: the deletes per round are sized so that compact() is predicted to
 # fit this many seconds
 COMPACT_BUDGET_S = 60.0
@@ -511,6 +540,117 @@ def bm25_cell(n_db: int, policy: str) -> dict:
             "build_launches": built}
 
 
+class PlainCalls:
+    """Counts the calls of the kernels' plain versions (``ops``' references)
+    that receive a CUDA tensor, while the block runs; the originals after."""
+
+    NAMES = ("gather_scores_ref", "distance_matrix_ref", "two_hop_scores_ref")
+
+    def __init__(self, ops):
+        self.ops, self.n = ops, 0
+
+    def __enter__(self):
+        self.saved = {name: getattr(self.ops, name) for name in self.NAMES}
+
+        def counting(fn):
+            def call(*args, **kwargs):
+                if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                    self.n += 1
+                return fn(*args, **kwargs)
+            return call
+
+        for name, fn in self.saved.items():
+            setattr(self.ops, name, counting(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.ops, name, fn)
+
+
+class Answered:
+    """Records, for every ``run_stream`` of every slot scheduler while the
+    block runs, the request count, the rids its ticks answered since its
+    last ``reset`` (a stream answers each request exactly once), its ticks
+    and their host wall ms, and its latency percentiles by class."""
+
+    def __init__(self, cls):
+        self.cls, self.streams, self.live = cls, [], {}
+
+    def __enter__(self):
+        cls, rec = self.cls, self
+        self.saved = cls.tick, cls.reset, cls.run_stream
+
+        def tick(sched, now=0.0):
+            t0 = time.perf_counter()
+            out = rec.saved[0](sched, now)
+            live = rec.live.setdefault(id(sched), {"rids": [], "ticks": 0, "ms": 0.0})
+            live["rids"].extend(r.rid for r in out)
+            live["ticks"] += 1
+            live["ms"] += 1e3 * (time.perf_counter() - t0)
+            return out
+
+        def reset(sched):
+            rec.saved[1](sched)
+            rec.live[id(sched)] = {"rids": [], "ticks": 0, "ms": 0.0}
+
+        def run_stream(sched, Q, *args, **kwargs):
+            res = rec.saved[2](sched, Q, *args, **kwargs)
+            live = rec.live[id(sched)]
+            lat = np.asarray([r.latency for r in res])
+            prio = np.asarray([r.priority for r in res])
+            rec.streams.append((len(Q), sorted(live["rids"]), {
+                "requests": len(Q), "qos": sched._qos, "ticks": live["ticks"],
+                "ms_per_tick": live["ms"] / max(live["ticks"], 1),
+                "p50_ms_by_class": {int(c): 1e3 * float(np.percentile(lat[prio == c], 50))
+                                    for c in np.unique(prio)},
+                "p99_ms_by_class": {int(c): 1e3 * float(np.percentile(lat[prio == c], 99))
+                                    for c in np.unique(prio)}}))
+            return res
+
+        cls.tick, cls.reset, cls.run_stream = tick, reset, run_stream
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.tick, self.cls.reset, self.cls.run_stream = self.saved
+
+    def check(self, label):
+        for n, rids, _ in self.streams:
+            if rids != list(range(n)):
+                raise AssertionError(f"{label}: a stream of {n} requests answered "
+                                     f"{len(rids)} times, {len(set(rids))} distinct rids")
+        log(f"{label}: {len(self.streams)} streams, every request answered exactly once: "
+            + json.dumps([line for _, _, line in self.streams]))
+
+
+def count_sites(sched):
+    """Count the scheduler's device calls by site (admissions, ticks' steps,
+    reranks), each wrapped on the instance; also the ticks and their wall ms."""
+    calls = {"admit": 0, "step": 0, "rerank": 0, "tick": 0, "tick_ms": 0.0}
+
+    def wrap(site, fn):
+        def counted(*args, **kwargs):
+            calls[site] += 1
+            return fn(*args, **kwargs)
+        return counted
+
+    tick = sched.tick
+
+    def timed_tick(now=0.0):
+        t0 = time.perf_counter()
+        out = tick(now)
+        calls["tick"] += 1
+        calls["tick_ms"] += 1e3 * (time.perf_counter() - t0)
+        return out
+
+    sched._admit = wrap("admit", sched._admit)
+    sched._step = wrap("step", sched._step)
+    sched.tick = timed_tick
+    if sched._rerank_fn is not None:
+        sched._rerank_fn = wrap("rerank", sched._rerank_fn)
+    return calls
+
+
 class Laps:
     """Wall seconds of each phase, logged as it ends."""
 
@@ -559,7 +699,8 @@ def main() -> int:
     from repro_torch.kernels.ref import (distance_matrix_ref, exact_float32_matmul,
                                          gather_scores_ref, two_hop_scores_ref)
     from repro_torch.convert import online_from_jax
-    from repro_torch.launch.serve import build_and_serve, run_churn
+    from repro_torch.core.scheduler import SlotScheduler
+    from repro_torch.launch.serve import build_and_serve, poisson_arrivals, run_churn
 
     # the serve scenario with the graph degree doubled (NN 30, M 60) and ef 512:
     # at NN 15 the NN-descent graph holds few of each node's true neighbours
@@ -932,13 +1073,17 @@ def main() -> int:
     # SW-graph cell (ids over the n of phase 6's large-n cut); wide rows
     # (64, 30, 2100), which run the chunked loop; and reverse edges at wide
     # rows (960, 1, 2100), one cell per warp looping over words
-    def gs_time(label, xr, xb, args, reps):
+    def gs_time(label, xr, xb, args, reps, check=False):
         def gs_x(ids, q_rep, q_bias):
             return gather_scores(ids, q_rep, q_bias, xr, xb, dist.post_id, dist.c0)
 
         def gs_plain(ids, q_rep, q_bias):
             return gather_scores_ref(ids, q_rep, xr, q_bias, xb, dist.post_id, dist.c0)
 
+        if check:
+            max_err[("gather_scores", dist.name, label)] = check_close(
+                f"gather_scores {label}", gs_x(*args[0]), gs_plain(*args[0]), TOL,
+                pad=args[0][0] < 0)
         B, M = args[0][0].shape
         b_ms, b_by, _ = bound(args[0][0], xr.shape[1])
         row = {"shape": label, "B": B, "R": M, "m": xr.shape[1],
@@ -989,6 +1134,28 @@ def main() -> int:
         gs_time("online repair-wave reverse edges B=960 M=1 m'=128 (ids over n=1e6)",
                 x_rep, x_bias, rev_args(qa_rep, qa_bias, N_FULL), 320)]
     del args_wave
+    # the slot scheduler: a tick's lock-step over 48 slots at frontier 12, at
+    # phase 18's cell (M = 60, ids over n = 1e6) and at the serve defaults
+    # (M = 30, the serve data at m' = 32); the retire-time rerank of one
+    # request, B = 1 over k_c = 512 candidates (phase 13's rerank width)
+    def sched_args(qr, qb, R, n_rows, B=SCHED_SLOTS, sets=32):
+        out = []
+        for _ in range(sets):
+            rows = torch.randint(0, n_rows, (B,), generator=gen, device="cuda")
+            out.append((random_ids(gen, B, R, n_rows), qr[rows].contiguous(),
+                        qb[rows].contiguous()))
+        return out
+
+    R_full, R_serve = SCHED_FRONTIER * 2 * full_spec.NN, SCHED_FRONTIER * 2 * 15
+    gs_sched = [
+        gs_time(f"scheduler step S={SCHED_SLOTS} R={R_full} m'=128 (ids over n=1e6)", x_rep,
+                x_bias, sched_args(qa_rep, qa_bias, R_full, N_FULL), 320, check=True),
+        gs_time(f"scheduler step at the serve defaults S={SCHED_SLOTS} R={R_serve} m'=32",
+                xr32, xb32, sched_args(dist.prep_right(X32).contiguous(),
+                                       dist.bias_right(X32).contiguous(), R_serve,
+                                       X32.shape[0]), 320, check=True),
+        gs_time("scheduler rerank B=1 k_c=512 m'=128 (ids over n=1e6)", x_rep, x_bias,
+                sched_args(qa_rep, qa_bias, 512, N_FULL, B=1), 320, check=True)]
 
     # the NN-descent round on its real candidate block: the forward adjacency
     # of the phase 9 build (rebuilt from the same data and seed), with the
@@ -1411,6 +1578,124 @@ def main() -> int:
 
     lap("16 churn at full width")
 
+    # -- 17. continuous at the serve defaults ----------------------------------------------
+    cont_runs = {}
+    with PlainCalls(ops) as plain17, Answered(SlotScheduler) as answered17:
+        for key in ("continuous", "qos"):
+            qos_kw = {} if key == "continuous" else dict(
+                slo_ms=1.5 * cont_runs["continuous"]["continuous"]["p50_ms"], tenants=2,
+                priority_mix=[0.6, 0.4])
+            ops.reset_launch_counts()
+            cont_runs[key] = build_and_serve(
+                n_db=20_000, dim=32, n_queries=256, batch=64, ef_search=96, frontier=4,
+                continuous=True, slots=SCHED_SLOTS, cont_frontier=SCHED_FRONTIER,
+                utilization=0.4, device="cuda", verbose=False, **qos_kw)
+            cont_runs[key]["all_launches"] = ops.launch_counts()
+    answered17.check("phase 17")
+    c17, q17 = cont_runs["continuous"], cont_runs["qos"]
+    cont17 = {**c17["continuous"], "static_recall@k": c17["recall@k"],
+              "jax_recall@k": JAX_CONTINUOUS_RECALL,
+              "floor": round(JAX_CONTINUOUS_RECALL - 0.02, 4),
+              "recall_minus_static": c17["continuous"]["recall@k"] - c17["recall@k"],
+              "launches": c17["kernel_launches"], "all_launches": c17["all_launches"],
+              "plain_calls_on_cuda": plain17.n}
+    qos17 = {**q17["qos"], "continuous_recall@k": q17["continuous"]["recall@k"],
+             "demoted_plus_shed": q17["qos"]["demoted"] + q17["qos"]["shed"],
+             "launches": q17["kernel_launches"], "all_launches": q17["all_launches"]}
+    log(f"continuous at the serve defaults n=20000 d=32: slo_ms for the QoS run "
+        f"{qos17['slo_ms']:.3f} (1.5 x the continuous p50 {cont17['p50_ms']:.3f} ms)")
+    log("continuous at the serve defaults n=20000 d=32: " + json.dumps(cont17))
+    log("QoS at the serve defaults n=20000 d=32: " + json.dumps(qos17))
+    if plain17.n:
+        raise AssertionError(f"phase 17: {plain17.n} plain-version calls on CUDA tensors")
+    for key, run in cont_runs.items():
+        if not (run["kernel_launches"][key]["gather_scores"] > 0
+                and run["all_launches"]["distance_matrix"] > 0):
+            raise AssertionError(f"phase 17: kernel not launched on the {key} path: "
+                                 f"{run['kernel_launches']}")
+    if cont17["recall@k"] < cont17["floor"]:
+        raise AssertionError(f"continuous recall@10 {cont17['recall@k']} < {cont17['floor']} "
+                             f"(JAX {JAX_CONTINUOUS_RECALL} less 0.02)")
+    if cont17["recall_minus_static"] < -0.005:
+        raise AssertionError(f"continuous recall@10 {cont17['recall@k']} is more than 0.005 "
+                             f"below the static line {cont17['static_recall@k']}")
+
+    lap("17 continuous at the serve defaults")
+
+    # -- 18. continuous at full width: phase 9's cell -------------------------------------------
+    rng = np.random.default_rng(0)  # phase 9's data
+    data = lda_like_histograms(rng, N_FULL + Q_FULL, D_FULL, device="cuda")
+    Q, rest = split_queries(data, Q_FULL, rng)
+    X = rest[:N_FULL]
+    del data, rest
+    idx18 = ANNIndex.build(X, spec=full_spec,
+                           generator=torch.Generator(device="cuda").manual_seed(0))
+    _, true18 = knn_scan(kl, Q, X, full_spec.k)
+    with PlainCalls(ops) as plain18, Answered(SlotScheduler) as answered18:
+        # (a) no refill: S = B = 64 at the searcher's frontier, against one batch
+        one = idx18.searcher()(Q[:BATCH])
+        sched = idx18.scheduler(slots=BATCH, frontier=full_spec.frontier)
+        res = sched.run_stream(Q[:BATCH])
+        one = [t.cpu().numpy() for t in one]
+        got = [np.stack([r.ids for r in res]), np.stack([r.dists for r in res]),
+               np.asarray([r.n_evals for r in res]), np.asarray([r.hops for r in res])]
+        no_refill = {"ids_equal": bool(np.array_equal(got[0], one[1])),
+                     "n_evals_equal": bool(np.array_equal(got[2], one[2])),
+                     "hops_equal": bool(np.array_equal(got[3], one[3])),
+                     "dists_max_abs_diff": float(np.abs(got[1] - one[0]).max())}
+        log("no-refill scheduler vs one-shot search at n=1e6 (64 slots, 64 queries): "
+            + json.dumps(no_refill))
+        if not (no_refill["ids_equal"] and no_refill["n_evals_equal"]
+                and no_refill["hops_equal"]):
+            raise AssertionError(f"phase 18: the no-refill scheduler differs from the "
+                                 f"one-shot search: {no_refill}")
+        # (b) a Poisson trace at utilization 0.4 of phase 9's measured batch capacity
+        rate = 0.4 * BATCH / (full["p50_batch_ms"] / 1e3)
+        arrivals = poisson_arrivals(Q_FULL, rate, np.random.default_rng(1))
+        sched = idx18.scheduler(slots=SCHED_SLOTS, frontier=SCHED_FRONTIER)
+        sched.warmup(Q[0].cpu().numpy())
+        sites = count_sites(sched)
+        ops.reset_launch_counts()
+        res = sched.run_stream(Q, arrivals, warm=False)
+        torch.cuda.synchronize()
+        launches18 = ops.launch_counts()
+    answered18.check("phase 18")
+    lat = np.asarray([r.latency for r in res])
+    cont18 = {"offered_qps": rate, "slots": SCHED_SLOTS, "frontier": SCHED_FRONTIER,
+              "steps_per_sync": sched.steps_per_sync,
+              "recall@k": recall_at_k(np.stack([r.ids for r in res]), true18),
+              "phase9_recall@k": full["recall@k"],
+              "eval_reduction": float(N_FULL / np.mean([r.n_evals for r in res])),
+              "p50_ms": 1e3 * float(np.percentile(lat, 50)),
+              "p95_ms": 1e3 * float(np.percentile(lat, 95)),
+              "p99_ms": 1e3 * float(np.percentile(lat, 99)),
+              "ticks": sites["tick"], "lock_steps_per_tick": sched.steps_per_sync,
+              "ms_per_tick": sites["tick_ms"] / max(sites["tick"], 1),
+              "admissions": sites["admit"], "step_calls": sites["step"],
+              "launches": launches18, "plain_calls_on_cuda": plain18.n,
+              "no_refill": no_refill}
+    log("continuous at full width n=1000000 d=128: " + json.dumps(cont18))
+    if plain18.n:
+        raise AssertionError(f"phase 18: {plain18.n} plain-version calls on CUDA tensors")
+    want18 = sites["admit"] + sched.steps_per_sync * sites["step"]
+    if launches18["gather_scores"] != want18:
+        raise AssertionError(f"phase 18: {launches18['gather_scores']} gather_scores launches, "
+                             f"not one per admission and lock-step ({want18})")
+    if cont18["recall@k"] < full["recall@k"] - 0.005:
+        raise AssertionError(f"phase 18: continuous recall@10 {cont18['recall@k']} is more than "
+                             f"0.005 below phase 9's {full['recall@k']}")
+    # one window of ticks: 48 queries admitted, 16 ticks of 4 lock-steps
+    sched.reset()
+    for i in range(SCHED_SLOTS):
+        sched.submit(Q[i].cpu().numpy(), rid=i)
+    sched.tick()
+    profile_device(lambda: [sched.tick() for _ in range(16)],
+                   f"16 scheduler ticks, {SCHED_SLOTS} slots x {sched.steps_per_sync} lock-steps, "
+                   "n=1e6 d=128 (phase 18)")
+    del idx18, X, Q, sched, res
+
+    lap("18 continuous at full width")
+
     def err_of(kernel_name):
         return max(v for k, v in max_err.items() if k[0] == kernel_name and k[1] == "kl")
 
@@ -1508,11 +1793,17 @@ def main() -> int:
                 "search at n=1e6 (phase 13); every scoring site of the online index: "
                 "from_graph's edge distances, each insert and repair wave's search, "
                 "intra-wave block and reverse edges, and the alive-masked search (phases 15 "
-                "and 16, churn_launches)",
+                "and 16, churn_launches); the slot scheduler's admissions and lock-steps "
+                "at the serve defaults (phase 17: "
+                f"{cont17['launches']['continuous']['gather_scores']} launches in the continuous "
+                f"run, {qos17['launches']['qos']['gather_scores']} in the QoS run) and at "
+                f"n=1e6 (phase 18: {launches18['gather_scores']} launches = "
+                f"{cont18['admissions']} admissions + {cont18['step_calls']} ticks x "
+                f"{cont18['lock_steps_per_tick']} lock-steps)",
         "max_abs_err_all_distances": all_err("gather_scores"),
         "max_abs_err_wrappers": wrapper_errs("gather_scores"),
         "other_shapes": gs_steps[1:] + [gs_rev32, gs_rev128, gs_wide, gs_rev_wide, gs_edge]
-        + gs_online,
+        + gs_online + gs_sched,
         "churn_launches": {"serve_defaults": churn15["kernel_launches"],
                            "serve_defaults_build": churn15["build_launches"],
                            "full_width": churn16["kernel_launches"],
@@ -1520,6 +1811,8 @@ def main() -> int:
     }]
     log("policies: " + json.dumps({"full_width": policy_full, "serve_defaults": policy_rows}))
     log("churn: " + json.dumps({"serve_defaults": churn15, "full_width": churn16}))
+    log("continuous: " + json.dumps({"serve_defaults": cont17, "qos": qos17,
+                                     "full_width": cont18}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

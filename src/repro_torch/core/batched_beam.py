@@ -164,11 +164,16 @@ def seed_beams(score_rows, entries, B: int, ef: int, n: int,
 
 
 def beam_step(st: BatchBeamState, neighbors, score_rows, ef: int, T: int, C: int,
-              max_steps: int, t_active=None) -> BatchBeamState:
+              max_steps: int, t_active=None, ef_active=None) -> BatchBeamState:
     """One lock-step of the batched beam engine.
 
     ``t_active`` (B,) optionally caps how many of the top-T popped candidates
-    each query may expand this step (the adaptive-frontier policy).  Queries
+    each query may expand this step (the adaptive-frontier policy).
+    ``ef_active`` (B,) int32, each <= ef, optionally runs a query at a
+    narrower efSearch inside the (B, ef) arrays: the termination radius is
+    read at position ``ef_active - 1`` and the beam past ``ef_active`` is
+    voided after the merge, so the query steps exactly as an engine at
+    ``ef = ef_active`` would (the scheduler's demotion ladder).  Queries
     with ``done=True`` are frozen: beam, visited set and counters pass through.
     """
     B = st.beam_d.shape[0]
@@ -178,7 +183,11 @@ def beam_step(st: BatchBeamState, neighbors, score_rows, ef: int, T: int, C: int
     # -- per-query convergence masking (NMSLIB efSearch semantics)
     cand = torch.where(st.expanded, INF, st.beam_d)  # (B, ef)
     best = cand.min(dim=1).values
-    worst = st.beam_d[:, -1]
+    if ef_active is None:
+        worst = st.beam_d[:, -1]
+    else:
+        wi = torch.clamp(ef_active - 1, 0, ef - 1).long()[:, None]
+        worst = torch.gather(st.beam_d, 1, wi)[:, 0]
     done = st.done | ~((best <= worst) & torch.isfinite(best)) | (st.hops >= max_steps)
     active = ~done
 
@@ -232,6 +241,13 @@ def beam_step(st: BatchBeamState, neighbors, score_rows, ef: int, T: int, C: int
     beam_d, beam_i, beam_e = _merge_beams(
         (st.beam_d, st.beam_i, expanded), (kept_d, kept_i, ~kept_ok), ef
     )
+    if ef_active is not None:
+        # the first ef_active entries of the stable merge are what a merge
+        # into an ef_active-wide beam keeps: void the rest
+        off = torch.arange(ef, device=dev)[None, :] >= ef_active[:, None]
+        beam_d = torch.where(off, INF, beam_d)
+        beam_i = torch.where(off, -1, beam_i)
+        beam_e = beam_e | off
     return BatchBeamState(
         beam_d,
         beam_i,

@@ -12,9 +12,9 @@ policy whose k_c candidates are re-ranked under the original distance
 (the paper's full-symmetrization scenario).  With a ``capacity`` (in the
 spec, or on the first mutation) the index is MUTABLE: ``insert``,
 ``delete`` and ``compact`` go through ``core.online.OnlineIndex`` and the
-batched searcher serves the live, tombstone-masked graph.  The scheduler
-of ``repro`` raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+batched searcher serves the live, tombstone-masked graph.  ``scheduler``
+returns the continuous-batching ``core.scheduler.SlotScheduler`` over the
+index, static or mutable.
 """
 
 from __future__ import annotations
@@ -30,11 +30,10 @@ from repro_torch.core.build_engine import build_swgraph_wave
 from repro_torch.core.filter_refine import rerank
 from repro_torch.core.nndescent import build_nndescent
 from repro_torch.core.online import OnlineIndex
+from repro_torch.core.scheduler import GraphView, Rung, SlotScheduler
 from repro_torch.core.spec import RetrievalSpec
 from repro_torch.core.swgraph import build_swgraph
 from repro_torch.kernels.ops import prepped
-
-_ITEM_SCHEDULER = "ROADMAP item M12 (scheduler.py)"
 
 
 def bind_policies(spec: RetrievalSpec, dist, X, natural: Optional[Callable] = None):
@@ -260,8 +259,117 @@ class ANNIndex:
         """One-shot ``searcher(...)(Q)`` with the same knob resolution."""
         return self.searcher(k, ef_search, k_c, engine=engine, frontier=frontier)(Q)
 
-    def scheduler(self, *args, **kwargs):
-        raise NotImplementedError(f"the slot scheduler is not ported yet: {_ITEM_SCHEDULER}")
+    # ---------------------------------------------------------------- serving
+
+    def scheduler(self, k: Optional[int] = None, ef_search: Optional[int] = None, *,
+                  slots: Optional[int] = None, frontier: Optional[int] = None,
+                  adaptive: Optional[bool] = None, patience: Optional[int] = None,
+                  steps_per_sync: Optional[int] = None, compact: Optional[int] = None,
+                  k_c: Optional[int] = None, spec: Optional[RetrievalSpec] = None,
+                  ladder: Optional[list] = None, slo_ms: Optional[float] = None,
+                  shed: bool = True, tenant_weights: Optional[dict] = None, background=False,
+                  service_prior: Optional[float] = None,
+                  admission_margin: float = 1.0) -> SlotScheduler:
+        """Continuous-batching slot scheduler over this index (``core.scheduler``).
+
+        Knobs resolve spec-first (``frontier`` defaults to
+        ``spec.sched_frontier``).  On a mutable index the scheduler reads the
+        live graph every tick and re-masks retired results against the
+        current ``alive`` set; a scheduler made before the index became
+        mutable raises on its next tick.  A rerank spec runs the beams under
+        the bound search policy and re-ranks each retired request's k_c
+        candidates under the original distance, as ``searcher()`` does.
+        ``ladder`` (a ``spec.demotion_ladder`` list, rung 0 the serving
+        point) becomes the scheduler's ``Rung``s, cost scales the ef ratio;
+        ``slo_ms``, ``shed``, ``service_prior`` and ``admission_margin``
+        configure admission, ``tenant_weights`` the DRR fairness.
+        ``background=True`` hangs one ``OnlineIndex.compact_slice`` on each
+        idle tick (a mutable index only; a callable is used as the hook).
+        """
+        self._check_search_policy(spec)
+        spec = spec if spec is not None else self.spec
+        k = spec.k if k is None else k
+        ef_search = spec.ef_search if ef_search is None else ef_search
+        slots = spec.slots if slots is None else slots
+        frontier = spec.sched_frontier if frontier is None else frontier
+        adaptive = spec.adaptive if adaptive is None else adaptive
+        patience = spec.patience if patience is None else patience
+        steps_per_sync = spec.steps_per_sync if steps_per_sync is None else steps_per_sync
+        compact = spec.compact if compact is None else compact
+
+        rerank_fn = None
+        if self.query_sym != "none":
+            k_c = k_c or spec.k_c or max(ef_search, k)
+            ef = max(ef_search, k_c)
+            beam_dist = self.search_dist
+            orig, online = self.dist, self.online
+            consts = None if online is not None else prepped(orig.prep_scan(self.X))
+
+            def rerank_fn(q, cand):
+                if online is not None:
+                    return rerank(orig, q, online.X, cand, k)
+                return rerank(orig, q, self.X, cand, k, consts=consts)
+        else:
+            k_c = None
+            ef = max(ef_search, k)
+            beam_dist = self.dist
+
+        if self.online is not None:
+            online = self.online
+
+            def graph_fn():
+                return GraphView(online.adj, online._search_consts(), online.alive,
+                                 online.entries, epoch=online.mutation_epoch,
+                                 killed_epoch=online.killed_epoch)
+        else:
+            entries = (self.entries if self.entries is not None
+                       else torch.zeros((1,), dtype=torch.int32, device=self.X.device))
+            view = GraphView(self.neighbors, prepped(beam_dist.prep_scan(self.X)), None,
+                             entries)
+
+            def graph_fn():
+                if self.online is not None:
+                    # the slot state is shaped for the frozen graph and cannot
+                    # adopt the capacity-padded arrays; serving the stale
+                    # snapshot would surface deleted points
+                    raise RuntimeError("index became mutable after this scheduler was "
+                                       "created; create a new scheduler (it will read the "
+                                       "live graph)")
+                return view
+
+        rungs = None
+        if ladder is not None:
+            rungs = []
+            for s in ladder:
+                self._check_search_policy(s)
+                if s.k != k:
+                    raise ValueError(f"ladder spec k {s.k} != serving k {k}; every rung must "
+                                     f"honor the same result contract")
+                if s.k_c != spec.k_c:
+                    raise ValueError(f"ladder spec k_c {s.k_c} != serving k_c {spec.k_c}; "
+                                     f"rerank width cannot vary per rung")
+                r_ef = min(max(s.ef_search, k_c or k), ef)
+                name = f"ef{s.ef_search}" + ("+adaptive" if s.adaptive else "")
+                rungs.append(Rung(ef=r_ef, adaptive=bool(s.adaptive), name=name,
+                                  scale=r_ef / ef))
+
+        background_fn = None
+        if callable(background):
+            background_fn = background
+        elif background:
+            if self.online is None:
+                raise ValueError("background=True hangs OnlineIndex.compact_slice on idle "
+                                 "ticks and requires a mutable index; call ensure_online() "
+                                 "first (or pass a callable hook)")
+            background_fn = self.online.compact_slice
+
+        return SlotScheduler(
+            beam_dist, graph_fn, dim=int(self.X.shape[1]), slots=slots, ef=ef, k=k,
+            frontier=frontier, adaptive=adaptive, patience=patience,
+            steps_per_sync=steps_per_sync, compact=compact, k_c=k_c, rerank_fn=rerank_fn,
+            ladder=rungs, slo_ms=slo_ms, shed=shed, tenant_weights=tenant_weights,
+            background_fn=background_fn, service_prior=service_prior,
+            admission_margin=admission_margin)
 
 
 def make_build_info(spec: RetrievalSpec, degrees, build_policy, search_policy) -> dict:

@@ -470,3 +470,63 @@ def load_spec(src) -> RetrievalSpec:
     if doc.get("kind") == LEARNED_ARTIFACT_KIND:
         return load_learned_artifact(doc)[0]
     return RetrievalSpec.from_dict(doc)
+
+
+# ---------------------------------------------------------------------------
+# QoS demotion ladders (per-request class -> operating point)
+# ---------------------------------------------------------------------------
+
+# the knobs a demotion rung may vary: everything else (the distance scenario,
+# the construction, k/k_c, the scheduler's shape) is pinned to the serving spec
+_LADDER_SEARCH_FIELDS = ("ef_search", "frontier", "adaptive", "patience")
+
+
+def _ladder_key(spec: RetrievalSpec) -> str:
+    d = spec.to_dict()
+    for f in _LADDER_SEARCH_FIELDS:
+        d.pop(f)
+    return json.dumps(d, sort_keys=True)
+
+
+def demotion_ladder(spec: RetrievalSpec, source=None, *, max_rungs: int = 3,
+                    floor_ef: Optional[int] = None) -> list[RetrievalSpec]:
+    """Operating points for SLO admission, full fidelity first, cheapest last.
+
+    Rung 0 is ``spec``.  ``source`` (a tuned-spec artifact: path, JSON or
+    dict) supplies the cheaper rungs from its Pareto frontier: the entries
+    whose every field but the search knobs equals ``spec``'s and whose
+    ``ef_search`` lies in ``[floor, spec.ef_search)``, most expensive first.
+    Without a source, or when no entry qualifies, ``ef_search`` is halved
+    down to the floor.  The floor is ``max(k, k_c, floor_ef or 16)``.
+    """
+    floor = max(spec.k, spec.k_c or spec.k, 16 if floor_ef is None else int(floor_ef))
+    rungs = [spec]
+    if source is not None:
+        if not (isinstance(source, dict) and "frontier" in source):
+            _, source = load_tuned_artifact(source)
+        key = _ladder_key(spec)
+        cands: dict = {}
+        for entry in source.get("frontier", ()):
+            try:
+                s = RetrievalSpec.from_dict(entry["spec"])
+            except (KeyError, TypeError, ValueError):
+                continue
+            if _ladder_key(s) != key or not floor <= s.ef_search < spec.ef_search:
+                continue
+            cands.setdefault((s.ef_search, s.adaptive), s)
+        for ef_a in sorted(cands, key=lambda t: (-t[0], t[1])):
+            if len(rungs) >= max_rungs:
+                break
+            rungs.append(cands[ef_a])
+    if len(rungs) == 1:
+        e = spec.ef_search // 2
+        while len(rungs) < max_rungs and e >= floor:
+            rungs.append(spec.replace(ef_search=e))
+            e //= 2
+    return rungs
+
+
+def class_spec(ladder: list[RetrievalSpec], priority: int) -> RetrievalSpec:
+    """The spec of QoS class ``priority`` (0 = highest): ladder rung
+    ``min(priority, len(ladder) - 1)``, where admission starts its walk."""
+    return ladder[min(max(int(priority), 0), len(ladder) - 1)]

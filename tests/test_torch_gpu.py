@@ -570,6 +570,35 @@ def test_no_wrapper_reaches_a_plain_version_on_the_card(cuda, monkeypatch):
     counted("audit", lambda: knn_scan(idx.dist, Q, idx.online.X[surv], 10))
     assert launched["audit"]["distance_matrix"] == 1
 
+    # the slot scheduler under min / min + rerank, on the mutable index: per
+    # branch one launch per admission and per lock-step, one per rerank
+    sched = idx.scheduler(slots=16, steps_per_sync=2)
+    calls = _count_scheduler_sites(sched)
+    res = counted("scheduler", lambda: sched.run_stream(Q))
+    assert calls["admit"] > 1 and calls["rerank"] == len(Q) + 1  # the warm-up's too
+    assert launched["scheduler"]["gather_scores"] == (
+        2 * (calls["admit"] + 2 * calls["step"]) + calls["rerank"])
+    dead = set(range(0, 1100, 9))
+    assert all(not dead.intersection(r.ids.tolist()) and (r.ids >= 0).all() for r in res)
+
+
+def _count_scheduler_sites(sched):
+    """Count the scheduler's device calls by site: admissions, ticks' steps
+    and reranks (each wrapped on the instance)."""
+    calls = {"admit": 0, "step": 0, "rerank": 0}
+
+    def wrap(site, fn):
+        def counted(*args, **kwargs):
+            calls[site] += 1
+            return fn(*args, **kwargs)
+        return counted
+
+    sched._admit = wrap("admit", sched._admit)
+    sched._step = wrap("step", sched._step)
+    if sched._rerank_fn is not None:
+        sched._rerank_fn = wrap("rerank", sched._rerank_fn)
+    return calls
+
 
 def _online_state(o):
     """An ``OnlineIndex``'s state as the numpy arrays ``online_from_jax`` takes."""
@@ -669,3 +698,44 @@ def test_m9_gate_cell_on_the_card_matches_the_cpu_path(cuda):
     assert ops.launch_counts()["gather_scores"] > 0
     want = cpu.searcher()(Q)
     _ids_or_recall("M9 gate cell", got[1], want[1], knn_scan(get_distance("kl"), Q, X, 10)[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mutable", [False, True])
+def test_scheduler_at_the_serve_defaults_matches_the_cpu_path(mutable, cuda):
+    """The slot scheduler at the serve defaults (n = 20,000, d = 32, KL,
+    NN-descent NN 15, ef 96, 48 slots, frontier 12, 4 lock-steps per tick)
+    over the CPU path's graph carried to the card: the retired ids equal
+    the CPU path's, for a static index and for an online index after
+    deletes; admissions and lock-steps launch gather_scores once each."""
+    from repro_torch.convert import index_from_jax
+    from repro_torch.core.index import ANNIndex
+    from repro_torch.core.spec import RetrievalSpec
+    from repro_torch.data.synthetic import lda_like_histograms, split_queries
+
+    rng = np.random.default_rng(0)
+    Q, X = split_queries(lda_like_histograms(rng, 20_000 + 256, 32, device="cpu"), 256, rng)
+    spec = RetrievalSpec(NN=15, ef_search=96, slots=48, sched_frontier=12, steps_per_sync=4,
+                         capacity=20_512 if mutable else None)
+    cpu = ANNIndex.build(X, spec=spec)
+    # a capacity spec makes both mutable the same way (from_graph)
+    card = index_from_jax({"X": X.numpy(), "neighbors": cpu.neighbors.numpy(),
+                           "entries": cpu.entries.numpy()}, spec.to_dict(), device="cuda")
+    if mutable:
+        victims = np.random.default_rng(3).choice(20_000, size=500, replace=False)
+        for idx in (cpu, card):
+            idx.delete(victims)
+    want = cpu.scheduler().run_stream(Q)
+    sched = card.scheduler()
+    calls = _count_scheduler_sites(sched)
+    ops.reset_launch_counts()
+    got = sched.run_stream(Q.to(cuda))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["gather_scores"] == calls["admit"] + 4 * calls["step"]
+    same = np.mean([np.array_equal(g.ids, w.ids) for g, w in zip(got, want)])
+    print(f"[card vs cpu] scheduler, {'online' if mutable else 'static'}: "
+          f"{same:.6f} of the requests retire the same ids")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.ids, w.ids)
+        assert (g.n_evals, g.hops) == (w.n_evals, w.hops)
+        np.testing.assert_allclose(g.dists, w.dists, **TOL)

@@ -233,8 +233,12 @@ def test_unported_paths_raise_naming_their_roadmap_item(data):
     mutable = TIndex.build(X, spec=tspec.RetrievalSpec(capacity=400, NN=8, nnd_iters=2))
     assert mutable.online is not None and mutable.online.capacity == mutable.capacity == 400
     idx = TIndex.build(X, spec=tspec.RetrievalSpec(NN=8, nnd_iters=2))
-    with pytest.raises(NotImplementedError, match="M12"):
-        idx.scheduler()
+    # the slot scheduler (ROADMAP M12) is ported: with no refill it serves the
+    # searcher's results
+    res = idx.scheduler(slots=8, frontier=idx.spec.frontier).run_stream(X[:8])
+    _, ids, n_evals, _ = idx.searcher()(X[:8])
+    assert [r.ids.tolist() for r in res] == ids.tolist()
+    assert [r.n_evals for r in res] == n_evals.tolist()
     with pytest.raises(ValueError, match="adaptive"):
         idx.searcher(engine="reference", adaptive=True)
     with pytest.raises(ValueError, match="unknown engine"):

@@ -2,7 +2,7 @@
 that ``chip_smoke.py`` (phase 14, ``JAX_RECALL``) holds the port to.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/jax_policy_recall.py [--bm25-docs 4000] \
-        [--runs serve bm25 churn]
+        [--runs serve bm25 churn continuous]
 
 One JSON line per run:
 
@@ -18,7 +18,13 @@ One JSON line per run:
 * churn: ``build_and_serve`` at its defaults with ``--churn-rounds 4
   --churn-insert 256 --churn-delete 200`` (the online index), whose
   ``recall@k_after_churn`` is the floor of ``chip_smoke.py``'s phase 15
-  (``JAX_CHURN_RECALL``).
+  (``JAX_CHURN_RECALL``);
+* continuous: ``build_and_serve`` at its defaults with ``continuous=True``
+  (48 slots, frontier 12, utilization 0.4: the slot scheduler over a
+  Poisson trace), whose continuous ``recall@k`` is the floor of
+  ``chip_smoke.py``'s phase 17 (``JAX_CONTINUOUS_RECALL``); the line also
+  carries the static line's recall.  The recall does not depend on the
+  trace: a query's result is the same whenever it is admitted.
 
 Everything is drawn from fixed ``jax.random`` keys: the same numbers on
 every run.  A JAX program: run it where the JAX package runs.
@@ -74,18 +80,23 @@ def churn_runs():
     yield "churn", churn["recall@k_after_churn"]
 
 
+def continuous_runs():
+    st = build_and_serve(verbose=False, continuous=True)
+    yield "continuous", st["continuous"]["recall@k"], {"static_recall@k": st["recall@k"]}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bm25-docs", type=int, default=4000)
-    ap.add_argument("--runs", nargs="+", choices=("serve", "bm25", "churn"),
-                    default=["serve", "bm25", "churn"])
+    ap.add_argument("--runs", nargs="+", choices=("serve", "bm25", "churn", "continuous"),
+                    default=["serve", "bm25", "churn", "continuous"])
     args = ap.parse_args(argv)
     make = {"serve": serve_runs, "bm25": lambda: bm25_runs(args.bm25_docs),
-            "churn": churn_runs}
+            "churn": churn_runs, "continuous": continuous_runs}
     for runs in (make[name]() for name in args.runs):
         t0 = time.perf_counter()
-        for label, recall in runs:
-            print(json.dumps({"run": label, "recall@k": recall,
+        for label, recall, *extra in runs:
+            print(json.dumps({"run": label, "recall@k": recall, **(extra[0] if extra else {}),
                               "cpu_wall_s": time.perf_counter() - t0}), flush=True)
             jax.clear_caches()  # many fresh jitted closures exhaust the CPU linker
             t0 = time.perf_counter()
