@@ -150,8 +150,36 @@ Every phase is fatal on failure; nothing is caught and passed over.
     lock-steps) are printed, and no plain version may run on a CUDA
     tensor; one window of ticks is profiled.
 
-The last three lines are the card line, a JSON object with the kernels'
-numbers, and ``{"ok": true, "device": {...}}``.
+19. sharded serving at the serve defaults: ``launch.serve.build_and_serve_sharded``
+    on 4 ranks spawned on the one card (gloo with CUDA tensors: NCCL refuses
+    two ranks on one card), n=20,000, d=32, KL, NN 15, 8 rounds, 32 slots,
+    ef 96, k 10, 256 queries (``repro``'s ``--shards 4`` defaults); then
+    ``--drop-shards 1``, ``--steps-per-sync 2`` and n=19,999 (a pad row), all
+    in one spawn with the launch counts set to 0 before each run.  Each
+    recall@10 must reach JAX_SHARDED_RECALL (the JAX package's ``launch.serve``
+    at the same flags, on the CPU) less 0.02 and, without a dropped shard, stay at least
+    the replicated scheduler's less 0.005; no id >= n may surface; under
+    ``--drop-shards 1`` ids stay below 3 x n_local and evals fall.  On every
+    rank the local build must launch two_hop_scores and frontier_scores, the
+    ground truth (``sharded_knn_scan``) distance_matrix and the ticks
+    gather_scores, and no plain version may run on a CUDA tensor.  Then one
+    run at world size 1 under NCCL in this process, whose one-shot sharded
+    search and sharded scheduler must equal ``batched_beam_search`` from
+    entry 0 on the same graph (ids, evals, distances).
+20. sharded at full width: phase 9's data over 4 spawned ranks of 250,000
+    rows (NN 30, M 60): each rank's local NN-descent build, the
+    ``sharded_knn_scan`` ground truth against phase 18's ``knn_scan``
+    (distances within rtol 1e-4, >= 0.98 of ids equal), the one-shot
+    ``sharded_graph_search`` at frontier 4, ef 512 in batches of 64
+    (recall@10 > 0.5, beside phase 9's), 64 queries through 64 slots of the
+    ``ShardedSlotScheduler`` with no refill (equal to the one-shot search bit
+    for bit: ids, distances, evals), then 256 queries through 48 slots at
+    frontier 12, 4 lock-steps per sync: ticks, ms per tick, the exchange's
+    share of the tick and q/s.  The same launch and plain-version checks.
+
+Phase 10 also times each kernel at the sharded paths' shapes.  The last
+three lines are the card line, a JSON object with the kernels' numbers, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -162,6 +190,7 @@ import pathlib
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -218,6 +247,18 @@ JAX_CHURN_RECALL = 0.9441
 JAX_CONTINUOUS_RECALL = 0.9246
 # the scheduler's serve defaults (repro.launch.serve --slots, --cont-frontier)
 SCHED_SLOTS, SCHED_FRONTIER = 48, 12
+# recall@10 of the JAX package's repro.launch.serve --shards 4 on the CPU at its CLI
+# defaults, and with --drop-shards 1 (tools/jax_policy_recall.py --runs sharded);
+# phase 19 holds the port to each less 0.02 (n=19,999 and --steps-per-sync 2 to
+# the defaults' floor)
+JAX_SHARDED_RECALL = {"defaults": 0.9855, "drop 1": 0.7391}
+# phase 19: repro's --shards 4 CLI defaults, then the same with --drop-shards 1,
+# --steps-per-sync 2 and n = 19,999
+SHARDS = 4
+SHARDED_SERVE = dict(n_db=20_000, dim=32, n_queries=256, k=10, ef_search=96, slots=32, NN=15,
+                     nnd_iters=8)
+SHARDED_RUNS = {"defaults": {}, "drop 1": {"drop_shards": 1}, "steps 2": {"steps_per_sync": 2},
+                "n=19999": {"n_db": 19_999}}
 # phase 16: the deletes per round are sized so that compact() is predicted to
 # fit this many seconds
 COMPACT_BUDGET_S = 60.0
@@ -231,6 +272,7 @@ TIME_SHAPES = [("full search step B=64 R=240 (NN 30)", 64, 240),
                ("serve-default search step B=64 R=120 (NN 15)", 64, 120),
                ("serve-default NN-descent round B=1e6 R=248 (NN 15)", N_FULL, 248)]
 GS_KERNELS = ("gather_scores_kernel", "gather_cells_kernel")
+PROFILER_FALLBACKS = []  # timings read from CUDA events where the profiler fell short
 
 
 def log(msg: str) -> None:
@@ -317,7 +359,10 @@ def device_ms(fn, args_list, reps: int, kernel=None) -> float:
     launches exactly one: a window that holds another number of its records
     lost some (or caught others) and is profiled again, at most twice.
     Without ``kernel`` (plain versions) a window needs one record per call.
-    Every window's counts are logged, so a reading can be traced.
+    Every window's counts are logged, so a reading can be traced.  The
+    profiler on the card sometimes loses every record of a window; when all
+    three windows fall short, the time is read from CUDA events instead
+    (``time_ms``, host gaps included) and the log says so.
     """
     names = (kernel,) if isinstance(kernel, str) else kernel
     for a in args_list[:2]:
@@ -338,18 +383,31 @@ def device_ms(fn, args_list, reps: int, kernel=None) -> float:
         log(f"device_ms: {what} for {reps} calls" + ("" if ok else "; again"))
         if ok:
             return sum(r[0] for r in rows) / reps
-    raise AssertionError(f"the profiler recorded {what} for {reps} calls")
+    return event_fallback(fn, args_list, reps)
+
+
+def event_fallback(fn, args_list, reps: int) -> float:
+    """CUDA-event time per call, where the profiler recorded too little."""
+    PROFILER_FALLBACKS.append(getattr(fn, "__name__", "fn"))
+    ms = time_ms(fn, args_list, reps)
+    log(f"device_ms: the profiler fell short three times; CUDA events read {ms:.6f} ms "
+        f"per call (host gaps included)")
+    return ms
 
 
 def device_ms_of(fn, reps: int, kernel: str):
     """Mean device time per call of ``fn()``, split in two: the kernels whose
-    name holds ``kernel``, and every other kernel ``fn`` launches."""
+    name holds ``kernel``, and every other kernel ``fn`` launches.  Where the
+    profiler records no ``kernel`` in three windows, the first is the whole
+    call's CUDA-event time and the second is None (not measured)."""
     fn()
-    _, rows = _profiled(lambda: [fn() for _ in range(reps)])
-    mine = sum(r[0] for r in rows if kernel in r[2])
-    if not mine:
-        raise AssertionError(f"the profiler recorded no {kernel} kernel")
-    return mine / reps, (sum(r[0] for r in rows) - mine) / reps
+    for _ in range(3):
+        _, rows = _profiled(lambda: [fn() for _ in range(reps)])
+        mine = sum(r[0] for r in rows if kernel in r[2])
+        if mine:
+            return mine / reps, (sum(r[0] for r in rows) - mine) / reps
+        log(f"device_ms_of: the profiler recorded no {kernel} kernel; again")
+    return event_fallback(fn, [()], reps), None
 
 
 def profile_device(fn, label: str) -> None:
@@ -669,6 +727,259 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def float32_highest() -> None:
+    """This script's float32 settings: no TF32 in any PyTorch matmul."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def spawn_ranks(fn, *args) -> list:
+    """``fn(device, *args)`` on SHARDS ranks through ``launch.serve.run_ranks``
+    (the kernels are built: the ranks only load them); every rank's result.
+    This process first returns its cached blocks to the card: the ranks
+    need room for their contexts and their blocks."""
+    from repro_torch.launch.serve import run_ranks
+
+    torch.cuda.empty_cache()
+    log(f"spawning {SHARDS} ranks: this process holds {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    return run_ranks(fn, SHARDS, "cuda", *args)
+
+
+def sharded_serve_rank(dev, runs: dict) -> dict:
+    """Phase 19 on one rank: ``build_and_serve_sharded`` for each run, the
+    launch counts set to 0 before each."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_and_serve_sharded
+
+    float32_highest()
+    out = {}
+    with PlainCalls(ops) as plain:
+        for label, kw in runs.items():
+            ops.reset_launch_counts()
+            out[label] = build_and_serve_sharded(shards=SHARDS, device=dev, verbose=False,
+                                                 **{**SHARDED_SERVE, **kw})
+    out["plain_calls_on_cuda"] = plain.n
+    return out
+
+
+def sharded_full_rank(dev, out_dir: str) -> dict:
+    """Phase 20 on one rank, over its block of ``out_dir/X.npy``: the local
+    build, the sharded ground truth, the one-shot search in batches, the
+    no-refill scheduler and a 256-query stream.  Rank 0 also writes the
+    replicated results to ``results.npz``."""
+    from repro_torch.core.distances import get_distance
+    from repro_torch.core.distributed import (ShardedSlotScheduler, build_local_subgraphs,
+                                              collective_stats, local_block,
+                                              sharded_graph_search, sharded_knn_scan,
+                                              world_and_rank)
+    from repro_torch.kernels import ops
+
+    float32_highest()
+    world, rank = world_and_rank()
+    kl = get_distance("kl")
+    X_local, n_real, n_local = local_block(
+        torch.from_numpy(np.load(f"{out_dir}/X.npy", mmap_mode="r")), rank, world)
+    X_local = X_local.to(dev)
+    Q = torch.from_numpy(np.load(f"{out_dir}/Q.npy")).to(dev)
+    Q_host = Q.cpu().numpy()
+    out, launches, batch_ms = {"n_local": n_local}, {}, []
+
+    def counted(name, fn):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        out[f"{name}_s"] = time.perf_counter() - t0
+        launches[name] = ops.launch_counts()
+        return r
+
+    def one_shot():
+        parts = []
+        for lo in range(0, Q.shape[0], BATCH):
+            t0 = time.perf_counter()
+            parts.append(sharded_graph_search(kl, Q[lo:lo + BATCH], X_local, nbrs, 10, 512,
+                                              n_real, frontier=4))
+            torch.cuda.synchronize()
+            batch_ms.append(1e3 * (time.perf_counter() - t0))
+        return [torch.cat(p) for p in zip(*parts)]
+
+    with PlainCalls(ops) as plain:
+        nbrs = counted("build", lambda: build_local_subgraphs(kl, X_local, NN=30, nnd_iters=8,
+                                                              seed=0))
+        gt_d, gt_i = counted("ground_truth", lambda: sharded_knn_scan(kl, Q, X_local, 10, n_real))
+        d1, i1, e1 = counted("search", one_shot)
+        # (a) no refill: 64 slots at the one-shot's frontier
+        sched = ShardedSlotScheduler(kl, X_local, nbrs, n_real, slots=BATCH, ef=512, k=10,
+                                     frontier=4, steps_per_sync=4)
+        res = counted("no_refill", lambda: sched.run_stream(Q_host[:BATCH]))
+        got = [np.stack([r.ids for r in res]), np.stack([r.dists for r in res]),
+               np.asarray([r.n_evals for r in res])]
+        out["no_refill"] = {
+            "ids_equal": bool(np.array_equal(got[0], i1[:BATCH].cpu().numpy())),
+            "dists_equal": bool(np.array_equal(got[1], d1[:BATCH].cpu().numpy())),
+            "n_evals_equal": bool(np.array_equal(got[2], e1[:BATCH].cpu().numpy()))}
+        # (b) 256 queries through 48 slots at frontier 12
+        sched = ShardedSlotScheduler(kl, X_local, nbrs, n_real, slots=SCHED_SLOTS, ef=512,
+                                     k=10, frontier=SCHED_FRONTIER, steps_per_sync=4)
+        sched.warmup(Q_host[0])
+        c0 = collective_stats()
+        res = counted("scheduler", lambda: sched.run_stream(Q_host[:256], warm=False))
+        c1 = collective_stats()
+    out.update(
+        plain_calls_on_cuda=plain.n, launches=launches,
+        batch_ms_p50=float(np.percentile(batch_ms, 50)),
+        search_qps=Q.shape[0] / out["search_s"],
+        scheduler={"queries": 256, "slots": SCHED_SLOTS, "frontier": SCHED_FRONTIER,
+                   "steps_per_sync": 4, "ticks": sched.ticks,
+                   "ms_per_tick": 1e3 * sched.tick_s / max(sched.ticks, 1),
+                   "collectives_per_tick": (c1["calls"] - c0["calls"]) / max(sched.ticks, 1),
+                   "collective_share": sched.exchange_s / max(sched.tick_s, 1e-12),
+                   "qps": 256 / out["scheduler_s"],
+                   "ids": np.stack([r.ids for r in res]).tolist()})
+    if rank == 0:
+        np.savez(f"{out_dir}/results.npz", gt_d=gt_d.cpu().numpy(), gt_i=gt_i.cpu().numpy(),
+                 ids=i1.cpu().numpy(), evals=e1.cpu().numpy())
+    return out
+
+
+def check_rank_launches(label: str, ranks: list, runs: list, wanted: dict) -> None:
+    """Every rank launched each kernel ``wanted`` names in its phase (the
+    counts of ``runs``' launch dicts), and ran no plain version on the card."""
+    for r, out in enumerate(ranks):
+        if out["plain_calls_on_cuda"]:
+            raise AssertionError(f"{label}: rank {r} ran {out['plain_calls_on_cuda']} "
+                                 f"plain-version calls on CUDA tensors")
+        for launched in runs[r]:
+            for phase, kernels in wanted.items():
+                for name in kernels:
+                    if not launched[phase][name] > 0:
+                        raise AssertionError(f"{label}: rank {r} did not launch {name} in its "
+                                             f"{phase}: {launched}")
+
+
+def phase19(kl) -> dict:
+    """Sharded serving at the serve defaults (see the module docstring)."""
+    import torch.distributed as tdist
+
+    from repro_torch.core.batched_beam import make_step_searcher
+    from repro_torch.core.distributed import (ShardedSlotScheduler, build_local_subgraphs,
+                                              init_group, pick_backend, sharded_graph_search)
+    from repro_torch.data.synthetic import lda_like_histograms, split_queries
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_and_serve_sharded
+
+    backend, per_card = pick_backend(SHARDS, "cuda")
+    log(f"phase 19: {SHARDS} ranks, backend {backend}, {per_card} ranks per card")
+    ranks = spawn_ranks(sharded_serve_rank, SHARDED_RUNS)
+    runs = ranks[0]
+    check_rank_launches("phase 19", ranks, [[rk[label]["kernel_launches"] for label in SHARDED_RUNS]
+                                            for rk in ranks],
+                        {"build": ("two_hop_scores", "frontier_scores"),
+                         "ground_truth": ("distance_matrix",), "serve": ("gather_scores",)})
+    for label, st in runs.items():
+        if label == "plain_calls_on_cuda":
+            continue
+        floor = JAX_SHARDED_RECALL["drop 1" if st["drop_shards"] else "defaults"] - 0.02
+        st["floor"] = round(floor, 4)
+        log(f"sharded serve {label}: " + json.dumps(st))
+        if st["recall@k"] < floor:
+            raise AssertionError(f"phase 19 {label}: recall@10 {st['recall@k']} < {floor}")
+        if not st["drop_shards"] and st["recall_gap"] > 0.005:
+            raise AssertionError(f"phase 19 {label}: recall@10 {st['recall@k']} is more than "
+                                 f"0.005 below the replicated {st['replicated_recall@k']}")
+        if st["max_id"] >= st["n_db"]:
+            raise AssertionError(f"phase 19 {label}: id {st['max_id']} >= n {st['n_db']}")
+    drop, base = runs["drop 1"], runs["defaults"]
+    if not (drop["max_id"] < 3 * drop["rows_per_shard"]
+            and drop["mean_evals"] < base["mean_evals"]):
+        raise AssertionError(f"phase 19: a dropped shard's ids surfaced or its evals counted: "
+                             f"max id {drop['max_id']}, mean evals {drop['mean_evals']} against "
+                             f"{base['mean_evals']}")
+
+    # world size 1 under NCCL in this process: the sharded paths equal the
+    # lock-step engine from entry 0 on the same graph
+    rng = np.random.default_rng(0)  # build_and_serve_sharded's data
+    data = lda_like_histograms(rng, 20_000 + 256, 32, device="cuda")
+    Q, rest = split_queries(data, 256, rng)
+    X = rest[:20_000]
+    torch.cuda.set_device(0)
+    init_group("nccl", f"tcp://localhost:{free_port()}", 0, 1)
+    try:
+        ops.reset_launch_counts()
+        world1 = build_and_serve_sharded(shards=1, device="cuda", verbose=False,
+                                         compare_replicated=False, **SHARDED_SERVE)
+        nbrs = build_local_subgraphs(kl, X, NN=15, nnd_iters=8, seed=0)
+        one = sharded_graph_search(kl, Q, X, nbrs, 10, 96, 20_000)
+        res = ShardedSlotScheduler(kl, X, nbrs, 20_000, slots=32, ef=96, k=10).run_stream(Q)
+        world1_launches = ops.launch_counts()
+    finally:
+        tdist.destroy_process_group()
+    ref = make_step_searcher(kl, nbrs, X, 96, 10, frontier=1,
+                             entries=torch.zeros((1,), dtype=torch.int32, device="cuda"))(Q)
+    want = [t.cpu().numpy() for t in ref[:3]]  # dists, ids, evals
+    sched = [np.stack([r.dists for r in res]), np.stack([r.ids for r in res]),
+             np.asarray([r.n_evals for r in res])]
+    equal = {f"{site} {key} equal": bool(np.array_equal(got, w))
+             for site, outs in (("one-shot", [t.cpu().numpy() for t in one]), ("scheduler", sched))
+             for key, got, w in zip(("dists", "ids", "evals"), outs, want)}
+    world1 = {k: v for k, v in world1.items() if k != "kernel_launches_by_rank"}
+    log("sharded serve world 1 (nccl): " + json.dumps({**world1, **equal,
+                                                       "launches": world1_launches}))
+    if not all(equal.values()):
+        raise AssertionError(f"phase 19: world size 1 differs from batched_beam_search: {equal}")
+    if world1["backend"] != "nccl":
+        raise AssertionError(f"phase 19: world size 1 ran on {world1['backend']}, not nccl")
+    return {"backend": backend, "ranks_per_card": per_card, "runs": runs,
+            "launches_by_rank": [rk["defaults"]["kernel_launches"] for rk in ranks],
+            "world1": world1, "world1_equal": equal}
+
+
+def phase20(X, Q, d_true, true_ids, recall9) -> dict:
+    """Sharded at full width over phase 9's data (see the module docstring)."""
+    from repro_torch.core.distributed import pick_backend
+    from repro_torch.core.metrics import recall_at_k
+
+    backend, per_card = pick_backend(SHARDS, "cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(f"{tmp}/X.npy", X.cpu().numpy())
+        np.save(f"{tmp}/Q.npy", Q.cpu().numpy())
+        ranks = spawn_ranks(sharded_full_rank, tmp)
+        res = dict(np.load(f"{tmp}/results.npz"))
+    check_rank_launches("phase 20", ranks, [[rk["launches"]] for rk in ranks],
+                        {"build": ("two_hop_scores", "frontier_scores"),
+                         "ground_truth": ("distance_matrix",), "search": ("gather_scores",),
+                         "no_refill": ("gather_scores",), "scheduler": ("gather_scores",)})
+    true_ids, d_true = true_ids.cpu().numpy(), d_true.cpu().numpy()
+    sched_ids = np.asarray(ranks[0]["scheduler"].pop("ids"))
+    for rk in ranks[1:]:
+        if np.asarray(rk["scheduler"].pop("ids")).tolist() != sched_ids.tolist():
+            raise AssertionError("phase 20: the ranks retired different results")
+    line = {"backend": backend, "ranks_per_card": per_card, "n_local": ranks[0]["n_local"],
+            "knn_ids_equal_share": float((res["gt_i"] == true_ids).mean()),
+            "knn_dists_max_rel_diff": float(np.max(np.abs(res["gt_d"] - d_true)
+                                                   / np.maximum(np.abs(d_true), 1e-30))),
+            "recall@k": recall_at_k(res["ids"], true_ids), "phase9_recall@k": recall9,
+            "eval_reduction": float(N_FULL / res["evals"].mean()),
+            "scheduler_recall@k": recall_at_k(sched_ids, true_ids[:256]),
+            **{k: ranks[0][k] for k in ("no_refill", "batch_ms_p50", "search_qps", "scheduler",
+                                        "build_s", "ground_truth_s", "search_s", "launches")}}
+    log("sharded at full width n=1000000 d=128: " + json.dumps(line))
+    if not np.allclose(res["gt_d"], d_true, rtol=1e-4, atol=0.0):
+        raise AssertionError("phase 20: sharded_knn_scan distances differ from knn_scan's")
+    if line["knn_ids_equal_share"] < 0.98:
+        raise AssertionError(f"phase 20: {line['knn_ids_equal_share']} of the sharded scan's ids "
+                             f"equal knn_scan's")
+    if not line["recall@k"] > 0.5:
+        raise AssertionError(f"phase 20: recall@10 {line['recall@k']} <= 0.5")
+    if not all(ranks[0]["no_refill"].values()):
+        raise AssertionError(f"phase 20: the no-refill scheduler differs from the one-shot "
+                             f"sharded search: {ranks[0]['no_refill']}")
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -711,9 +1022,7 @@ def main() -> int:
                               steps_per_sync=4)
     sw_spec = full_spec.replace(builder="swgraph", NN=15, ef_search=96)
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    float32_highest()
     t_start = time.perf_counter()
     lap = Laps()
     card = card_line()
@@ -1304,6 +1613,65 @@ def main() -> int:
         dm_rows.append(row)
         log("time distance_matrix " + json.dumps(row))
 
+    # the sharded paths' shapes (phases 19, 20): a sharded tick's lock-step at
+    # the serve defaults (32 slots x frontier 1 x M 30, ids over a 5,000-row
+    # shard, m' = 32) and at full width (48 slots x frontier 12 x M 60 over a
+    # 250,000-row shard); the local NN-descent round of one of 4 shards at
+    # full width (random ids over its rows); one shard's scan at the serve
+    # defaults (256 queries x 5,000 rows, m' = 32)
+    n_shard = N_FULL // SHARDS
+    gs_shard = [
+        gs_time("sharded tick step at the serve defaults S=32 R=30 m'=32 (ids over a "
+                "5,000-row shard)", xr32[:5000], xb32[:5000],
+                sched_args(dist.prep_right(X32).contiguous(), dist.bias_right(X32).contiguous(),
+                           30, 5000, B=32), 320, check=True),
+        gs_time(f"sharded tick step at full width S={SCHED_SLOTS} R={R_full} m'=128 (ids over a "
+                f"{n_shard}-row shard)", x_rep[:n_shard], x_bias[:n_shard],
+                sched_args(qa_rep, qa_bias, R_full, n_shard), 320, check=True)]
+    R_round = TIME_SHAPES[1][2]
+    args = [(random_ids(gen, n_shard, R_round, n_shard), qa_rep[:n_shard], qa_bias[:n_shard])]
+
+    def shard_round(ids, q_rep, q_bias):
+        return frontier_scores(ids, q_rep, q_bias, x_rep[:n_shard], x_bias[:n_shard],
+                               dist.post_id, dist.c0)
+
+    def shard_round_plain(ids, q_rep, q_bias):
+        return gather_scores_ref(ids, q_rep, x_rep[:n_shard], q_bias, x_bias[:n_shard],
+                                 dist.post_id, dist.c0)
+
+    sub = [tuple(a[:4096].contiguous() for a in args[0])]
+    max_err[("frontier_scores", dist.name, "shard round")] = check_close(
+        "frontier_scores sharded NN-descent round, rows 0-4095 vs plain", shard_round(*sub[0]),
+        shard_round_plain(*sub[0]), TOL, pad=sub[0][0] < 0)
+    b_ms, b_by, g_ms = bound(args[0][0], D_FULL)
+    fs_shard = {"shape": f"sharded NN-descent round B={n_shard} R={R_round} (NN 30, one of "
+                         f"{SHARDS} shards)", "kernel": "frontier_scores",
+                "B": n_shard, "R": R_round, "m": D_FULL,
+                "ms": device_ms(shard_round, args, 5, "frontier_scores_kernel"),
+                "ms_again": device_ms(shard_round, args, 5, "frontier_scores_kernel"),
+                "event_ms": time_ms(shard_round, args, 5), "bound_ms": b_ms, "bound_by": b_by,
+                "gathered_rows_ms": g_ms, "plain_rows": 4096,
+                "plain_ms": device_ms(shard_round_plain, sub, 5),
+                "kernel_ms_same_rows": device_ms(shard_round, sub, 20, "frontier_scores_kernel")}
+    log("time " + json.dumps(fs_shard))
+    del args, sub
+    q_rep, x_rep_t = dist.prep_right(X32[5000:5256]).contiguous(), xr32[:5000]
+    q_b, x_b = dist.bias_right(X32[5000:5256]).contiguous(), xb32[:5000]
+    args = [(q_rep, x_rep_t, q_b, x_b)]
+    (b_ms, b_by), (s_ms, s_by) = dm_bound(256, 5000, 32)["tensor_core"], dm_bound(
+        256, 5000, 32)["fp32_simt"]
+    dm_shard = {"shape": "sharded_knn_scan, one shard at the serve defaults 256x5000x32",
+                "B": 256, "N": 5000, "m": 32,
+                "ms": device_ms(dm, args, 50, "distance_matrix_kernel"),
+                "ms_again": device_ms(dm, args, 50, "distance_matrix_kernel"),
+                "event_ms": time_ms(dm, args, 50), "bound_ms": b_ms, "bound_by": b_by,
+                "bound_fp32_simt_ms": s_ms, "bound_fp32_simt_by": s_by,
+                "plain_ms": device_ms(dm_plain, args, 50), "library_ms": device_ms(library, args, 50)}
+    max_err[("distance_matrix", dist.name, "shard scan")] = check_close(
+        "distance_matrix sharded scan at the serve defaults", dm(*args[0]), dm_plain(*args[0]), TOL)
+    log("time distance_matrix " + json.dumps(dm_shard))
+    del args
+
     lap("10 timing")
 
     # -- 11. profiles ---------------------------------------------------------------------------
@@ -1630,7 +1998,7 @@ def main() -> int:
     del data, rest
     idx18 = ANNIndex.build(X, spec=full_spec,
                            generator=torch.Generator(device="cuda").manual_seed(0))
-    _, true18 = knn_scan(kl, Q, X, full_spec.k)
+    d18, true18 = knn_scan(kl, Q, X, full_spec.k)
     with PlainCalls(ops) as plain18, Answered(SlotScheduler) as answered18:
         # (a) no refill: S = B = 64 at the searcher's frontier, against one batch
         one = idx18.searcher()(Q[:BATCH])
@@ -1692,9 +2060,20 @@ def main() -> int:
     profile_device(lambda: [sched.tick() for _ in range(16)],
                    f"16 scheduler ticks, {SCHED_SLOTS} slots x {sched.steps_per_sync} lock-steps, "
                    "n=1e6 d=128 (phase 18)")
-    del idx18, X, Q, sched, res
+    del idx18, sched, res
 
     lap("18 continuous at full width")
+
+    # -- 19. sharded serving at the serve defaults ----------------------------------------------
+    sharded19 = phase19(kl)
+
+    lap("19 sharded serving at the serve defaults")
+
+    # -- 20. sharded at full width: phase 9's data ----------------------------------------------
+    sharded20 = phase20(X, Q, d18, true18, full["recall@k"])
+    del X, Q
+
+    lap("20 sharded at full width")
 
     def err_of(kernel_name):
         return max(v for k, v in max_err.items() if k[0] == kernel_name and k[1] == "kl")
@@ -1706,6 +2085,13 @@ def main() -> int:
         return max(v for k, v in wrapper_err.items() if k[0] in sites)
 
     policy_a, policy_b = policy_full["a"], policy_full["b"]
+    # the sharded paths' launches on rank 0 (every rank was checked)
+    l19, l20 = sharded19["launches_by_rank"][0], sharded20["launches"]
+
+    def sharded_path(name):
+        return (f"; sharded (rank 0 of 4 on the card): phase 19 at the serve defaults "
+                f"{ {phase: l19[phase][name] for phase in l19} }, phase 20 at full width "
+                f"{ {phase: l20[phase][name] for phase in l20} }")
     main_row, gs_main = fs_rows[0], gs_steps[0]
     dm_main = dm_rows[0]
     kernels = [{
@@ -1723,10 +2109,10 @@ def main() -> int:
         "shape": main_row["shape"],
         "path": "NN-descent build of the main path, n=1e6 (phase 9); once per branch under "
                 f"a policy: {policy_a['build_launches']['frontier_scores']} launches in the "
-                "min build at n=1e6 (phase 13)",
+                "min build at n=1e6 (phase 13)" + sharded_path("frontier_scores"),
         "max_abs_err_all_distances": all_err("frontier_scores"),
         "max_abs_err_wrappers": wrapper_errs("round"),
-        "other_shapes": fs_rows[1:],
+        "other_shapes": fs_rows[1:] + [fs_shard],
     }, {
         "name": "two_hop_scores",
         "route": "cuda",
@@ -1743,7 +2129,7 @@ def main() -> int:
         "path": "NN-descent main path, n=1e6 (phase 9), one launch per round; once per "
                 f"round and branch under a policy: "
                 f"{policy_a['build_launches']['two_hop_scores']} launches in the min build at "
-                "n=1e6 (phase 13)",
+                "n=1e6 (phase 13)" + sharded_path("two_hop_scores"),
         "plain_rows": plain_rows,
         "max_abs_err_all_distances": all_err("two_hop_scores"),
         "max_abs_err_wrappers": wrapper_errs("round"),
@@ -1767,10 +2153,10 @@ def main() -> int:
                 "selection and rankblend's tau (once per branch), the ground truth of "
                 "phases 13 and 14, the churn audit's scan of the surviving rows (phases 15 "
                 f"and 16: {churn16['kernel_launches']['audit']['distance_matrix']} launches "
-                "at full width)",
+                "at full width)" + sharded_path("distance_matrix"),
         "max_abs_err_all_distances": all_err("distance_matrix"),
         "max_abs_err_wrappers": wrapper_errs("distance_matrix"),
-        "other_shapes": dm_rows[1:],
+        "other_shapes": dm_rows[1:] + [dm_shard],
     }, {
         "name": "gather_scores",
         "route": "cuda",
@@ -1799,11 +2185,11 @@ def main() -> int:
                 f"run, {qos17['launches']['qos']['gather_scores']} in the QoS run) and at "
                 f"n=1e6 (phase 18: {launches18['gather_scores']} launches = "
                 f"{cont18['admissions']} admissions + {cont18['step_calls']} ticks x "
-                f"{cont18['lock_steps_per_tick']} lock-steps)",
+                f"{cont18['lock_steps_per_tick']} lock-steps)" + sharded_path("gather_scores"),
         "max_abs_err_all_distances": all_err("gather_scores"),
         "max_abs_err_wrappers": wrapper_errs("gather_scores"),
         "other_shapes": gs_steps[1:] + [gs_rev32, gs_rev128, gs_wide, gs_rev_wide, gs_edge]
-        + gs_online + gs_sched,
+        + gs_online + gs_sched + gs_shard,
         "churn_launches": {"serve_defaults": churn15["kernel_launches"],
                            "serve_defaults_build": churn15["build_launches"],
                            "full_width": churn16["kernel_launches"],
@@ -1813,7 +2199,10 @@ def main() -> int:
     log("churn: " + json.dumps({"serve_defaults": churn15, "full_width": churn16}))
     log("continuous: " + json.dumps({"serve_defaults": cont17, "qos": qos17,
                                      "full_width": cont18}))
+    log("sharded: " + json.dumps({"serve_defaults": sharded19, "full_width": sharded20}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"timings read from CUDA events, the profiler having fallen short: "
+        f"{len(PROFILER_FALLBACKS)} {PROFILER_FALLBACKS}")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,7 +3,9 @@
 ``index_from_jax`` takes numpy ``X`` (n, m), ``neighbors`` (n, M) and
 ``entries`` (E,), taken with ``np.asarray`` from a ``repro`` ``ANNIndex``;
 ``online_from_jax`` takes the state of a ``repro`` ``OnlineIndex``, mid-churn
-if need be.  ``spec_dict`` is the index's ``spec.to_dict()``.  Nothing here
+if need be; ``shard_from_jax`` takes ``repro``'s sharded state (the rows and
+``build_local_subgraphs``' padded local adjacency) and returns one rank's
+block.  ``spec_dict`` is the index's ``spec.to_dict()``.  Nothing here
 imports JAX: the caller hands over plain arrays, as a model's weights would
 be handed over.
 """
@@ -11,11 +13,13 @@ be handed over.
 from __future__ import annotations
 
 import collections
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.distributed import local_block
 from repro_torch.core.index import ANNIndex, bind_policies, make_build_info
 from repro_torch.core.online import OnlineIndex
 from repro_torch.core.spec import RetrievalSpec
@@ -90,3 +94,39 @@ def online_from_jax(arrays: dict, spec_dict: dict, device="cuda") -> OnlineIndex
     if "rng_state" in arrays:
         o._rng.bit_generator.state = arrays["rng_state"]
     return o
+
+
+class ShardBlock(NamedTuple):
+    """One rank's block of a sharded index."""
+
+    X: torch.Tensor  # (n_local, m) float32: the shard's rows of the padded layout
+    neighbors: torch.Tensor  # (n_local, M) int32 adjacency in LOCAL row ids, -1 padding
+    n_real: int  # rows of the corpus before padding
+    n_local: int  # rows per shard
+
+
+def shard_from_jax(arrays: dict, shard: int, n_shards: int, device="cuda") -> ShardBlock:
+    """Rank ``shard``'s block of a ``repro`` sharded index, on ``device``.
+
+    ``arrays`` holds numpy ``X`` (n, m), the corpus before padding, and
+    ``neighbors`` (n_pad, M), ``repro.core.distributed.build_local_subgraphs``'
+    adjacency over ``n_shards`` shards of the padded layout (``pad_to_shards``:
+    n_pad = n_shards * ceil(n / n_shards), local row ids).  ``ValueError``
+    when the shapes or ids do not fit that layout.
+    """
+    dev = resolve_device(device)
+    X = _tensor(arrays, "X", np.float32, "cpu")
+    nbrs = np.asarray(arrays["neighbors"])
+    n = X.shape[0]
+    n_local = -(-n // n_shards)
+    if not 0 <= shard < n_shards:
+        raise ValueError(f"shard {shard} outside [0, {n_shards})")
+    if nbrs.ndim != 2 or nbrs.shape[0] != n_local * n_shards:
+        raise ValueError(f"neighbors has shape {nbrs.shape}; {n} rows over {n_shards} shards "
+                         f"pad to {n_local * n_shards}")
+    if nbrs.min() < -1 or nbrs.max() >= n_local:
+        raise ValueError(f"neighbors holds ids outside [-1, {n_local}): not local row ids")
+    X_local, n_real, _ = local_block(X, shard, n_shards)
+    block = nbrs[shard * n_local:(shard + 1) * n_local]
+    return ShardBlock(X_local.to(dev), torch.from_numpy(np.array(block, np.int32)).to(dev),
+                      n_real, n_local)

@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.core.batched_beam import _smallest, batched_beam_search
 from repro_torch.core.distances import tree_map
+from repro_torch.core.distributed import all_gather, local_block
 from repro_torch.kernels.ops import gathered_scores, prepped, query_distance_matrix
 
 INF = float("inf")
@@ -240,16 +241,7 @@ def shard_rows(X, rank: int, world: int):
         raise ValueError(
             f"build_sharded needs n ({n}) divisible by the shard count ({world}); "
             f"pad the corpus")
-    n_local = n // world
-    return X[rank * n_local:(rank + 1) * n_local]
-
-
-def _all_gather(t, group):
-    import torch.distributed as tdist
-
-    parts = [torch.empty_like(t) for _ in range(tdist.get_world_size(group))]
-    tdist.all_gather(parts, t.contiguous(), group=group)
-    return torch.cat(parts)
+    return local_block(X, rank, world)[0]
 
 
 def build_sharded(dist, X_local, *, NN: int = 15, builder: str = "wave", wave: int = 32,
@@ -283,7 +275,7 @@ def build_sharded(dist, X_local, *, NN: int = 15, builder: str = "wave", wave: i
     shard = tdist.get_rank(group)
     n_local = X_local.shape[0]
     dev = X_local.device
-    counts = _all_gather(torch.tensor([n_local], dtype=torch.int64, device=dev), group)
+    counts = all_gather(torch.tensor([n_local], dtype=torch.int64, device=dev), group).flatten()
     if bool((counts != n_local).any()):
         raise ValueError(
             f"build_sharded needs n ({int(counts.sum())}) divisible by the shard count "
@@ -304,8 +296,8 @@ def build_sharded(dist, X_local, *, NN: int = 15, builder: str = "wave", wave: i
     if sample_idx.shape != (S,):
         raise ValueError(f"sample_idx has shape {tuple(sample_idx.shape)}, expected ({S},)")
     gids = (sample_idx + shard * n_local).to(torch.int32)
-    all_Xs = _all_gather(X_local[sample_idx], group)
-    all_gids = _all_gather(gids, group)
+    all_Xs = all_gather(X_local[sample_idx], group).flatten(0, 1)
+    all_gids = all_gather(gids, group).flatten(0, 1)
     # D[b, t] = d_build(sample_t, x_b): the owner-row slot convention
     D = query_distance_matrix(dist, X_local, all_Xs)
     own = torch.div(all_gids, n_local, rounding_mode="floor") == shard

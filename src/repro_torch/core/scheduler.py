@@ -348,6 +348,13 @@ class SchedulerHost:
         self.drain()
         self.reset()
 
+    def _agree(self, clock: float) -> float:
+        """The clock this scheduler reads: its own.  A scheduler run as one
+        replica per rank (``core.distributed``) agrees on one value instead,
+        so that every replica submits the same requests; ``run_stream``
+        asks only while arrivals remain to be submitted."""
+        return clock
+
     def run_stream(self, Q, arrivals=None, realtime: bool = False, warm: bool = True,
                    tenants=None, priorities=None, slo_ms: Optional[float] = None,
                    tick_cost: Optional[float] = None) -> list[SlotResult]:
@@ -383,6 +390,8 @@ class SchedulerHost:
         while len(results) < n_req:
             if realtime:
                 clock = time.perf_counter() - t0
+                if i < n_req:
+                    clock = self._agree(clock)
             while i < n_req and arrivals[order[i]] <= clock:
                 rid = int(order[i])
                 self.submit(Q[rid], rid=rid, t_arrival=float(arrivals[rid]),
@@ -408,6 +417,8 @@ class SchedulerHost:
                 clock += tick_cost
             else:
                 clock += time.perf_counter() - tick_t0
+                if i < n_req:
+                    clock = self._agree(clock)
             for r in finished:
                 r.t_done = clock
                 results[r.rid] = r

@@ -15,6 +15,7 @@ the repository are used.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -68,6 +69,14 @@ def build(name: str) -> pathlib.Path:
                            f"{proc.stderr}")
     os.replace(tmp, out)
     return out
+
+
+def build_all() -> list[pathlib.Path]:
+    """Build every source under ``csrc/``, one ``nvcc`` each, all started
+    together (a parent builds before it spawns ranks, which then only load)."""
+    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        return list(pool.map(build, names))
 
 
 @functools.lru_cache(maxsize=None)

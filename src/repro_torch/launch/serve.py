@@ -32,8 +32,16 @@ through SLO admission, which demotes a request down the demotion ladder
 before it sheds it, against a FIFO scheduler on the same trace: in-SLO
 share and goodput, by class and tenant.
 
-It runs on the card unless ``--device cpu`` is given.  The sharded serving
-path of ``repro`` is not in the port yet.
+With ``--shards N`` the corpus is served scatter-gather from N shards
+(``core.distributed``): ``main`` spawns N ranks (``serve_sharded``), each
+holding its block of rows and its own NN-descent subgraph, all driving one
+``ShardedSlotScheduler`` that exchanges candidates once per tick.
+``--drop-shards s`` freezes the last s shards (the straggler model) and
+``--steps-per-sync`` sets the lock-steps per exchange:
+
+    python -m repro_torch.launch.serve --shards 4 [--steps-per-sync 2] [--drop-shards 1]
+
+It runs on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import tempfile
 import time
 
 import numpy as np
@@ -49,6 +58,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.brute_force import knn_scan
 from repro_torch.core.distances import get_distance
+from repro_torch.core.distributed import (ShardedSlotScheduler, all_gather, build_local_subgraphs,
+                                          collective_stats, init_group, local_block, pick_backend,
+                                          rank_device, sharded_knn_scan, world_and_rank)
 from repro_torch.core.index import ANNIndex
 from repro_torch.core.metrics import recall_at_k, speedup_model
 from repro_torch.core.spec import RetrievalSpec, demotion_ladder, load_spec
@@ -511,6 +523,174 @@ def _serve_continuous(idx, spec, Q, true_ids, search, batch_s, *, n_db, batch, k
     return out
 
 
+def build_and_serve_sharded(*, distance: str = "kl", n_db: int = 4096, dim: int = 32,
+                            n_queries: int = 256, k: int = 10, ef_search: int = 96,
+                            slots: int = 32, shards: int = 4, steps_per_sync: int = 1,
+                            drop_shards: int = 0, NN: int = 15, nnd_iters: int = 8,
+                            compare_replicated: bool = True, alpha: float = 0.08, seed: int = 0,
+                            device="cuda", group=None, verbose: bool = True) -> dict:
+    """Scatter-gather serving: the slot scheduler over a SHARDED corpus.
+
+    Called on every rank of ``group``, whose size must be ``shards``
+    (``serve_sharded`` spawns the ranks).  Every rank draws the same data
+    from ``seed`` on the host and keeps only its block of ``n_db / shards``
+    rows (padded when not divisible) on ``device``; it builds its local
+    NN-descent subgraph and serves the queries, all submitted at t = 0,
+    through its replica of the ``ShardedSlotScheduler``.  The ground truth
+    is ``sharded_knn_scan`` on the ranks.  With ``compare_replicated``
+    rank 0 also serves the queries through the replicated ``SlotScheduler``
+    over one NN-descent graph of the union corpus and reports the recall
+    gap the serving gate bounds (0.005).
+
+    Returns the stats: ``repro``'s keys (the port compiles nothing, so there
+    are no executable counts), the backend and ranks per card, ticks, ms
+    per tick, collectives per tick, the share of the tick spent in its
+    exchange (``collective_share``), the kernel launches by phase (this
+    rank's, and every rank's by rank).  Only rank 0's stats carry the
+    replicated comparison.
+    """
+    import torch.distributed as tdist
+
+    world, shard = world_and_rank(group)
+    if world != shards:
+        raise ValueError(f"shards {shards} != the group's {world} ranks")
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    data = lda_like_histograms(rng, n_db + n_queries, dim, alpha=alpha, device="cpu")
+    Q_host, rest = split_queries(data, n_queries, rng)
+    X_host = rest[:n_db]
+    X_local, n_real, n_local = local_block(X_host, shard, world)
+    X_local, Q = X_local.to(dev), Q_host.to(dev)
+    dist = get_distance(distance)
+    launches = {}
+
+    def phase(name, fn):
+        counts0 = launch_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        launches[name] = _since(counts0)
+        return out, time.perf_counter() - t0
+
+    def build():
+        nbrs = build_local_subgraphs(dist, X_local, NN=NN, nnd_iters=nnd_iters, seed=seed,
+                                     group=group)
+        return ShardedSlotScheduler(dist, X_local, nbrs, n_real, slots=slots, ef=ef_search, k=k,
+                                    steps_per_sync=steps_per_sync, drop_shards=drop_shards,
+                                    group=group)
+
+    sched, build_s = phase("build", build)
+    (_, true_ids), _ = phase("ground_truth",
+                             lambda: sharded_knn_scan(dist, Q, X_local, k, n_real, group=group))
+    sched.warmup(Q_host[0].numpy())
+    calls0 = collective_stats()
+    res, serve_s = phase("serve", lambda: sched.run_stream(Q_host.numpy(), warm=False))
+    calls = collective_stats()
+    ids = np.stack([r.ids for r in res])
+    evals = np.asarray([r.n_evals for r in res])
+    # every rank's launches by phase and kernel, in one all-gather
+    names = list(launch_counts())
+    mine = torch.tensor([[launches[p][n] for n in names] for p in launches], dtype=torch.int64,
+                        device=dev)
+    by_rank = all_gather(mine, group).cpu().tolist()
+    stats = {
+        "shards": shards,
+        "n_db": n_db,
+        "rows_per_shard": n_local,
+        "build_s": build_s,
+        "slots": slots,
+        "steps_per_sync": steps_per_sync,
+        "drop_shards": drop_shards,
+        "recall@k": recall_at_k(ids, true_ids),
+        "eval_reduction": speedup_model(n_db, evals),
+        **latency_stats([r.latency for r in res]),
+        "backend": tdist.get_backend(group),
+        "ranks_per_card": pick_backend(world, dev)[1],
+        "device": str(dev),
+        "served": n_queries,
+        "qps": n_queries / serve_s,
+        "ticks": sched.ticks,
+        "ms_per_tick": 1e3 * sched.tick_s / max(sched.ticks, 1),
+        "collectives_per_tick": (calls["calls"] - calls0["calls"]) / max(sched.ticks, 1),
+        "collective_share": sched.exchange_s / max(sched.tick_s, 1e-12),
+        "max_id": int(ids.max()),
+        "mean_evals": float(evals.mean()),
+        "kernel_launches": launches,
+        "kernel_launches_by_rank": [{p: dict(zip(names, row)) for p, row in zip(launches, rows)}
+                                    for rows in by_rank],
+    }
+    if compare_replicated and shard == 0:
+        spec = RetrievalSpec(distance=distance, builder="nndescent", NN=NN, nnd_iters=nnd_iters)
+        idx = ANNIndex.build(X_host.to(dev), dist, spec=spec,
+                             generator=torch.Generator(device=dev).manual_seed(seed + 3))
+        res_r = idx.scheduler(k, ef_search, slots=slots).run_stream(Q_host.numpy())
+        r_repl = recall_at_k(np.stack([r.ids for r in res_r]), true_ids)
+        stats["replicated_recall@k"] = r_repl
+        stats["recall_gap"] = r_repl - stats["recall@k"]
+    if verbose:
+        print(f"[serve/sharded] dist={distance} n={n_db} x{shards} -> {stats}", flush=True)
+    return stats
+
+
+def _rank_main(rank: int, world: int, backend: str, device: str, store: str, fn,
+               args: tuple) -> None:
+    """One spawned rank of ``run_ranks``: its device, the group, then
+    ``fn(device, *args)``, whose result goes to ``<store>.<rank>.json``."""
+    import torch.distributed as tdist
+
+    dev = rank_device(rank, device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    else:
+        torch.set_num_threads(1)  # the lock-step loop launches many tiny ops
+    init_group(backend, f"file://{store}", rank, world)
+    try:
+        out = fn(dev, *args)
+    finally:
+        tdist.destroy_process_group()
+    pathlib.Path(f"{store}.{rank}.json").write_text(json.dumps(out))
+
+
+def run_ranks(fn, shards: int, device="cuda", *args) -> list:
+    """``fn(device, *args)`` on ``shards`` spawned ranks of one process
+    group; every rank's result (JSON), in rank order.
+
+    ``fn`` is a module-level function, called on every rank with that
+    rank's device.  The backend is fixed here, before any rank starts
+    (``pick_backend``: NCCL where each rank has a card of its own, gloo
+    otherwise) and printed.  On the card every kernel is built before the
+    spawn, so the ranks only load them.  A rank's failure raises here.
+    """
+    import torch.multiprocessing as mp
+
+    from repro_torch.kernels import build as kernel_build
+
+    dev = resolve_device(device)
+    backend, ranks_per_card = pick_backend(shards, dev)
+    print(f"[ranks] {shards} ranks, backend={backend}, ranks_per_card={ranks_per_card}",
+          flush=True)
+    if dev.type == "cuda":
+        kernel_build.build_all()
+    with tempfile.TemporaryDirectory() as tmp:
+        store = str(pathlib.Path(tmp) / "store")
+        mp.start_processes(_rank_main, args=(shards, backend, dev.type, store, fn, args),
+                           nprocs=shards, join=True, start_method="spawn")
+        return [json.loads(pathlib.Path(f"{store}.{r}.json").read_text())
+                for r in range(shards)]
+
+
+def _serve_rank(dev, kwargs: dict) -> dict:
+    world, rank = world_and_rank()
+    return build_and_serve_sharded(shards=world, device=dev, verbose=rank == 0, **kwargs)
+
+
+def serve_sharded(shards: int, device="cuda", **kwargs) -> dict:
+    """``build_and_serve_sharded(**kwargs)`` on ``shards`` spawned ranks
+    (``run_ranks``); rank 0's stats."""
+    return run_ranks(_serve_rank, shards, device, kwargs)[0]
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda",
@@ -571,8 +751,28 @@ def main(argv=None) -> dict:
     ap.add_argument("--priority", default=None,
                     help="comma-separated QoS class mix, highest class first (e.g. 0.6,0.4): "
                          "class p starts at ladder rung p (QoS path, needs --slo-ms)")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="serve scatter-gather from N corpus shards through the sharded slot "
+                         "scheduler, one spawned rank per shard")
+    ap.add_argument("--drop-shards", type=int, default=0,
+                    help="freeze the last s shards at admission (bounded-staleness straggler "
+                         "model, sharded path)")
+    ap.add_argument("--steps-per-sync", type=int, default=1,
+                    help="beam lock-steps per cross-shard sync point (sharded path)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.shards:
+        bad = [f for f, v in [("--spec", args.spec), ("--continuous", args.continuous or None),
+                              ("--churn-rounds", args.churn_rounds or None),
+                              ("--slo-ms", args.slo_ms)] if v]
+        if bad:
+            ap.error(f"--shards is its own serving path; incompatible with {bad}")
+        return serve_sharded(args.shards, device=args.device, n_db=args.n_db, dim=args.dim,
+                             n_queries=args.queries, drop_shards=args.drop_shards,
+                             steps_per_sync=args.steps_per_sync, seed=args.seed,
+                             **{k: v for k, v in [("distance", args.distance),
+                                                  ("ef_search", args.ef_search),
+                                                  ("slots", args.slots)] if v is not None})
     if args.slo_ms is not None and not args.continuous:
         ap.error("--slo-ms needs --continuous (it shapes the arrival trace)")
     if (args.tenants != 1 or args.priority) and args.slo_ms is None:

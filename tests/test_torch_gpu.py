@@ -488,10 +488,11 @@ def test_wrapper_branches_through_the_kernels_match_plain(kind, cuda):
 
 
 @pytest.mark.gpu
-def test_no_wrapper_reaches_a_plain_version_on_the_card(cuda, monkeypatch):
+def test_no_wrapper_reaches_a_plain_version_on_the_card(cuda, monkeypatch, tmp_path):
     """Builds (NN-descent, SW-graph wave and sequential), both engines, the
-    rerank and the ground truth under symmetrized and combined distances:
-    every score comes from a kernel, per branch, and no plain version runs."""
+    rerank and the ground truth under symmetrized and combined distances, the
+    online index, the slot scheduler and the sharded paths: every score comes
+    from a kernel, per branch, and no plain version runs."""
     from repro_torch.core import symmetrize
     from repro_torch.core.brute_force import knn_scan
     from repro_torch.core.index import ANNIndex
@@ -580,6 +581,51 @@ def test_no_wrapper_reaches_a_plain_version_on_the_card(cuda, monkeypatch):
         2 * (calls["admit"] + 2 * calls["step"]) + calls["rerank"])
     dead = set(range(0, 1100, 9))
     assert all(not dead.intersection(r.ids.tolist()) and (r.ids >= 0).all() for r in res)
+
+    # the sharded paths under min, in a one-rank gloo group on the card: the
+    # local builds, the local scan, the shard searches of both engines, and the
+    # sharded scheduler's admissions (seed_beams) and shard steps
+    from repro_torch.core import distributed as tdd
+    import torch.distributed as tdist
+
+    mind = symmetrize.SymmetrizedDistance(get_distance("kl"), "min")
+    Xs = X[:1000]
+    tdd.init_group("gloo", f"file://{tmp_path / 'store'}", 0, 1)
+    try:
+        nbrs = counted("local nndescent", lambda: tdd.build_local_subgraphs(mind, Xs, NN=10,
+                                                                            nnd_iters=3))
+        assert launched["local nndescent"]["two_hop_scores"] == 2 * 3
+        assert launched["local nndescent"]["frontier_scores"] == 2 * (3 + 1)
+        counted("local wave", lambda: tdd.build_local_subgraphs(mind, Xs[:400], NN=8,
+                                                                builder="wave", wave=32))
+        n = launched["local wave"]["gather_scores"]
+        assert n > 0 and n % 2 == 0
+        counted("local scan", lambda: tdd.sharded_knn_scan(mind, Q, Xs, 10, 1000))
+        assert launched["local scan"]["distance_matrix"] == 2
+        for engine in ("batched", "reference"):
+            d, ids, _ = counted(engine, lambda: tdd.sharded_graph_search(
+                mind, Q, Xs, nbrs, 10, 48, 1000, engine=engine))
+            assert bool(torch.isfinite(d).all()) and bool((ids >= 0).all())
+            n = launched[engine]["gather_scores"]
+            assert n > 0 and n % 2 == 0
+        sched = tdd.ShardedSlotScheduler(mind, Xs, nbrs, 1000, slots=16, ef=48, k=10,
+                                         steps_per_sync=2)
+        calls = {"admit": 0, "step": 0}
+
+        def site(name, fn):
+            def call(*args):
+                calls[name] += 1
+                return fn(*args)
+            return call
+
+        sched._admit, sched._step = site("admit", sched._admit), site("step", sched._step)
+        res = counted("sharded scheduler", lambda: sched.run_stream(Q))
+        # per branch: one launch per admission, one per lock-step
+        assert calls["admit"] > 1 and launched["sharded scheduler"]["gather_scores"] == (
+            2 * (calls["admit"] + 2 * calls["step"]))
+        assert all((r.ids >= 0).all() for r in res)
+    finally:
+        tdist.destroy_process_group()
 
 
 def _count_scheduler_sites(sched):
@@ -739,3 +785,50 @@ def test_scheduler_at_the_serve_defaults_matches_the_cpu_path(mutable, cuda):
         np.testing.assert_array_equal(g.ids, w.ids)
         assert (g.n_evals, g.hops) == (w.n_evals, w.hops)
         np.testing.assert_allclose(g.dists, w.dists, **TOL)
+
+
+def _sharded_rank(dev, out_dir):
+    """One of 4 ranks at the serve defaults on ``dev``: the CPU ranks build
+    the local subgraphs and save them, the card's ranks load them; both
+    search one-shot and through the sharded scheduler."""
+    from repro_torch.core import distributed as tdd
+    from repro_torch.data.synthetic import lda_like_histograms, split_queries
+
+    _, rank = tdd.world_and_rank()
+    rng = np.random.default_rng(0)
+    Q, X = split_queries(lda_like_histograms(rng, 20_000 + 256, 32, device="cpu"), 256, rng)
+    X_local, n_real, _ = tdd.local_block(X[:20_000], rank, 4)
+    kl = get_distance("kl")
+    if dev.type == "cpu":
+        nbrs = tdd.build_local_subgraphs(kl, X_local, NN=15, nnd_iters=8)
+        np.save(f"{out_dir}/nbrs{rank}.npy", nbrs.numpy())
+    nbrs = torch.from_numpy(np.load(f"{out_dir}/nbrs{rank}.npy")).to(dev)
+    X_local = X_local.to(dev)
+    ops.reset_launch_counts()
+    _, ids, evals = tdd.sharded_graph_search(kl, Q.to(dev), X_local, nbrs, 10, 96, n_real,
+                                             frontier=4)
+    res = tdd.ShardedSlotScheduler(kl, X_local, nbrs, n_real, slots=32, ef=96,
+                                   k=10).run_stream(Q.numpy())
+    np.savez(f"{out_dir}/{dev.type}{rank}.npz", ids=ids.cpu().numpy(),
+             evals=evals.cpu().numpy(), sched=np.stack([r.ids for r in res]),
+             sched_evals=np.asarray([r.n_evals for r in res]),
+             gather_scores=ops.launch_counts()["gather_scores"])
+
+
+@pytest.mark.gpu
+def test_sharded_serve_defaults_on_the_card_match_the_cpu_ranks(cuda, tmp_path):
+    """4 ranks at the serve defaults (n = 20,000, d = 32, KL, NN 15, ef 96):
+    on the card (gloo with CUDA tensors, 4 ranks on one card) they give the 4
+    CPU ranks' ids and evals exactly, one-shot at frontier 4 and through the
+    sharded scheduler (32 slots), over the CPU ranks' local subgraphs."""
+    from repro_torch.launch.serve import run_ranks
+
+    for device in ("cpu", "cuda"):  # run_ranks builds the kernels before the spawn
+        run_ranks(_sharded_rank, 4, device, str(tmp_path))
+    for r in range(4):
+        cpu, card = np.load(tmp_path / f"cpu{r}.npz"), np.load(tmp_path / f"cuda{r}.npz")
+        assert int(cpu["gather_scores"]) == 0 and int(card["gather_scores"]) > 0
+        for key in ("ids", "evals", "sched", "sched_evals"):
+            same = float((cpu[key] == card[key]).mean())
+            print(f"[card vs cpu] sharded rank {r} {key}: equal {same:.6f}")
+            np.testing.assert_array_equal(card[key], cpu[key])

@@ -2,7 +2,7 @@
 that ``chip_smoke.py`` (phase 14, ``JAX_RECALL``) holds the port to.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/jax_policy_recall.py [--bm25-docs 4000] \
-        [--runs serve bm25 churn continuous]
+        [--runs serve bm25 churn continuous sharded]
 
 One JSON line per run:
 
@@ -24,7 +24,14 @@ One JSON line per run:
   Poisson trace), whose continuous ``recall@k`` is the floor of
   ``chip_smoke.py``'s phase 17 (``JAX_CONTINUOUS_RECALL``); the line also
   carries the static line's recall.  The recall does not depend on the
-  trace: a query's result is the same whenever it is admitted.
+  trace: a query's result is the same whenever it is admitted;
+* sharded: ``repro.launch.serve.main(["--shards", "4"])`` (its CLI
+  defaults: n=20,000, d=32, KL, NN 15, 8 rounds, 32 slots, ef 96, 256
+  queries; ``build_and_serve_sharded``), then with ``--drop-shards 1``,
+  whose ``recall@k`` are the floors of ``chip_smoke.py``'s phase 19
+  (``JAX_SHARDED_RECALL``).  Each runs in a subprocess that forces 4 host
+  devices before JAX starts; the line carries the replicated recall and
+  the gap.
 
 Everything is drawn from fixed ``jax.random`` keys: the same numbers on
 every run.  A JAX program: run it where the JAX package runs.
@@ -34,7 +41,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import pathlib
+import subprocess
+import sys
 import time
 
 import jax
@@ -85,14 +95,38 @@ def continuous_runs():
     yield "continuous", st["continuous"]["recall@k"], {"static_recall@k": st["recall@k"]}
 
 
+SHARDED = {"sharded": ["--shards", "4"],
+           "sharded drop 1": ["--shards", "4", "--drop-shards", "1"]}
+SHARDED_RUN = """
+import json, sys
+from repro.launch.serve import main
+st = main(sys.argv[1:])
+print(json.dumps(st))
+"""
+
+
+def sharded_runs():
+    # the forced host device count is read once, when the JAX backend starts:
+    # each run gets a process of its own
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"),
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    for label, argv in SHARDED.items():
+        proc = subprocess.run([sys.executable, "-c", SHARDED_RUN, *argv], env=env,
+                              capture_output=True, text=True, check=True)
+        st = json.loads(proc.stdout.strip().splitlines()[-1])
+        yield label, st["recall@k"], {k: st[k] for k in ("replicated_recall@k", "recall_gap",
+                                                         "rows_per_shard", "drop_shards")}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bm25-docs", type=int, default=4000)
-    ap.add_argument("--runs", nargs="+", choices=("serve", "bm25", "churn", "continuous"),
-                    default=["serve", "bm25", "churn", "continuous"])
+    ap.add_argument("--runs", nargs="+",
+                    choices=("serve", "bm25", "churn", "continuous", "sharded"),
+                    default=["serve", "bm25", "churn", "continuous", "sharded"])
     args = ap.parse_args(argv)
     make = {"serve": serve_runs, "bm25": lambda: bm25_runs(args.bm25_docs),
-            "churn": churn_runs, "continuous": continuous_runs}
+            "churn": churn_runs, "continuous": continuous_runs, "sharded": sharded_runs}
     for runs in (make[name]() for name in args.runs):
         t0 = time.perf_counter()
         for label, recall, *extra in runs:
