@@ -47,7 +47,7 @@ Every phase is fatal on failure; nothing is caught and passed over.
    picks the largest n of 10^6, 200,000, 100,000 and 50,000 whose build fits
    SWGRAPH_BUILD_BUDGET_S; at that n, recall@10 at ef 96 and 512 beside an
    NN-descent build (the full cell's NN 30) on the same data.  No floor.
-7. sequential and reference paths: ``build_swgraph`` at n=1,000, d=16,
+7. sequential and reference paths: ``build_swgraph`` at n=500, d=16,
    NN 8, ef_construction 40 against ``build_swgraph_wave`` at W=1 (equal
    adjacency); a batch of 64 through the reference engine against the
    batched engine at frontier 1 from entry 0 under kl (equal ids, n_evals
@@ -177,7 +177,46 @@ Every phase is fatal on failure; nothing is caught and passed over.
     frontier 12, 4 lock-steps per sync: ticks, ms per tick, the exchange's
     share of the tick and q/s.  The same launch and plain-version checks.
 
-Phase 10 also times each kernel at the sharded paths' shapes.  The last
+21. the tuner: ``core.autotune`` at ``benchmarks/bench_autotune.py``'s full
+    workload on the port's numpy data (KL, n=4,096, d=32, 128 queries split 64
+    calibration / 64 holdout; SW-graph wave 64, NN 15, ef_construction 100; the
+    full axes, patience included; 3 rungs; the hand anchor ``blend(0.75)/ef 32``).
+    ``pick(max_evals=hand)`` must recall at least as much as the hand spec at no
+    more evals; its holdout recall@10 must reach JAX_TUNED (the JAX package's
+    tuner on the same arrays, on the CPU) less 0.02; its artifact must load back
+    through the port's ``load_spec``.  Then ``build_and_serve(spec=tuned)`` at the
+    serve defaults (n=20,000): recall, q/s, build seconds and whether the port
+    chose the JAX tuner's spec are reported, not gated (near-ties can flip).
+22. learned distances: ``core.learned.fit_construction_distance`` on
+    ``benchmarks/bench_learned.py``'s workload B at full size (BM25, 2,048
+    documents, vocab 1,024, 64 queries split 32 / 32, with the ``natural``
+    context row): learned >= hand at no more evals on calibration, and the
+    holdout recall@10 at least JAX_LEARNED's less 0.02.  Then, on phase 9's data
+    (n=10^6, d=128), ``true_neighbor_ids`` for 512 anchors (through
+    ``distance_matrix``) must hold no anchor among its own positives and equal
+    ``knn_scan``'s k_pos + 1 ids with self removed; ``fit_mahalanobis_map`` at its
+    defaults must give a finite map.  The seconds are reported.
+23. the two-tower path at ``examples/recsys_ann.py``'s shape: the SMOKE config
+    trained 60 steps at batch 256 (the loss must fall), 20,000 candidates and 64
+    queries embedded, K=20, the ``knn_scan`` truth; a plain SW-graph index (wave
+    64, NN 16, ef_construction 100, ef 128); the learned construction
+    distance fitted on a subsample of 4,096 with 32 calibration queries,
+    deployed at 20,000 and served through
+    ``ANNIndex.scheduler(frontier=spec.frontier)``, whose ids must equal the
+    searcher's.  Each index must recall > 0.7 (the example's own check) in a
+    tie-aware recall@20, which counts a returned id as a hit when it is as
+    near as the 20th true neighbour (the corpus repeats item rows), and its
+    id-based recall@20 must reach JAX_TWO_TOWER_RECALL less 0.02.
+    Phases 21–23 log their launches by kernel and site; gather_scores and
+    distance_matrix must launch, and no plain version may run on a CUDA tensor.
+
+Phase 10 also times each kernel at the sharded paths' shapes and, each held
+to the plain version, at the shapes phases 21-23 give it: gather_scores at
+the tuner's search step (64, 60) at m'=32, BM25's search step (32, 30) at
+vocab 1,024 under both views, a wave-build step under a learned BM25
+distance with its rank-16 Mahalanobis branch (64, 30), and the two-tower
+search step (64, 32) under negdot at m'=32; distance_matrix at a
+``true_neighbor_ids`` chunk, 512 x 4,096 x 128.  The last
 three lines are the card line, a JSON object with the kernels' numbers, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -222,9 +261,10 @@ DM_CHECK_SHAPES = [(128, 4096, 8), (128, 4096, 32), (128, 4096, 128), (512, 8192
 GS_CHECK_SHAPES = [(64, 30, 128), (64, 240, 128), (960, 1, 32), (960, 1, 128), (64, 30, 2100),
                    (5, 3, 16), (1, 1, 4), (960, 1, 512), (4, 3, 2100)]
 SWGRAPH_NS = (1_000_000, 200_000, 100_000, 50_000)
-# phase 7's n: 1,000 (it was 2,000 before the churn phases joined the script;
-# the sequential paths are host-bound, one lock-step per kernel launch)
-SEQ_N = 1_000
+# phase 7's n: 500 (2,000 before the churn phases joined the script, 1,000 before
+# the tuning and learning phases; the sequential paths are host-bound, one
+# lock-step per kernel launch)
+SEQ_N = 500
 # 75 s (150 s, which chose n = 100,000, before the churn phases joined the script)
 SWGRAPH_BUILD_BUDGET_S = 75.0
 GRAPH_QUALITY_N = 1_000_000
@@ -263,6 +303,26 @@ SHARDED_RUNS = {"defaults": {}, "drop 1": {"drop_shards": 1}, "steps 2": {"steps
 # fit this many seconds
 COMPACT_BUDGET_S = 60.0
 CHURN_ROUNDS_FULL, CHURN_INSERT_FULL = 2, 256
+
+# phase 21: bench_autotune.py's full workload, drawn as tools/jax_policy_recall.py
+# --runs autotune draws it (KL, n = 4,096, d = 32, 128 queries split 64 / 64)
+TUNE_N, TUNE_Q, TUNE_DIM = 4096, 128, 32
+TUNE_BASE = dict(distance="kl", builder="swgraph", build_engine="wave", wave=64, NN=15,
+                 ef_construction=100, k=10, frontier=1)
+HAND_ALPHA, HAND_EF = 0.75, 32
+# the JAX package's tuned spec on the same arrays (tools/jax_policy_recall.py --runs
+# autotune): its holdout recall@10, the floor of phase 21 less 0.02, and its fingerprint
+JAX_TUNED = {"holdout_recall@k": 0.9906, "spec_fingerprint": "5998cabb1169"}
+# phase 22: bench_learned.py's workload B at full size (BM25, 2,048 documents and 64
+# queries split 32 / 32, vocab 1,024); the JAX package's learned spec on the same arrays
+# (tools/jax_policy_recall.py --runs learned): its holdout recall@10 and weights
+JAX_LEARNED = {"holdout_recall@k": 0.75, "weights_fingerprint": "58d1967c9ff3"}
+BM25_DOCS, BM25_Q, BM25_VOCAB = 2048, 64, 1024
+# phase 23: examples/recsys_ann.py's shape (candidates, queries, K, the fit's subsample)
+TT_N, TT_Q, TT_K, TT_FIT = 20_000, 64, 20, 4096
+# recall@20 of examples/recsys_ann.py (the JAX package) on the CPU: its plain and its
+# learned index; phase 23 holds the port's id-based recall to each less 0.02
+JAX_TWO_TOWER_RECALL = {"plain": 0.705, "learned": 0.674}
 
 # (B, R): search step = batch x frontier*M, NN-descent round = rows x (K*K + K + 8)
 CHECK_SHAPES = [(64, 120), (4096, 248), (64, 240), (2048, 938)]
@@ -980,6 +1040,368 @@ def phase20(X, Q, d_true, true_ids, recall9) -> dict:
     return line
 
 
+def launched_by(ops, fn):
+    """``fn()``'s result, its wall seconds (to a device sync) and the kernel
+    launches it made (the counts set to 0 just before)."""
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, ops.launch_counts()
+
+
+def tune_axes():
+    """bench_autotune.py's full axes (patience included)."""
+    from repro_torch.core.spec import Blend
+
+    return dict(build_policy=[Blend(a) for a in (0.0, 0.25, 0.5, 0.75, 1.0)],
+                ef_search=[16, 32, 96], frontier=[1, 2], adaptive=[False, True],
+                patience=[1, 2])
+
+
+def held_out(spec, X, Q, true_ids, seed, dist=None, natural=None) -> dict:
+    """A fresh build of ``spec`` over X searched with Q: recall@10 and evals."""
+    from repro_torch.core.index import ANNIndex
+    from repro_torch.core.metrics import recall_at_k
+
+    idx = ANNIndex.build(X, dist, spec=spec, natural=natural,
+                         generator=torch.Generator(device="cuda").manual_seed(seed))
+    _, ids, n_evals, _ = idx.searcher(spec=spec)(Q)
+    return {"recall@10": round(recall_at_k(ids, true_ids), 4),
+            "evals_per_query": round(float(n_evals.float().mean()), 1)}
+
+
+def m15_sites(X32, gen, max_err) -> list:
+    """Phase 10 at the shapes phases 21-23 give ``gather_scores``: the tuner's
+    KL search step at frontier 2 over its last rung (64 x 60, m' = 32); the
+    BM25 search step of bench_learned's workload B (32 x 30, vocab 1,024)
+    under both views (``bm25`` and ``natural``); a wave-build step under a
+    learned distance over BM25 with a rank-16 Mahalanobis branch (64 x 30,
+    two branches); the two-tower search step under negdot (64 x 32, m' = 32,
+    ids over 20,000 unit rows).  Each branch's launch is held to the plain
+    version on the same reps, and the whole site (a launch per branch, then
+    the combine) to the same combine of the plain outputs; the rows time
+    every branch (the combine excluded)."""
+    from repro_torch.core.distances import get_distance
+    from repro_torch.core.symmetrize import LearnedDistance
+    from repro_torch.data.synthetic import text_collection
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gather_topk import gather_scores
+    from repro_torch.kernels.ref import gather_scores_ref
+
+    def site(label, dist, X_rows, Q_rows, M):
+        consts = ops.prepped(dist.prep_scan(X_rows))
+        qc = ops.prepped(dist.prep_queries(Q_rows))
+        B, n = Q_rows.shape[0], X_rows.shape[0]
+        args = [(random_ids(gen, B, M, n),) for _ in range(32)]
+        ids = args[0][0]
+        parts, plains = [], []
+        for i, (b, x, q) in enumerate(zip(dist.branches, dist.branch_reps(consts),
+                                          dist.branch_reps(qc))):
+            def kernel(ids, b=b, x=x, q=q):
+                return gather_scores(ids, q["rep"], q["bias"], x["rep"], x["bias"], b.post_id,
+                                     b.c0)
+
+            def plain(ids, b=b, x=x, q=q):
+                return gather_scores_ref(ids, q["rep"], x["rep"], q["bias"], x["bias"],
+                                         b.post_id, b.c0, b.query_left)
+
+            m = int(x["rep"].shape[1])
+            max_err[("gather_scores", "m15", label, i)] = check_close(
+                f"gather_scores {label}, branch {i} m'={m} vs plain", kernel(ids), plain(ids),
+                TOL, pad=ids < 0)
+            b_ms, b_by, _ = bound(ids, m)
+            plains.append(plain)
+            parts.append({"branch": getattr(b, "name", str(i)), "m": m,
+                          "ms": device_ms(kernel, args, 320, GS_KERNELS),
+                          "ms_again": device_ms(kernel, args, 320, GS_KERNELS),
+                          "event_ms": time_ms(kernel, args, 320), "bound_ms": b_ms,
+                          "bound_by": b_by, "plain_ms": device_ms(plain, args, 64)})
+        # the site as the path calls it (one launch per branch, then the
+        # combine) against the same combine of the plain versions
+        max_err[("gather_scores", "m15", label)] = check_close(
+            f"gather_scores {label} B={B} M={M}, the whole site",
+            ops.gathered_scores(dist, ids, qc, consts), dist.combine_([p(ids) for p in plains]),
+            TOL, pad=ids < 0)
+        row = {"shape": f"{label} B={B} M={M} m'={'+'.join(str(p['m']) for p in parts)}",
+               "B": B, "R": M, "m": [p["m"] for p in parts],
+               "ms": sum(p["ms"] for p in parts), "plain_ms": sum(p["plain_ms"] for p in parts),
+               "bound_ms": sum(p["bound_ms"] for p in parts),
+               "bound_by": max(parts, key=lambda p: p["bound_ms"])["bound_by"],
+               "branches": parts}
+        log("time gather_scores " + json.dumps(row))
+        return row
+
+    kl, negdot = get_distance("kl"), get_distance("negdot")
+    tc = text_collection(np.random.default_rng(5), BM25_DOCS + BM25_Q, vocab=BM25_VOCAB,
+                         device="cuda")
+    docs, texts_q = tc.counts[:BM25_DOCS], tc.counts[BM25_DOCS:BM25_DOCS + BM25_Q // 2]
+    L = np.random.default_rng(7).normal(size=(BM25_VOCAB, 16)).astype(np.float32) * 0.1
+    learned = LearnedDistance.from_weights(tc.bm25(), {"alpha": HAND_ALPHA, "beta": 0.5,
+                                                       "tau": None, "L": L.tolist()})
+    emb = torch.randn((TT_N + 64, 32), generator=gen, device="cuda")
+    emb = emb / emb.norm(dim=1, keepdim=True)
+    return [
+        site(f"tuner search step at frontier 2 (phase 21), ids over n={TUNE_N}", kl,
+             X32[:TUNE_N], X32[TUNE_N:TUNE_N + 64], 2 * 2 * TUNE_BASE["NN"]),
+        site(f"BM25 search step (phase 22), ids over {BM25_DOCS} documents", tc.bm25(), docs,
+             texts_q, 2 * TUNE_BASE["NN"]),
+        site(f"BM25 natural view (phase 22), ids over {BM25_DOCS} documents", tc.natural(),
+             docs, texts_q, 2 * TUNE_BASE["NN"]),
+        site("wave-build step under a learned BM25 distance with a rank-16 Mahalanobis branch "
+             "(phases 22-23)", learned, docs, docs[:64], 2 * TUNE_BASE["NN"]),
+        site(f"two-tower search step under negdot (phase 23), ids over {TT_N} unit rows", negdot,
+             emb[:TT_N], emb[TT_N:], 2 * 16)]
+
+
+def tie_aware_recall(users, items, ids, true_ids) -> float:
+    """recall@K under negdot that counts a returned id as a hit when its
+    distance is at most the K-th true distance, so that an item row as near
+    as the K-th true neighbour (a duplicate) is no miss.  One formula, in
+    float64 on the host, scores both sides."""
+    U, I = users.double().cpu(), items.double().cpu()
+    ids, true_ids = torch.as_tensor(ids).long().cpu(), torch.as_tensor(true_ids).long().cpu()
+    kth = (-(U[:, None, :] * I[true_ids]).sum(-1)).max(dim=1).values
+    d = -(U[:, None, :] * I[ids.clamp(min=0)]).sum(-1)
+    hits = ((d <= kth[:, None]) & (ids >= 0)).sum(1).clamp(max=true_ids.shape[1])
+    return float(hits.sum()) / true_ids.numel()
+
+
+def phase21() -> dict:
+    """The tuner at bench_autotune's full workload; its spec at the serve defaults."""
+    from repro_torch.core.autotune import autotune
+    from repro_torch.core.brute_force import knn_scan
+    from repro_torch.core.spec import Blend, RetrievalSpec, load_spec
+    from repro_torch.data.synthetic import lda_like_histograms, split_queries
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_and_serve
+
+    rng = np.random.default_rng(0)
+    Q, X = split_queries(lda_like_histograms(rng, TUNE_N + TUNE_Q, TUNE_DIM, device="cuda"),
+                         TUNE_Q, rng)
+    Q_cal, Q_hold = Q[:TUNE_Q // 2], Q[TUNE_Q // 2:]
+    base = RetrievalSpec(**TUNE_BASE)
+    hand = base.replace(build_policy=Blend(HAND_ALPHA), ef_search=HAND_EF)
+    with PlainCalls(ops) as plain:
+        res, tune_s, tune_launches = launched_by(ops, lambda: autotune(
+            X, Q_cal, base=base, axes=tune_axes(), anchors=[hand], k=10, rungs=3, seed=0,
+            verbose=False))
+        hand_c = res.lookup(hand)
+        choice = res.pick(max_evals=hand_c.objectives["evals_per_query"])
+        _, true_hold = knn_scan(base.base_distance(), Q_hold, X, 10)
+        holdout = {name: held_out(spec, X, Q_hold, true_hold, 2)
+                   for name, spec in (("hand", hand), ("tuned", choice.spec))}
+        with tempfile.TemporaryDirectory() as tmp:
+            path = str(pathlib.Path(tmp) / "TUNED_spec.json")
+            res.save(path, choice)
+            loaded = load_spec(path)
+        served, serve_s, serve_launches = launched_by(ops, lambda: build_and_serve(
+            spec=choice.spec, n_db=20_000, dim=32, n_queries=256, batch=64, device="cuda",
+            verbose=False))
+    h, t = hand_c.objectives, choice.objectives
+    line = {"tune_s": tune_s, "rungs": [[r["n"], len(r["evaluated"]), len(r["survivors"])]
+                                        for r in res.history],
+            "hand_cal": h, "tuned_cal": t, "tuned_spec": choice.spec.to_dict(),
+            "tuned_spec_fingerprint": choice.fingerprint,
+            "jax_tuned_spec_fingerprint": JAX_TUNED["spec_fingerprint"],
+            "same_spec_as_jax": choice.fingerprint == JAX_TUNED["spec_fingerprint"],
+            "holdout": holdout, "jax_holdout_recall@k": JAX_TUNED["holdout_recall@k"],
+            "floor": round(JAX_TUNED["holdout_recall@k"] - 0.02, 4),
+            "tune_launches": tune_launches,
+            "deploy": {k: served[k] for k in ("recall@k", "qps", "build_s", "p50_batch_ms",
+                                              "eval_reduction")},
+            "deploy_s": serve_s, "deploy_launches": serve_launches,
+            "plain_calls_on_cuda": plain.n}
+    log("tuner at bench_autotune's full workload (KL n=4096 d=32, 64 + 64 queries), then the "
+        "tuned spec at the serve defaults: " + json.dumps(line))
+    if plain.n:
+        raise AssertionError(f"phase 21: {plain.n} plain-version calls on CUDA tensors")
+    if not (t["recall"] >= h["recall"] and t["evals_per_query"] <= h["evals_per_query"]):
+        raise AssertionError(f"phase 21: the tuned spec {t} loses to the hand spec {h}")
+    if holdout["tuned"]["recall@10"] < line["floor"]:
+        raise AssertionError(f"phase 21: tuned holdout recall@10 {holdout['tuned']['recall@10']}"
+                             f" < {line['floor']} (JAX {JAX_TUNED['holdout_recall@k']} less 0.02)")
+    if loaded != choice.spec:
+        raise AssertionError("phase 21: the TUNED artifact does not load back as the tuned spec")
+    for label, counts in (("tuning", tune_launches), ("deploy", serve_launches)):
+        if not (counts["gather_scores"] > 0 and counts["distance_matrix"] > 0):
+            raise AssertionError(f"phase 21: kernel not launched in the {label}: {counts}")
+    return line
+
+
+def phase22(X_full) -> dict:
+    """Learned distances: bench_learned's workload B, then the metric learner's
+    ground truth and fit over phase 9's data."""
+    from repro_torch.core.brute_force import knn_scan
+    from repro_torch.core.distances import get_distance
+    from repro_torch.core.learned import fit_construction_distance
+    from repro_torch.core.metric_learning import fit_mahalanobis_map, true_neighbor_ids
+    from repro_torch.core.spec import Blend, RetrievalSpec
+    from repro_torch.data.synthetic import text_collection
+    from repro_torch.kernels import ops
+
+    tc = text_collection(np.random.default_rng(5), BM25_DOCS + BM25_Q, vocab=BM25_VOCAB,
+                         device="cuda")
+    X, Q = tc.counts[:BM25_DOCS], tc.counts[BM25_DOCS:]
+    Q_cal, Q_hold = Q[:BM25_Q // 2], Q[BM25_Q // 2:]
+    dist, kl = tc.bm25(), get_distance("kl")
+    base = RetrievalSpec(**dict(TUNE_BASE, distance="bm25"), ef_search=HAND_EF)
+    with PlainCalls(ops) as plain:
+        res, fit_s, fit_launches = launched_by(ops, lambda: fit_construction_distance(
+            X, Q_cal, base=base, dist=dist, natural=tc.natural, hand_policy=Blend(HAND_ALPHA),
+            rank=16, steps=150, n_anchors=256, seed=1, verbose=False))
+        _, true_hold = knn_scan(dist, Q_hold, X, 10)
+        holdout = {name: held_out(spec, X, Q_hold, true_hold, 17, dist, tc.natural)
+                   for name, spec in (("hand", base.replace(build_policy=Blend(HAND_ALPHA))),
+                                      ("learned", res.spec))}
+        _, true_cal = knn_scan(dist, Q_cal, X, 10)
+        natural = held_out(base.replace(build_policy="natural"), X, Q_cal, true_cal, 17, dist,
+                           tc.natural)
+        # the metric learner over phase 9's data: 512 anchors' true neighbours, then the fit
+        anchors = torch.randperm(N_FULL, device="cuda",
+                                 generator=torch.Generator(device="cuda").manual_seed(3))[:512]
+        pos, tni_s, tni_launches = launched_by(
+            ops, lambda: true_neighbor_ids(kl, X_full, anchors, 10))
+        _, raw = knn_scan(kl, X_full[anchors], X_full, 11)
+        L, map_s, map_launches = launched_by(ops, lambda: fit_mahalanobis_map(
+            X_full, kl, torch.Generator(device="cuda").manual_seed(4)))
+    pos, raw, anc = pos.cpu().numpy(), raw.cpu().numpy(), anchors.cpu().numpy()
+    want = np.stack([r[r != a][:10] for r, a in zip(raw, anc)])
+    line = {"fit_s": fit_s, "anchor_cal": res.anchor, "learned_cal": res.objectives,
+            "build_policy": str(res.spec.build_policy), "candidates": list(res.candidates),
+            "calibration": res.calibration, "holdout": holdout, "natural_cal": natural,
+            "jax_holdout_recall@k": JAX_LEARNED["holdout_recall@k"],
+            "floor": round(JAX_LEARNED["holdout_recall@k"] - 0.02, 4),
+            "jax_weights_fingerprint": JAX_LEARNED["weights_fingerprint"],
+            "fit_launches": fit_launches,
+            "true_neighbor_ids_s": tni_s, "true_neighbor_ids_launches": tni_launches,
+            "self_in_positives": int(sum(a in p for p, a in zip(pos, anc))),
+            "ids_equal_knn_scan_without_self": bool(np.array_equal(pos, want)),
+            "fit_mahalanobis_map_s": map_s, "fit_mahalanobis_map_launches": map_launches,
+            "L_shape": list(L.shape), "L_finite": bool(torch.isfinite(L).all()),
+            "plain_calls_on_cuda": plain.n}
+    log("learned distances, BM25 2048 docs vocab 1024 (32 + 32 queries), then 512 anchors at "
+        "n=1e6 d=128: " + json.dumps(line))
+    if plain.n:
+        raise AssertionError(f"phase 22: {plain.n} plain-version calls on CUDA tensors")
+    a, o = res.anchor, res.objectives
+    if not (o["recall"] >= a["recall"] and o["evals_per_query"] <= a["evals_per_query"]):
+        raise AssertionError(f"phase 22: learned {o} loses to the hand anchor {a}")
+    if holdout["learned"]["recall@10"] < line["floor"]:
+        raise AssertionError(f"phase 22: learned holdout recall@10 "
+                             f"{holdout['learned']['recall@10']} < {line['floor']}")
+    if line["self_in_positives"] or not line["ids_equal_knn_scan_without_self"]:
+        raise AssertionError("phase 22: true_neighbor_ids kept an anchor or differs from knn_scan")
+    if not line["L_finite"]:
+        raise AssertionError("phase 22: the fitted map is not finite")
+    for label, counts, kernel in (("fit", fit_launches, "gather_scores"),
+                                  ("fit", fit_launches, "distance_matrix"),
+                                  ("true_neighbor_ids", tni_launches, "distance_matrix"),
+                                  ("fit_mahalanobis_map", map_launches, "distance_matrix")):
+        if not counts[kernel] > 0:
+            raise AssertionError(f"phase 22: {kernel} not launched in the {label}: {counts}")
+    return line
+
+
+def phase23() -> dict:
+    """The two-tower path at recsys_ann.py's shape (see the module docstring)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.brute_force import knn_scan
+    from repro_torch.core.distances import get_distance
+    from repro_torch.core.index import ANNIndex
+    from repro_torch.core.learned import fit_construction_distance
+    from repro_torch.core.metrics import recall_at_k
+    from repro_torch.core.spec import RetrievalSpec
+    from repro_torch.data.synthetic import recsys_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_recsys
+    from repro_torch.models.recsys import tower_embeddings
+
+    cfg = get_smoke_config("two-tower-retrieval")
+    dist = get_distance("negdot")
+    spec = RetrievalSpec(distance="negdot", builder="swgraph", build_engine="wave", wave=64,
+                         NN=16, ef_construction=100, k=TT_K, ef_search=128)
+    with PlainCalls(ops) as plain:
+        (model, history), train_s, train_launches = launched_by(ops, lambda: train_recsys(
+            cfg, steps=60, batch=256, log_every=20, device="cuda"))
+        corpus = recsys_batch(np.random.default_rng(7), TT_N, cfg.vocab_sizes, device="cuda")
+        queries = recsys_batch(np.random.default_rng(8), TT_Q, cfg.vocab_sizes, device="cuda")
+        with torch.no_grad():
+            items = tower_embeddings(model, corpus, cfg)[1].contiguous()
+            users = tower_embeddings(model, queries, cfg)[0].contiguous()
+        (_, true_ids), truth_s, truth_launches = launched_by(
+            ops, lambda: knn_scan(dist, users, items, TT_K))
+        idx, build_s, build_launches = launched_by(ops, lambda: ANNIndex.build(
+            items, dist, spec=spec, generator=torch.Generator(device="cuda").manual_seed(9)))
+        search = idx.searcher()
+        search(users)
+        (_, ids, n_evals, _), search_s, search_launches = launched_by(ops, lambda: search(users))
+        res, fit_s, fit_launches = launched_by(ops, lambda: fit_construction_distance(
+            items[:TT_FIT], users[:TT_Q // 2], base=spec.replace(frontier=1), dist=dist, rank=16,
+            steps=60, n_anchors=128, alphas=(0.75, 1.0), betas=(0.5,), verbose=False))
+        idx_l, build_l_s, build_l_launches = launched_by(ops, lambda: ANNIndex.build(
+            items, dist, spec=res.spec, generator=torch.Generator(device="cuda").manual_seed(10)))
+        _, ids_l, n_evals_l, _ = idx_l.searcher(spec=res.spec)(users)
+        out, sched_s, sched_launches = launched_by(ops, lambda: idx_l.scheduler(
+            spec=res.spec, frontier=res.spec.frontier).run_stream(users))
+    got = np.stack([r.ids for r in sorted(out, key=lambda r: r.rid)])
+    line = {"train_s": train_s, "loss": history, "train_launches": train_launches,
+            "items_shape": list(items.shape), "users_shape": list(users.shape),
+            "finite": bool(torch.isfinite(items).all() and torch.isfinite(users).all()),
+            "truth_s": truth_s, "truth_launches": truth_launches,
+            "plain": {"recall@k": recall_at_k(ids, true_ids),
+                      "tie_aware_recall@k": tie_aware_recall(users, items, ids, true_ids),
+                      "build_s": build_s,
+                      "search_ms": 1e3 * search_s,
+                      "eval_reduction": TT_N / float(n_evals.float().mean()),
+                      "build_launches": build_launches, "search_launches": search_launches},
+            "fit_s": fit_s, "fit_launches": fit_launches, "anchor_cal": res.anchor,
+            "learned_cal": res.objectives, "build_policy": str(res.spec.build_policy),
+            "learned": {"recall@k": recall_at_k(ids_l, true_ids),
+                        "tie_aware_recall@k": tie_aware_recall(users, items, ids_l, true_ids),
+                        "build_s": build_l_s,
+                        "evals_per_query": float(n_evals_l.float().mean()),
+                        "build_launches": build_l_launches},
+            "scheduler": {"served": len(out), "recall@k": recall_at_k(got, true_ids),
+                          "tie_aware_recall@k": tie_aware_recall(users, items, got, true_ids),
+                          "ids_equal_searcher": bool(np.array_equal(got, ids_l.cpu().numpy())),
+                          "s": sched_s, "launches": sched_launches},
+            "plain_calls_on_cuda": plain.n}
+    log("two-tower path: SMOKE trained 60 steps x 256, 20,000 item embeddings, 64 queries, "
+        "K=20: " + json.dumps(line))
+    if plain.n:
+        raise AssertionError(f"phase 23: {plain.n} plain-version calls on CUDA tensors")
+    if not history[-1]["loss"] < history[0]["loss"]:
+        raise AssertionError(f"phase 23: the training loss did not fall: {history}")
+    if not line["finite"] or line["items_shape"] != [TT_N, cfg.tower_mlp_dims[-1]]:
+        raise AssertionError(f"phase 23: embeddings {line['items_shape']}, finite "
+                             f"{line['finite']}")
+    # recsys_ann.py's own check (> 0.7), on the tie-aware recall: the id-based one
+    # counts an equally distant duplicate item row as a miss (PERF.md section 7);
+    # the id-based recall is held to the JAX example's less 0.02
+    for label in ("plain", "learned"):
+        if not line[label]["tie_aware_recall@k"] > 0.7:
+            raise AssertionError(f"phase 23: {label} index tie-aware recall@{TT_K} "
+                                 f"{line[label]['tie_aware_recall@k']} <= 0.7")
+        if line[label]["recall@k"] < JAX_TWO_TOWER_RECALL[label] - 0.02:
+            raise AssertionError(f"phase 23: {label} index recall@{TT_K} "
+                                 f"{line[label]['recall@k']} < the JAX example's "
+                                 f"{JAX_TWO_TOWER_RECALL[label]} less 0.02")
+    if not line["scheduler"]["ids_equal_searcher"]:
+        raise AssertionError("phase 23: the scheduler's ids differ from the searcher's")
+    for label, counts, kernel in (("ground truth", truth_launches, "distance_matrix"),
+                                  ("plain build", build_launches, "gather_scores"),
+                                  ("search", search_launches, "gather_scores"),
+                                  ("fit", fit_launches, "gather_scores"),
+                                  ("fit", fit_launches, "distance_matrix"),
+                                  ("learned build", build_l_launches, "gather_scores"),
+                                  ("scheduler", sched_launches, "gather_scores")):
+        if not counts[kernel] > 0:
+            raise AssertionError(f"phase 23: {kernel} not launched in the {label}: {counts}")
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -1577,8 +1999,10 @@ def main() -> int:
     del adj_cap, qe_rep, qe_bias, edge_sub, nbrs_full
 
     # distance_matrix: a knn_scan chunk (the main path's ground truth),
-    # build_sharded's stitch, 512 rows, and a knn_scan chunk at d = 30,
-    # whose 120-byte rows the producer warp stages without TMA
+    # build_sharded's stitch, 512 rows, a knn_scan chunk at d = 30, whose
+    # 120-byte rows the producer warp stages without TMA, and a chunk of
+    # true_neighbor_ids (phase 22: 512 anchors of the full cell against
+    # 4,096 rows); each held to the plain version
     dm_rows = []
     stitch = (X_sh.shape[0], 64, 32)
     data30 = lda_like_histograms(np.random.default_rng(3), 1024 + 8192, 30, device="cuda")
@@ -1587,7 +2011,8 @@ def main() -> int:
             ("build_sharded stitch", stitch, X_sh, X_sh[:64]),
             ("bench_kernels", (512, 8192, D_FULL), Q[:512], X[8192:16384]),
             ("knn_scan chunk, rows staged without TMA", (1024, 8192, 30), data30[:1024],
-             data30[1024:])]:
+             data30[1024:]),
+            ("true_neighbor_ids chunk", (512, 4096, D_FULL), X[:512], X[16384:20480])]:
         q_rep, x_rep_t = dist.prep_right(src_q).contiguous(), dist.prep_left(src_x).contiguous()
         q_b, x_b = dist.bias_right(src_q).contiguous(), dist.bias_left(src_x).contiguous()
         args = [(q_rep, x_rep_t, q_b, x_b)]
@@ -1599,6 +2024,8 @@ def main() -> int:
             with exact_float32_matmul():
                 return torch.matmul(a, b.T)
 
+        max_err[("distance_matrix", dist.name, label)] = check_close(
+            f"distance_matrix {label} {B}x{N}x{m}", dm(*args[0]), dm_plain(*args[0]), TOL)
         lines = dm_bound(B, N, m)
         (b_ms, b_by), (s_ms, s_by) = lines["tensor_core"], lines["fp32_simt"]
         row = {"shape": f"{label} {B}x{N}x{m}", "B": B, "N": N, "m": m,
@@ -1671,6 +2098,8 @@ def main() -> int:
         "distance_matrix sharded scan at the serve defaults", dm(*args[0]), dm_plain(*args[0]), TOL)
     log("time distance_matrix " + json.dumps(dm_shard))
     del args
+    # the tuning and learning paths' gather_scores sites (phases 21-23)
+    gs_m15 = m15_sites(X32, gen, max_err)
 
     lap("10 timing")
 
@@ -2071,9 +2500,25 @@ def main() -> int:
 
     # -- 20. sharded at full width: phase 9's data ----------------------------------------------
     sharded20 = phase20(X, Q, d18, true18, full["recall@k"])
-    del X, Q
+    del Q
 
     lap("20 sharded at full width")
+
+    # -- 21. the tuner at bench_autotune's full workload, its spec at the serve defaults -------
+    tune21 = phase21()
+
+    lap("21 tuner")
+
+    # -- 22. learned distances: BM25 workload B, the metric learner at n=1e6 -------------------
+    learned22 = phase22(X)
+    del X
+
+    lap("22 learned distances")
+
+    # -- 23. the two-tower path at recsys_ann.py's shape ----------------------------------------
+    two_tower23 = phase23()
+
+    lap("23 two-tower path")
 
     def err_of(kernel_name):
         return max(v for k, v in max_err.items() if k[0] == kernel_name and k[1] == "kl")
@@ -2092,6 +2537,19 @@ def main() -> int:
         return (f"; sharded (rank 0 of 4 on the card): phase 19 at the serve defaults "
                 f"{ {phase: l19[phase][name] for phase in l19} }, phase 20 at full width "
                 f"{ {phase: l20[phase][name] for phase in l20} }")
+    def m15_path(name):
+        return (f"; tuning and learning: the tuner's rungs (phase 21: "
+                f"{tune21['tune_launches'][name]}, its deploy {tune21['deploy_launches'][name]}), "
+                f"the BM25 fit (phase 22: {learned22['fit_launches'][name]}), true_neighbor_ids "
+                f"and fit_mahalanobis_map at n=1e6 (phase 22: "
+                f"{learned22['true_neighbor_ids_launches'][name]} and "
+                f"{learned22['fit_mahalanobis_map_launches'][name]}), the two-tower path "
+                f"(phase 23: ground truth {two_tower23['truth_launches'][name]}, plain build "
+                f"{two_tower23['plain']['build_launches'][name]}, search "
+                f"{two_tower23['plain']['search_launches'][name]}, fit "
+                f"{two_tower23['fit_launches'][name]}, learned build "
+                f"{two_tower23['learned']['build_launches'][name]}, scheduler "
+                f"{two_tower23['scheduler']['launches'][name]})")
     main_row, gs_main = fs_rows[0], gs_steps[0]
     dm_main = dm_rows[0]
     kernels = [{
@@ -2153,7 +2611,7 @@ def main() -> int:
                 "selection and rankblend's tau (once per branch), the ground truth of "
                 "phases 13 and 14, the churn audit's scan of the surviving rows (phases 15 "
                 f"and 16: {churn16['kernel_launches']['audit']['distance_matrix']} launches "
-                "at full width)" + sharded_path("distance_matrix"),
+                "at full width)" + sharded_path("distance_matrix") + m15_path("distance_matrix"),
         "max_abs_err_all_distances": all_err("distance_matrix"),
         "max_abs_err_wrappers": wrapper_errs("distance_matrix"),
         "other_shapes": dm_rows[1:] + [dm_shard],
@@ -2185,11 +2643,12 @@ def main() -> int:
                 f"run, {qos17['launches']['qos']['gather_scores']} in the QoS run) and at "
                 f"n=1e6 (phase 18: {launches18['gather_scores']} launches = "
                 f"{cont18['admissions']} admissions + {cont18['step_calls']} ticks x "
-                f"{cont18['lock_steps_per_tick']} lock-steps)" + sharded_path("gather_scores"),
+                f"{cont18['lock_steps_per_tick']} lock-steps)" + sharded_path("gather_scores")
+                + m15_path("gather_scores"),
         "max_abs_err_all_distances": all_err("gather_scores"),
         "max_abs_err_wrappers": wrapper_errs("gather_scores"),
         "other_shapes": gs_steps[1:] + [gs_rev32, gs_rev128, gs_wide, gs_rev_wide, gs_edge]
-        + gs_online + gs_sched + gs_shard,
+        + gs_online + gs_sched + gs_shard + gs_m15,
         "churn_launches": {"serve_defaults": churn15["kernel_launches"],
                            "serve_defaults_build": churn15["build_launches"],
                            "full_width": churn16["kernel_launches"],
@@ -2200,6 +2659,8 @@ def main() -> int:
     log("continuous: " + json.dumps({"serve_defaults": cont17, "qos": qos17,
                                      "full_width": cont18}))
     log("sharded: " + json.dumps({"serve_defaults": sharded19, "full_width": sharded20}))
+    log("tuning and learning: " + json.dumps({"tuner": tune21, "learned": learned22,
+                                              "two_tower": two_tower23}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"timings read from CUDA events, the profiler having fallen short: "
         f"{len(PROFILER_FALLBACKS)} {PROFILER_FALLBACKS}")

@@ -1,0 +1,43 @@
+"""Architecture registry: ``--arch <id>`` resolution (PyTorch port of
+``repro.configs``).
+
+Only the two-tower retrieval model is ported.  The JAX package's other
+architectures (the LMs, GNN, the other recsys models and the paper's
+retrieval configs) raise ``NotImplementedError`` naming ROADMAP M17.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+_ARCH_MODULES = {
+    "two-tower-retrieval": ("repro_torch.configs.two_tower", "recsys"),
+}
+# the JAX package's registry, not ported yet (ROADMAP M17)
+_UNPORTED = ("yi-34b", "gemma3-12b", "llama3.2-1b", "phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b",
+             "gcn-cora", "autoint", "din", "dcn-v2", "swgraph-retrieval")
+
+ARCH_IDS = list(_ARCH_MODULES)
+
+
+def _entry(arch: str):
+    if arch in _UNPORTED:
+        raise NotImplementedError(
+            f"architecture {arch!r} is not ported to repro_torch yet (ROADMAP M17); "
+            f"ported: {ARCH_IDS}")
+    try:
+        return _ARCH_MODULES[arch]
+    except KeyError:
+        raise KeyError(f"unknown architecture {arch!r}") from None
+
+
+def get_family(arch: str) -> str:
+    return _entry(arch)[1]
+
+
+def get_config(arch: str):
+    return importlib.import_module(_entry(arch)[0]).FULL
+
+
+def get_smoke_config(arch: str):
+    return importlib.import_module(_entry(arch)[0]).SMOKE

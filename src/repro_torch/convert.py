@@ -5,7 +5,9 @@
 ``online_from_jax`` takes the state of a ``repro`` ``OnlineIndex``, mid-churn
 if need be; ``shard_from_jax`` takes ``repro``'s sharded state (the rows and
 ``build_local_subgraphs``' padded local adjacency) and returns one rank's
-block.  ``spec_dict`` is the index's ``spec.to_dict()``.  Nothing here
+block.  ``spec_dict`` is the index's ``spec.to_dict()``.
+``recsys_params_from_jax`` loads ``repro``'s two-tower param dict into the
+port's module, and ``mahalanobis_from_jax`` takes a fitted map.  Nothing here
 imports JAX: the caller hands over plain arrays, as a model's weights would
 be handed over.
 """
@@ -130,3 +132,39 @@ def shard_from_jax(arrays: dict, shard: int, n_shards: int, device="cuda") -> Sh
     block = nbrs[shard * n_local:(shard + 1) * n_local]
     return ShardBlock(X_local.to(dev), torch.from_numpy(np.array(block, np.int32)).to(dev),
                       n_real, n_local)
+
+
+def recsys_params_from_jax(params_np: dict, cfg, device="cuda"):
+    """The port's two-tower model holding ``repro``'s params, on ``device``.
+
+    ``params_np`` is ``repro.models.recsys.init_params``' dict as numpy arrays:
+    ``table`` (padded rows, d) and ``user_tower`` / ``item_tower``, each
+    ``{"w": [(d_in, d_out), ...], "b": [(d_out,), ...]}``.  ``ValueError``
+    when a shape differs from what ``cfg`` gives.
+    """
+    from repro_torch.models.recsys import init_params
+
+    model = init_params(cfg, device=device)
+    arrays = {"table": params_np["table"]}
+    for tower in ("user_tower", "item_tower"):
+        for part in ("w", "b"):
+            for i, a in enumerate(params_np[tower][part]):
+                arrays[f"{tower}.{part}.{i}"] = a
+    params = dict(model.named_parameters())
+    if set(arrays) != set(params):
+        raise ValueError(f"param names {sorted(arrays)} differ from the model's {sorted(params)}")
+    # np.array copies: arrays taken from JAX are read-only buffers
+    arrays = {name: np.array(a, dtype=np.float32) for name, a in arrays.items()}
+    with torch.no_grad():
+        for name, p in params.items():
+            if arrays[name].shape != tuple(p.shape):
+                raise ValueError(f"{name}: shape {arrays[name].shape}, the model's "
+                                 f"{tuple(p.shape)}")
+            p.copy_(torch.from_numpy(arrays[name]))
+    return model
+
+
+def mahalanobis_from_jax(L, device="cuda") -> torch.Tensor:
+    """A fitted Mahalanobis map (``repro.core.metric_learning.fit_mahalanobis_map``'s
+    (m, rank) array) as a float32 tensor on ``device``."""
+    return torch.from_numpy(np.array(L, dtype=np.float32)).to(resolve_device(device))

@@ -480,12 +480,21 @@ class LearnedDistance(_PartsDistance):
 # ---------------------------------------------------------------------------
 
 
+def median(values) -> float:
+    """The median of a 1-d float tensor as ``jnp.median`` takes it: the mean
+    of the two middle values of an even count, ``(lo + hi) * 0.5`` in the
+    tensor's dtype (``torch.median`` returns the lower one)."""
+    vals = torch.sort(values).values
+    k = vals.numel()
+    return float((vals[(k - 1) // 2] + vals[k // 2]) * 0.5)
+
+
 def calibrate_tau(base, X, *, max_rows: int = 256) -> float:
     """Data-calibrated rankblend proxy scale: the median |d(v, u)| over all
     ordered pairs of an evenly strided sample of X (at most ``max_rows``).
 
     The median of an even count is the mean of the two middle values, as
-    ``jnp.median`` takes it (``torch.median`` returns the lower one).  1.0
+    ``jnp.median`` takes it (``median``).  1.0
     when the sample is degenerate (fewer than 2 rows, all zero, not finite).
     On the card the sample's block goes through ``distance_matrix``.
     """
@@ -500,9 +509,7 @@ def calibrate_tau(base, X, *, max_rows: int = 256) -> float:
     # D[b, i] = d(S[i], S[b]): base.matrix(S, S).T, d(v, u) over the sample
     D = query_distance_matrix(base, S, S, mode="left")
     off = ~torch.eye(m, dtype=torch.bool, device=D.device)
-    vals = torch.sort(torch.abs(D[off])).values
-    k = vals.numel()
-    med = float((vals[(k - 1) // 2] + vals[k // 2]) * 0.5)
+    med = median(torch.abs(D[off]))
     if not (med > 0.0 and med != float("inf")):
         return 1.0
     return med

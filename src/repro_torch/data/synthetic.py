@@ -5,6 +5,7 @@
   Manner       : Zipf-sampled term counts with the BM25 views: query = raw
                  TF, document = saturated TF x IDF, and the natural
                  shared-sqrt(IDF) symmetrization of Eq. (4).
+  recsys       : criteo-like CTR batches (per-field categorical ids).
 
 Draws come from a seeded ``numpy.random.Generator`` and are then moved to the
 device as float32.  They cannot reproduce ``jax.random``, so tests that
@@ -108,3 +109,16 @@ def text_collection(rng: np.random.Generator, n: int, vocab: int = 2048, mean_le
     for i in range(n):
         np.add.at(counts[i], rng.choice(vocab, size=int(lengths[i]), p=probs), 1.0)
     return TextCollection.from_counts(torch.from_numpy(counts).to(resolve_device(device)))
+
+
+def recsys_batch(rng: np.random.Generator, batch: int, vocab_sizes, device="cuda") -> dict:
+    """One synthetic CTR batch on ``device``: ``sparse_ids`` (batch, F) int32,
+    field f's ids ``uniform**2 * (v_f - 1)`` truncated (Zipf-ish, low ids
+    hot), and ``label`` Bernoulli(0.25) float32.  The dense features and
+    the behaviour history of the other recsys models wait for ROADMAP M17."""
+    dev = resolve_device(device)
+    sparse = np.stack([(rng.random(batch, dtype=np.float32) ** 2 * (v - 1)).astype(np.int32)
+                       for v in vocab_sizes], axis=1)
+    label = (rng.random(batch) < 0.25).astype(np.float32)
+    return {"sparse_ids": torch.from_numpy(sparse).to(dev),
+            "label": torch.from_numpy(label).to(dev)}

@@ -19,8 +19,6 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.distances import tree_map
-from repro_torch.core.symmetrize import reverse_of
 from repro_torch.kernels.distance_matrix import distance_matrix
 from repro_torch.kernels.frontier_gather import frontier_scores, two_hop_scores
 from repro_torch.kernels.gather_topk import gather_scores
@@ -36,6 +34,9 @@ def _device_type(t) -> str:
 def prepped(tree):
     """Prepped constants (``prep_scan`` / ``prep_queries``) with every tensor
     contiguous, as the kernels read them."""
+    # core imports stay inside the functions: the core package imports the kernels
+    from repro_torch.core.distances import tree_map
+
     return tree_map(lambda a: a.contiguous(), tree)
 
 
@@ -128,6 +129,8 @@ def query_distance_matrix(dist, Q, X, mode: str = "left"):
     ground truth and ``filter_and_refine``'s proxy scan), ``build_sharded``'s
     stitch, entry selection and ``calibrate_tau``.
     """
+    from repro_torch.core.symmetrize import reverse_of
+
     if mode == "right":
         dist = reverse_of(dist)
     elif mode != "left":

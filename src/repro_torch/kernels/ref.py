@@ -11,8 +11,6 @@ import contextlib
 
 import torch
 
-from repro_torch.core.distances import apply_post
-
 
 @contextlib.contextmanager
 def exact_float32_matmul():
@@ -34,6 +32,9 @@ def exact_float32_matmul():
 def _post(post_id, s, x_bias, q_bias, c0, query_left):
     """The post-combine with the row's bias first, or with the query's first
     for a reversed branch (``query_left``), as the JAX package orders them."""
+    # imported here: the core package imports the kernels
+    from repro_torch.core.distances import apply_post
+
     if query_left:
         return apply_post(post_id, s, q_bias, x_bias, c0)
     return apply_post(post_id, s, x_bias, q_bias, c0)

@@ -491,8 +491,9 @@ def test_wrapper_branches_through_the_kernels_match_plain(kind, cuda):
 def test_no_wrapper_reaches_a_plain_version_on_the_card(cuda, monkeypatch, tmp_path):
     """Builds (NN-descent, SW-graph wave and sequential), both engines, the
     rerank and the ground truth under symmetrized and combined distances, the
-    online index, the slot scheduler and the sharded paths: every score comes
-    from a kernel, per branch, and no plain version runs."""
+    online index, the slot scheduler, the tuner and the learned distances, and
+    the sharded paths: every score comes from a kernel, per branch, and no
+    plain version runs."""
     from repro_torch.core import symmetrize
     from repro_torch.core.brute_force import knn_scan
     from repro_torch.core.index import ANNIndex
@@ -581,6 +582,33 @@ def test_no_wrapper_reaches_a_plain_version_on_the_card(cuda, monkeypatch, tmp_p
         2 * (calls["admit"] + 2 * calls["step"]) + calls["rerank"])
     dead = set(range(0, 1100, 9))
     assert all(not dead.intersection(r.ids.tolist()) and (r.ids >= 0).all() for r in res)
+
+    # tuning and learning (ROADMAP M15): the tuner's rungs, the metric learner's
+    # ground truth and the learned candidates' builds and searches, and the
+    # two-tower serve scores
+    from repro_torch.core.autotune import autotune
+    from repro_torch.core.learned import fit_construction_distance
+    from repro_torch.core.metric_learning import true_neighbor_ids
+    from repro_torch.core.spec import Blend
+    from repro_torch.models.recsys import retrieval_scores
+
+    kl = get_distance("kl")
+    counted("true_neighbor_ids", lambda: true_neighbor_ids(kl, X, torch.arange(64), 5))
+    assert launched["true_neighbor_ids"]["distance_matrix"] == 1
+    base = RetrievalSpec(builder="swgraph", wave=32, NN=8, ef_construction=40, k=5,
+                         ef_search=16, frontier=1)
+    res = counted("learned", lambda: fit_construction_distance(
+        X[:600], Q[:16], base=base, rank=4, steps=5, n_anchors=32, k_pos=5,
+        alphas=(0.75, 1.0), betas=(0.5,), verbose=False))
+    assert res.spec.build_policy.kind == "learned"
+    assert launched["learned"]["gather_scores"] > 0 and launched["learned"]["distance_matrix"] > 0
+    tuned = counted("autotune", lambda: autotune(
+        X[:600], Q[:16], base=base, axes=dict(build_policy=[Blend(0.5), Blend(0.75)],
+                                              ef_search=[16]), k=5, rungs=2, verbose=False))
+    assert len(tuned.candidates) >= 1
+    assert launched["autotune"]["gather_scores"] > 0 and launched["autotune"]["distance_matrix"] > 0
+    counted("retrieval_scores", lambda: retrieval_scores(Q, X))
+    assert launched["retrieval_scores"]["distance_matrix"] == 1
 
     # the sharded paths under min, in a one-rank gloo group on the card: the
     # local builds, the local scan, the shard searches of both engines, and the
@@ -832,3 +860,89 @@ def test_sharded_serve_defaults_on_the_card_match_the_cpu_ranks(cuda, tmp_path):
             same = float((cpu[key] == card[key]).mean())
             print(f"[card vs cpu] sharded rank {r} {key}: equal {same:.6f}")
             np.testing.assert_array_equal(card[key], cpu[key])
+
+
+@pytest.mark.gpu
+def test_tuner_quick_grid_on_the_card_matches_the_cpu_path(cuda):
+    """``core.autotune`` at ``bench_autotune.py``'s quick grid (KL, n = 1,024,
+    d = 32, 48 calibration queries, SW-graph wave 64, NN 15, 2 rungs, the hand
+    anchor blend(0.75)/ef 32) on the card and on the CPU, with the same rung
+    permutation and the same entry points per build (the CPU path's draws):
+    the same history, objectives and choice."""
+    from repro_torch.core.autotune import TuneDraws, _build_key, autotune, default_axes
+    from repro_torch.core.batched_beam import select_entries
+    from repro_torch.core.spec import Blend, RetrievalSpec
+    from repro_torch.data.synthetic import lda_like_histograms, split_queries
+
+    rng = np.random.default_rng(0)
+    Q, X = split_queries(lda_like_histograms(rng, 1024 + 48, 32, device="cpu"), 48, rng)
+    base = RetrievalSpec(distance="kl", builder="swgraph", build_engine="wave", wave=64, NN=15,
+                         ef_construction=100, k=10, frontier=1)
+    hand = base.replace(build_policy=Blend(0.75), ef_search=32)
+    kl = get_distance("kl")
+    cache = {}
+
+    def entries(rung, spec, X_r):
+        key = (rung, _build_key(spec))
+        if key not in cache:
+            gen = torch.Generator().manual_seed(len(cache))
+            cache[key] = select_entries(kl, X_r.cpu(), spec.n_entries, generator=gen)
+        return cache[key]
+
+    draws = TuneDraws(perm=torch.randperm(1024, generator=torch.Generator().manual_seed(1)),
+                      entries=entries)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        ops.reset_launch_counts()
+        runs[dev] = autotune(X.to(dev), Q.to(dev), base=base, axes=default_axes(quick=True),
+                             anchors=[hand], k=10, rungs=2, verbose=False, draws=draws)
+        launched = ops.launch_counts()
+        if dev == "cuda":
+            assert launched["gather_scores"] > 0 and launched["distance_matrix"] > 0
+    cpu, card = runs["cpu"], runs["cuda"]
+    assert card.history == cpu.history
+    assert [c.objectives for c in card.candidates] == [c.objectives for c in cpu.candidates]
+    budget = cpu.lookup(hand).objectives["evals_per_query"]
+    assert card.pick(max_evals=budget).fingerprint == cpu.pick(max_evals=budget).fingerprint
+
+
+@pytest.mark.gpu
+def test_two_tower_embeddings_on_the_card_match_the_cpu_path(cuda):
+    """The SMOKE two-tower model trained 10 steps on the CPU, carried to the
+    card: the card's tower embeddings of 4,096 candidates agree with the CPU
+    path's within 1e-5; one more train step from equal weights gives the same
+    loss and gradient norm (rtol 1e-5); the retrieval scores go through
+    ``distance_matrix``."""
+    import copy
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.synthetic import recsys_batch
+    from repro_torch.launch.train import train_recsys
+    from repro_torch.models.recsys import retrieval_scores, tower_embeddings
+    from repro_torch.train.optimizer import adamw, warmup_cosine
+    from repro_torch.train.train_step import make_train_step, recsys_loss
+
+    cfg = get_smoke_config("two-tower-retrieval")
+    model, _ = train_recsys(cfg, steps=10, batch=256, log_every=100, device="cpu")
+    card = copy.deepcopy(model).to(cuda)
+    batch = recsys_batch(np.random.default_rng(7), 4096, cfg.vocab_sizes, device="cpu")
+    with torch.no_grad():
+        want = tower_embeddings(model, batch, cfg)
+        got = tower_embeddings(card, {k: v.to(cuda) for k, v in batch.items()}, cfg)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-5)
+    ops.reset_launch_counts()
+    scores = retrieval_scores(got[0][:64].contiguous(), got[1].contiguous())
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["distance_matrix"] == 1
+    torch.testing.assert_close(scores.cpu(), retrieval_scores(want[0][:64], want[1]),
+                               rtol=1e-5, atol=1e-5)
+    metrics = {}
+    for label, m in (("cpu", model), ("cuda", card)):
+        opt = adamw(warmup_cosine(1e-3, 10, 60))
+        step = make_train_step(lambda mm, b: recsys_loss(mm, b, cfg), opt)
+        b = recsys_batch(np.random.default_rng((1, 10)), 256, cfg.vocab_sizes, device=label)
+        _, _, metrics[label] = step(m, opt.init(dict(m.named_parameters())), b)
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(metrics["cuda"][key]), float(metrics["cpu"][key]),
+                                   rtol=1e-5)

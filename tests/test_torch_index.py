@@ -253,6 +253,33 @@ def test_unported_paths_raise_naming_their_roadmap_item(data):
     assert online.capacity == 400 and idx.ensure_online() is online
     for a, b in zip(idx.searcher()(Q), want):
         assert torch.equal(a, b)
+    # the model/training substrate beyond the two-tower path waits for ROADMAP M17
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import recsys as trecsys
+    from repro_torch.train.optimizer import adamw, warmup_cosine
+    from repro_torch.train.train_step import make_train_step, recsys_loss
+
+    for arch in ("llama3.2-1b", "gcn-cora", "din", "dcn-v2", "autoint", "swgraph-retrieval"):
+        for fn in (configs.get_config, configs.get_smoke_config, configs.get_family):
+            with pytest.raises(NotImplementedError, match="M17"):
+                fn(arch)
+        with pytest.raises(NotImplementedError, match="M17"):
+            ttrain.main(["--device", "cpu", "--arch", arch, "--smoke", "--steps", "1"])
+    with pytest.raises(KeyError):
+        configs.get_config("no-such-arch")
+    smoke = configs.get_smoke_config("two-tower-retrieval")
+    for interaction in ("self-attn", "target-attn", "cross"):
+        other = dataclasses.replace(smoke, interaction=interaction)
+        with pytest.raises(NotImplementedError, match="M17"):
+            trecsys.init_params(other, device="cpu")
+        with pytest.raises(NotImplementedError, match="M17"):
+            recsys_loss(None, {}, other)
+    with pytest.raises(NotImplementedError, match="M17"):
+        make_train_step(lambda m, b: (None, {}), adamw(warmup_cosine(1e-3, 1, 2)),
+                        accum_steps=2)
 
 
 def test_m9_gate_kl_4096_equals_repro():
