@@ -44,7 +44,7 @@ Every phase is fatal on failure; nothing is caught and passed over.
    and reverse edges) and the search must launch gather_scores.
 6. SW-graph at d=128 (the paper's Wiki-d width): first n=20,000, recall@10
    >= 0.70 (the JAX driver reaches 0.7156); the per-wave time of that build
-   picks the largest n of 10^6, 200,000, 100,000 and 50,000 whose build fits
+   picks the largest n of 10^6, 200,000, 100,000, 50,000, 30,000 and 20,000 whose build fits
    SWGRAPH_BUILD_BUDGET_S; at that n, recall@10 at ef 96 and 512 beside an
    NN-descent build (the full cell's NN 30) on the same data.  No floor.
 7. sequential and reference paths: ``build_swgraph`` at n=500, d=16,
@@ -210,6 +210,30 @@ Every phase is fatal on failure; nothing is caught and passed over.
     Phases 21–23 log their launches by kernel and site; gather_scores and
     distance_matrix must launch, and no plain version may run on a CUDA tensor.
 
+24. the dense LM, llama3.2-1b at full width (16 layers, d 2,048, 32/8 heads,
+    d_ff 8,192, vocab 128,256, tied, remat; bf16): ``launch.train.main(["--arch",
+    "llama3.2-1b", "--steps", "20"])`` at ``repro``'s defaults (batch 8, seq 128,
+    block 64; steps cut from 100): the loss must be finite and fall; tok/s, ms per
+    step, peak memory and the model-FLOPs share (6 N tokens over the step time at
+    the bf16 peak) are printed, and one step is profiled.  Then, in float32 with
+    TF32 off, a prompt of 32 (batch 2) and 16 greedy decode steps: every step's
+    logits within DECODE_TOL of ``forward``'s over the same prefix, relative to
+    the step's largest logit, with equal argmax.  Then bf16 serving (batch 8,
+    prompt 512: prefill ms, decode ms per token over 32 tokens, one decode step
+    profiled); ``blockwise_attention`` forward and backward at (8, 128, 32/8, 64)
+    and (1, 4,096, 32/8, 64, block 512) beside ``scaled_dot_product_attention``
+    (the library yardstick; never on the path); the SMOKE forward on the card
+    within 1e-5 of the CPU's.
+25. crash-resume at ``examples/train_lm.py``'s llama-110m (12 layers, d 512,
+    vocab 32,000, f32, batch 4, seq 256, a checkpoint every 50 steps): 75 steps
+    uninterrupted, then a run killed after step 50 and one resumed from its
+    checkpoint to 75; the resumed losses and final parameters equal the
+    uninterrupted run's bit for bit, the save and restore seconds printed.  Then
+    gemma3-12b at full width: 6 layers (one 5:1 period) in f32, a prompt of 1,536
+    past the 1,024 window and 16 decode steps held to ``forward`` as in phase 24,
+    and again with the decode window planted one key wide, which the check must
+    fail; and all 48 layers in bf16: prefill of 2,048 and 16 decode steps, timed.
+
 Phase 10 also times each kernel at the sharded paths' shapes and, each held
 to the plain version, at the shapes phases 21-23 give it: gather_scores at
 the tuner's search step (64, 60) at m'=32, BM25's search step (32, 30) at
@@ -224,7 +248,9 @@ three lines are the card line, a JSON object with the kernels' numbers, and
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
+import os
 import pathlib
 import socket
 import subprocess
@@ -260,13 +286,15 @@ DM_CHECK_SHAPES = [(128, 4096, 8), (128, 4096, 32), (128, 4096, 128), (512, 8192
 # (reverse edges at d = 512; M = 3)
 GS_CHECK_SHAPES = [(64, 30, 128), (64, 240, 128), (960, 1, 32), (960, 1, 128), (64, 30, 2100),
                    (5, 3, 16), (1, 1, 4), (960, 1, 512), (4, 3, 2100)]
-SWGRAPH_NS = (1_000_000, 200_000, 100_000, 50_000)
+SWGRAPH_NS = (1_000_000, 200_000, 100_000, 50_000, 30_000, 20_000)
 # phase 7's n: 500 (2,000 before the churn phases joined the script, 1,000 before
 # the tuning and learning phases; the sequential paths are host-bound, one
 # lock-step per kernel launch)
 SEQ_N = 500
-# 75 s (150 s, which chose n = 100,000, before the churn phases joined the script)
-SWGRAPH_BUILD_BUDGET_S = 75.0
+# 45 s (75 s, which chose n = 50,000, before the LM phases joined the script; 150 s,
+# which chose n = 100,000, before the churn phases); 30,000 and 20,000 joined the
+# sizes when a host at 82.5 ms per wave fit none of the others in 75 s
+SWGRAPH_BUILD_BUDGET_S = 45.0
 GRAPH_QUALITY_N = 1_000_000
 WRAPPER_KINDS = ("avg", "min", "reverse", "max", "blend(0.25)", "rankblend(0.5)", "learned",
                  "bm25")
@@ -300,8 +328,8 @@ SHARDED_SERVE = dict(n_db=20_000, dim=32, n_queries=256, k=10, ef_search=96, slo
 SHARDED_RUNS = {"defaults": {}, "drop 1": {"drop_shards": 1}, "steps 2": {"steps_per_sync": 2},
                 "n=19999": {"n_db": 19_999}}
 # phase 16: the deletes per round are sized so that compact() is predicted to
-# fit this many seconds
-COMPACT_BUDGET_S = 60.0
+# fit this many seconds (60 s before the LM phases joined the script)
+COMPACT_BUDGET_S = 30.0
 CHURN_ROUNDS_FULL, CHURN_INSERT_FULL = 2, 256
 
 # phase 21: bench_autotune.py's full workload, drawn as tools/jax_policy_recall.py
@@ -332,6 +360,29 @@ TIME_SHAPES = [("full search step B=64 R=240 (NN 30)", 64, 240),
                ("serve-default search step B=64 R=120 (NN 15)", 64, 120),
                ("serve-default NN-descent round B=1e6 R=248 (NN 15)", N_FULL, 248)]
 GS_KERNELS = ("gather_scores_kernel", "gather_cells_kernel")
+# phase 24: llama3.2-1b trained at repro.launch.train's defaults (batch 8, seq 128,
+# block 64) for LLAMA_STEPS steps (its default 100, cut for time); greedy decode of
+# LM_DECODE steps after a prompt of LM_PROMPT, each step's logits held to forward's
+LLAMA_STEPS, LM_PROMPT, LM_DECODE = 20, 32, 16
+# each step's logits within DECODE_TOL of forward's, relative to the step's largest
+# |logit| (f32 sums over d = 2,048 at logits up to ~650 differ by ~1e-3: an
+# elementwise rtol = atol = 2e-4 fails on the small logits of such a row); the card
+# reads 1.6e-6 at llama3.2-1b and 3.2e-6 at gemma3-12b, and phase 25 shows that a
+# decode window off by one at gemma3-12b's prompt lies above it
+DECODE_TOL = 1e-5
+# (B, T, Hq, Hkv, dh, block, reps): the train step's attention and a long prefill's
+ATTN_SHAPES = ((8, 128, 32, 8, 64, 64, 50), (1, 4096, 32, 8, 64, 512, 5))
+# phase 25: examples/train_lm.py's llama-110m, its batch 4, seq 256 and checkpoint
+# period 50; killed after step KILL_AT and resumed to RESUME_STEPS (steps cut from
+# 100 and 150 for time)
+CFG_110M_FIELDS = dict(name="llama-110m", n_layers=12, d_model=512, n_heads=8, n_kv_heads=4,
+                       d_head=64, d_ff=2048, vocab_size=32_000, rope_theta=10_000.0,
+                       tie_embeddings=True, dtype="float32", remat=False, full_attention=True)
+# the resumed run's losses and parameters equal the uninterrupted run's bit for bit:
+# the same kernels on the same shapes in the same order, from the same state
+KILL_AT, RESUME_STEPS = 50, 75
+# gemma3-12b: one 5:1 period in f32 at a prompt longer than the 1,024 window
+GEMMA_CUT_LAYERS, GEMMA_PROMPT = 6, 1536
 PROFILER_FALLBACKS = []  # timings read from CUDA events where the profiler fell short
 
 
@@ -1399,6 +1450,414 @@ def phase23() -> dict:
                                   ("scheduler", sched_launches, "gather_scores")):
         if not counts[kernel] > 0:
             raise AssertionError(f"phase 23: {kernel} not launched in the {label}: {counts}")
+    return line
+
+
+def lm_attention_times() -> list:
+    """``blockwise_attention`` forward and backward beside SDPA (the library
+    yardstick, never on the path) at phase 24's two shapes, bf16 on the card."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.layers import blockwise_attention
+
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    for B, T, Hq, Hkv, dh, block, reps in ATTN_SHAPES:
+        q = torch.randn((B, T, Hq, dh), generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn((B, T, Hkv, dh), generator=gen, device="cuda").bfloat16()
+                for _ in range(2))
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        out = blockwise_attention(q, k, v, block_q=block, block_kv=block)
+        dout = torch.randn(out.shape, generator=gen, device="cuda").bfloat16()
+
+        def fwd():
+            return blockwise_attention(q, k, v, block_q=block, block_kv=block)
+
+        def bwd():
+            return torch.autograd.grad(out, (q, k, v), dout, retain_graph=True)
+
+        # SDPA's layout (B, H, T, dh); its GQA groups q head h with kv head h // g (the
+        # port groups h % Hkv): the same work, timed only
+        qs, ks, vs = (t.detach().transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+
+        sout = sdpa()
+        sdout = dout.transpose(1, 2).contiguous()
+
+        def sdpa_bwd():
+            return torch.autograd.grad(sout, (qs, ks, vs), sdout, retain_graph=True)
+
+        # CUDA events around back-to-back calls (host gaps included), and the
+        # kernels' own device time from the profiler
+        times = {f"{name}{kind}": timer(fn, [()], reps)
+                 for name, fn in (("fwd", fwd), ("bwd", bwd), ("sdpa_fwd", sdpa),
+                                  ("sdpa_bwd", sdpa_bwd))
+                 for kind, timer in (("_ms", time_ms), ("_device_ms", device_ms))}
+        # causal work: 2 B H T^2 dh multiply-adds forward (QK^T and PV over half the
+        # tiles), 2.5x that backward; bytes: q, k, v, out (and their gradients) once
+        flops = 2.0 * B * Hq * T * T * dh
+        io = 2 * (B * T * (Hq + 2 * Hkv) * dh + B * T * Hq * dh)
+        bound_f = 1e3 * max(flops / H100_BF16_FLOPS, io / H100_BYTES_PER_S)
+        bound_b = 1e3 * max(2.5 * flops / H100_BF16_FLOPS, 2 * io / H100_BYTES_PER_S)
+        rows.append({"shape": f"B={B} T={T} H={Hq}/{Hkv} dh={dh} block={block} bf16",
+                     **times, "bound_fwd_ms": bound_f, "bound_bwd_ms": bound_b,
+                     "bound_by": "operations at the bf16 peak" if flops / H100_BF16_FLOPS
+                     > io / H100_BYTES_PER_S else "bytes"})
+        del q, k, v, out, dout, qs, ks, vs, sout, sdout
+    return rows
+
+
+def greedy_decode_against_forward(model, cfg, prompt, n_steps: int, block: int) -> dict:
+    """Prefill ``prompt``, ``n_steps`` greedy decode steps; every step's logits
+    against ``forward`` over the same prefix (one causal forward over the
+    prompt and the decoded tokens: its position t is the prefix up to t)."""
+    from repro_torch.models import transformer as tt
+
+    T = prompt.shape[1]
+    logits, cache = tt.prefill(model, prompt, cfg, max_len=T + n_steps, block_q=block,
+                               block_kv=block)
+    steps, toks = [logits], [prompt]
+    for _ in range(n_steps):
+        nxt = steps[-1].argmax(dim=-1)
+        toks.append(nxt[:, None])
+        logits, cache = tt.decode_step(model, cache, nxt, cfg)
+        steps.append(logits)
+    seq = torch.cat(toks, dim=1)
+    with torch.no_grad():
+        full, _ = tt.forward(model, seq, cfg, block_q=block, block_kv=block)
+    want = full[:, T - 1:]
+    got = torch.stack(steps, dim=1)
+    err = (got - want).abs()
+    scale = want.abs().amax(dim=-1, keepdim=True).clamp(min=1.0)  # per step and row
+    top2 = want.topk(2, dim=-1).values
+    return {"steps": n_steps, "prompt": list(prompt.shape),
+            "max_abs_err": float(err.max()),
+            "max_err_over_scale": float((err / scale).max()),
+            "max_abs_logit": float(want.abs().max()),
+            "close": bool((err <= DECODE_TOL * scale).all()),
+            "argmax_equal": bool(torch.equal(got.argmax(-1), want.argmax(-1))),
+            "min_top2_gap": float((top2[..., 0] - top2[..., 1]).min()),
+            "finite": bool(torch.isfinite(got).all())}
+
+
+def serve_times(model, cfg, batch: int, prompt_len: int, n_tokens: int, gen) -> dict:
+    """prefill ms and decode ms per token (CUDA events; one warm-up of each)."""
+    from repro_torch.models import transformer as tt
+
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen,
+                           device="cuda")
+    max_len = prompt_len + n_tokens
+    logits, cache = tt.prefill(model, prompt, cfg, max_len=max_len)
+    tt.decode_step(model, cache, logits.argmax(-1), cfg)
+    t0, t1, t2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    torch.cuda.synchronize()
+    t0.record()
+    logits, cache = tt.prefill(model, prompt, cfg, max_len=max_len)
+    t1.record()
+    for _ in range(n_tokens):
+        logits, cache = tt.decode_step(model, cache, logits.argmax(-1), cfg)
+    t2.record()
+    torch.cuda.synchronize()
+    decode_ms = t1.elapsed_time(t2) / n_tokens
+    line = {"batch": batch, "prompt": prompt_len, "tokens": n_tokens,
+            "prefill_ms": t0.elapsed_time(t1), "decode_ms_per_token": decode_ms,
+            "decode_tok_s": batch * 1e3 / decode_ms,
+            "finite": bool(torch.isfinite(logits).all()),
+            "length": int(cache["length"][0])}
+    # one more decode step under the profiler (into the cache's last free slot)
+    cache["length"] -= 1
+    line["decode_profile"] = kernel_breakdown(
+        *_profiled(lambda: tt.decode_step(model, cache, logits.argmax(-1), cfg)))
+    return line
+
+
+def kernel_breakdown(wall_ms, rows, top: int = 12) -> dict:
+    """A profiled window's busy and idle share, device ms by kind of kernel
+    and its ``top`` kernels."""
+    busy = sum(r[0] for r in rows)
+    kinds = {}
+    for ms, _, name in rows:
+        low = name.lower()
+        kind = ("gemm" if any(k in low for k in ("gemm", "xmma", "cutlass", "sm90", "nvjet"))
+                else "reduce" if "reduce" in low else
+                "index/scatter" if any(k in low for k in ("index", "scatter", "gather")) else
+                "elementwise" if "elementwise" in low else "other")
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+    return {"profiled_wall_ms": wall_ms, "busy_ms": busy, "idle_share": 1 - busy / wall_ms,
+            "kernels": sum(r[1] for r in rows), "by_kind_ms": kinds,
+            "top": [[round(ms, 3), n, name[:90]] for ms, n, name in rows[:top]]}
+
+
+def profile_train_step(cfg) -> dict:
+    """One llama3.2-1b train step as ``train_lm`` builds it, after three timed
+    steps: device time by kernel (top 15) and by kind, the busy share."""
+    from repro_torch.launch.train import lm_batch_fn, lm_trainer
+
+    model, opt_state, step_fn = lm_trainer(cfg, LLAMA_STEPS, 64, torch.device("cuda"))
+    state = [opt_state]
+    batch = {k: v.cuda() for k, v in lm_batch_fn(cfg, 8, 128)(0).items()}
+
+    def one():
+        _, state[0], _ = step_fn(model, state[0], batch)
+
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    line = {"first_steps_ms": walls, **kernel_breakdown(*_profiled(one), top=15)}
+    del model, state
+    torch.cuda.empty_cache()
+    return line
+
+
+def phase24() -> dict:
+    """llama3.2-1b at full width (see the module docstring)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models import transformer as tt
+
+    cfg = get_config("llama3.2-1b")
+    line = {"config": dataclasses.asdict(cfg), "n_params": cfg.n_params()}
+
+    # 1. train at repro's launcher defaults, steps cut to LLAMA_STEPS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    history = train_main(["--arch", "llama3.2-1b", "--steps", str(LLAMA_STEPS)])
+    train_s = time.perf_counter() - t0
+    first, last = history[0], history[-1]
+    ms_step = 1e3 * (last["s"] - first["s"]) / (last["step"] - first["step"])
+    tokens = 8 * 128
+    line["train"] = {"steps": LLAMA_STEPS, "batch": 8, "seq": 128, "block": 64,
+                     "history": history, "s": train_s, "ms_per_step": ms_step,
+                     "first_step_s": first["s"], "tok_s": tokens * 1e3 / ms_step,
+                     "peak_gb": (torch.cuda.max_memory_allocated() - before) / 1e9,
+                     "allocated_before_gb": before / 1e9,
+                     "model_flops_share": 6 * cfg.n_params() * tokens
+                     / (ms_step / 1e3 * H100_BF16_FLOPS)}
+    log("llama3.2-1b train: " + json.dumps(line["train"]))
+    losses = [h["loss"] for h in history]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 24: the loss is not finite and falling: {losses}")
+
+    line["train_profile"] = profile_train_step(cfg)
+    log("llama3.2-1b train step profile: " + json.dumps(line["train_profile"]))
+
+    # 2. decode equals forward at full width, float32, TF32 off
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = tt.init_params(cfg32, gen, "cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (2, LM_PROMPT), generator=gen, device="cuda")
+    line["decode_vs_forward"] = greedy_decode_against_forward(model, cfg32, prompt, LM_DECODE,
+                                                              64)
+    log("llama3.2-1b decode vs forward, f32: " + json.dumps(line["decode_vs_forward"]))
+    check_decode("phase 24", line["decode_vs_forward"])
+    del model
+    torch.cuda.empty_cache()
+
+    # 3. serving times in bf16
+    model = tt.init_params(cfg, gen, "cuda")
+    line["serve"] = serve_times(model, cfg, 8, 512, 32, gen)
+    log("llama3.2-1b serve, bf16: " + json.dumps(line["serve"]))
+    if not line["serve"]["finite"] or line["serve"]["length"] != 512 + 32:
+        raise AssertionError(f"phase 24: serving {line['serve']}")
+    del model
+    torch.cuda.empty_cache()
+
+    # 4. attention alone beside SDPA
+    line["attention"] = lm_attention_times()
+    log("blockwise_attention vs SDPA: " + json.dumps(line["attention"]))
+
+    # 5. the SMOKE forward on the card equals the CPU's
+    smoke = get_smoke_config("llama3.2-1b")
+    cpu_model = tt.init_params(smoke, torch.Generator().manual_seed(1), device="cpu")
+    card_model = copy.deepcopy(cpu_model).to("cuda")
+    toks = torch.randint(0, smoke.vocab_size, (2, 24), generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        want, _ = tt.forward(cpu_model, toks, smoke, block_q=8, block_kv=8)
+        got, _ = tt.forward(card_model, toks.cuda(), smoke, block_q=8, block_kv=8)
+    line["cpu_agreement_max_abs_err"] = float((got.cpu() - want).abs().max())
+    log(f"SMOKE forward, card against CPU: max abs err {line['cpu_agreement_max_abs_err']}")
+    if not torch.allclose(got.cpu(), want, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"phase 24: the card's SMOKE forward differs from the CPU's by "
+                             f"{line['cpu_agreement_max_abs_err']}")
+    return line
+
+
+def check_decode(label: str, res: dict) -> None:
+    if not (res["finite"] and res["close"] and res["argmax_equal"]):
+        raise AssertionError(f"{label}: decode differs from forward beyond {DECODE_TOL} of "
+                             f"the largest logit, or in its argmax: {res}")
+
+
+class SimulatedCrash(Exception):
+    """The failure phase 25 injects into a training run."""
+
+
+@contextlib.contextmanager
+def batches_die_at(step: int):
+    """``launch.train``'s batch source raises SimulatedCrash at ``step``: the
+    run dies there, after the steps before it and their checkpoints."""
+    from repro_torch.launch import train
+
+    batches = train.lm_batch_fn
+
+    def dying(*args, **kwargs):
+        make = batches(*args, **kwargs)
+
+        def made(s):
+            if s == step:
+                raise SimulatedCrash(f"killed before step {step}")
+            return make(s)
+
+        return made
+
+    train.lm_batch_fn = dying
+    try:
+        yield
+    finally:
+        train.lm_batch_fn = batches
+
+
+@contextlib.contextmanager
+def decode_window_off_by_one():
+    """A planted fault: ``decode_step``'s local layers attend one key more
+    than their window (``pos >= total - w - 1``); forward is left as it is."""
+    from repro_torch.models import transformer as tt
+
+    attend = tt.decode_attention_local
+
+    def wider(q, k, v, total, *, window=0, **kw):
+        return attend(q, k, v, total, window=window + 1 if window > 0 else 0, **kw)
+
+    tt.decode_attention_local = wider
+    try:
+        yield
+    finally:
+        tt.decode_attention_local = attend
+
+
+def phase25() -> dict:
+    """Crash-resume at llama-110m and gemma3-12b at full width (module docstring)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import LMConfig
+    from repro_torch.launch.train import train_lm
+    from repro_torch.models import transformer as tt
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import adamw, warmup_cosine
+
+    cfg110 = LMConfig(**CFG_110M_FIELDS)
+    line = {}
+    # 1. crash-resume: killed after step KILL_AT (its checkpoint) and resumed to the end,
+    # beside an uninterrupted run; same schedule, data and seed
+    kw = dict(steps=RESUME_STEPS, batch=4, seq=256, block=64, device="cuda", ckpt_every=50)
+    t0 = time.perf_counter()
+    full_model, full = train_lm(cfg110, **kw)
+    full_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        try:
+            with batches_die_at(KILL_AT + 1):
+                train_lm(cfg110, ckpt_dir=d, **kw)
+            raise AssertionError("phase 25: the run to be killed was not")
+        except SimulatedCrash:
+            pass
+        killed_s = time.perf_counter() - t0
+        resumed_from = ckpt.latest_step(d)
+        t0 = time.perf_counter()
+        model, resumed = train_lm(cfg110, ckpt_dir=d, **kw)
+        resumed_s = time.perf_counter() - t0
+        # save and restore of this size alone: params and an AdamW state
+        params = dict(model.named_parameters())
+        tree = {"params": params, "opt": adamw(warmup_cosine(1e-3, 1, 2)).init(params)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save(os.path.join(d, "timed"), 0, tree)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ckpt.restore(os.path.join(d, "timed"), tree)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        nbytes = sum(t.numel() * t.element_size() for t in (list(params.values())
+                     + list(tree["opt"]["mu"].values()) + list(tree["opt"]["nu"].values())))
+    by_step = {h["step"]: h["loss"] for h in full}
+    pairs = [(h["step"], h["loss"], by_step[h["step"]]) for h in resumed]
+    rel = max(abs(a - b) / abs(b) for _, a, b in pairs)
+    want = dict(full_model.named_parameters())
+    params_equal = all(torch.equal(p, want[n]) for n, p in params.items())
+    param_err = max(float((p - want[n]).abs().max()) for n, p in params.items())
+    line["resume"] = {"config": dataclasses.asdict(cfg110), "n_params": cfg110.n_params(),
+                      "steps": RESUME_STEPS, "killed_after": KILL_AT,
+                      "resumed_from": resumed_from,
+                      "losses_resumed_vs_uninterrupted": pairs, "max_rel_diff": rel,
+                      "bit_exact": all(a == b for _, a, b in pairs),
+                      "params_bit_exact": params_equal, "params_max_abs_diff": param_err,
+                      "uninterrupted_s": full_s, "killed_run_s": killed_s,
+                      "resumed_run_s": resumed_s, "save_s": save_s, "restore_s": restore_s,
+                      "checkpoint_gb": nbytes / 1e9,
+                      "first_loss": full[0]["loss"], "last_loss": full[-1]["loss"]}
+    log("llama-110m crash-resume: " + json.dumps(line["resume"]))
+    if resumed_from != KILL_AT or resumed[0]["step"] <= KILL_AT:
+        raise AssertionError(f"phase 25: resumed from {resumed_from}, first logged "
+                             f"{resumed[0]}")
+    bit_exact = line["resume"]["bit_exact"] and params_equal
+    if not bit_exact or not full[-1]["loss"] < full[0]["loss"]:
+        raise AssertionError(f"phase 25: the resumed run's losses (rel {rel}) or parameters "
+                             f"(max abs {param_err}) differ from the uninterrupted run's, or "
+                             f"the loss did not fall")
+    del model, full_model, params, want, tree
+    torch.cuda.empty_cache()
+
+    # 2. gemma3-12b at full width: one 5:1 period in f32, the window bites past 1,024
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    cfg6 = dataclasses.replace(get_config("gemma3-12b"), n_layers=GEMMA_CUT_LAYERS,
+                               dtype="float32")
+    model = tt.init_params(cfg6, gen, "cuda")
+    prompt = torch.randint(0, cfg6.vocab_size, (1, GEMMA_PROMPT), generator=gen, device="cuda")
+    line["gemma_window"] = greedy_decode_against_forward(model, cfg6, prompt, LM_DECODE, 512)
+    line["gemma_window"]["n_params"] = cfg6.n_params()
+    log(f"gemma3-12b at {GEMMA_CUT_LAYERS} layers, f32, prompt {GEMMA_PROMPT}: "
+        + json.dumps(line["gemma_window"]))
+    check_decode("phase 25", line["gemma_window"])
+    # the same with the decode window planted one key wide: the check must fail it
+    with decode_window_off_by_one():
+        planted = greedy_decode_against_forward(model, cfg6, prompt, LM_DECODE, 512)
+    line["gemma_window_planted_off_by_one"] = planted
+    log("gemma3-12b, decode window planted one key wide: " + json.dumps(planted))
+    if planted["close"]:
+        raise AssertionError(f"phase 25: a decode window off by one passes DECODE_TOL "
+                             f"{DECODE_TOL}: {planted}")
+    del model
+    torch.cuda.empty_cache()
+
+    # then the full 48 layers in bf16: prefill 2,048 and 16 decode steps
+    cfg = get_config("gemma3-12b")
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = tt.init_params(cfg, gen, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    line["gemma_full"] = serve_times(model, cfg, 1, 2048, LM_DECODE, gen)
+    line["gemma_full"].update(n_params=cfg.n_params(), init_s=init_s,
+                              peak_gb=(torch.cuda.max_memory_allocated() - before) / 1e9,
+                              allocated_before_gb=before / 1e9)
+    log("gemma3-12b full, bf16: " + json.dumps(line["gemma_full"]))
+    if not line["gemma_full"]["finite"]:
+        raise AssertionError(f"phase 25: gemma3-12b {line['gemma_full']}")
+    del model
+    torch.cuda.empty_cache()
     return line
 
 
@@ -2520,6 +2979,16 @@ def main() -> int:
 
     lap("23 two-tower path")
 
+    # -- 24. llama3.2-1b at full width: train, decode = forward, serving, attention -------
+    lm24 = phase24()
+
+    lap("24 llama3.2-1b")
+
+    # -- 25. crash-resume at llama-110m; gemma3-12b's window and full depth --------------
+    lm25 = phase25()
+
+    lap("25 resume and gemma3-12b")
+
     def err_of(kernel_name):
         return max(v for k, v in max_err.items() if k[0] == kernel_name and k[1] == "kl")
 
@@ -2661,6 +3130,7 @@ def main() -> int:
     log("sharded: " + json.dumps({"serve_defaults": sharded19, "full_width": sharded20}))
     log("tuning and learning: " + json.dumps({"tuner": tune21, "learned": learned22,
                                               "two_tower": two_tower23}))
+    log("dense LM: " + json.dumps({"llama3.2-1b": lm24, "resume_and_gemma3": lm25}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"timings read from CUDA events, the profiler having fallen short: "
         f"{len(PROFILER_FALLBACKS)} {PROFILER_FALLBACKS}")

@@ -1,9 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolution (PyTorch port of
 ``repro.configs``).
 
-Only the two-tower retrieval model is ported.  The JAX package's other
-architectures (the LMs, GNN, the other recsys models and the paper's
-retrieval configs) raise ``NotImplementedError`` naming ROADMAP M17.
+Ported: the dense LMs (llama3.2-1b, gemma3-12b, yi-34b) and the two-tower
+retrieval model.  The JAX package's other architectures (the MoE LMs, GNN,
+the other recsys models and the paper's retrieval configs) raise
+``NotImplementedError`` naming their ROADMAP item (M17's queue).
 """
 
 from __future__ import annotations
@@ -11,11 +12,14 @@ from __future__ import annotations
 import importlib
 
 _ARCH_MODULES = {
+    "yi-34b": ("repro_torch.configs.yi_34b", "lm"),
+    "gemma3-12b": ("repro_torch.configs.gemma3_12b", "lm"),
+    "llama3.2-1b": ("repro_torch.configs.llama3_2_1b", "lm"),
     "two-tower-retrieval": ("repro_torch.configs.two_tower", "recsys"),
 }
-# the JAX package's registry, not ported yet (ROADMAP M17)
-_UNPORTED = ("yi-34b", "gemma3-12b", "llama3.2-1b", "phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b",
-             "gcn-cora", "autoint", "din", "dcn-v2", "swgraph-retrieval")
+# the JAX package's registry, not ported yet (ROADMAP M17's queue)
+_UNPORTED = ("phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b", "gcn-cora", "autoint", "din",
+             "dcn-v2", "swgraph-retrieval")
 
 ARCH_IDS = list(_ARCH_MODULES)
 

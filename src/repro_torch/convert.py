@@ -7,7 +7,7 @@ if need be; ``shard_from_jax`` takes ``repro``'s sharded state (the rows and
 ``build_local_subgraphs``' padded local adjacency) and returns one rank's
 block.  ``spec_dict`` is the index's ``spec.to_dict()``.
 ``recsys_params_from_jax`` loads ``repro``'s two-tower param dict into the
-port's module, and ``mahalanobis_from_jax`` takes a fitted map.  Nothing here
+port's module, ``lm_params_from_jax`` its dense LM's stacked params, and ``mahalanobis_from_jax`` takes a fitted map.  Nothing here
 imports JAX: the caller hands over plain arrays, as a model's weights would
 be handed over.
 """
@@ -168,3 +168,46 @@ def mahalanobis_from_jax(L, device="cuda") -> torch.Tensor:
     """A fitted Mahalanobis map (``repro.core.metric_learning.fit_mahalanobis_map``'s
     (m, rank) array) as a float32 tensor on ``device``."""
     return torch.from_numpy(np.array(L, dtype=np.float32)).to(resolve_device(device))
+
+
+def _from_np(a) -> torch.Tensor:
+    """A numpy array (float32, or ``ml_dtypes.bfloat16`` as JAX hands bf16
+    over, which ``torch.from_numpy`` rejects) as a writable CPU tensor."""
+    a = np.array(a)  # a copy: arrays taken from JAX are read-only buffers
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def lm_params_from_jax(params_np: dict, cfg, device="cuda"):
+    """The port's ``LMParams`` holding ``repro``'s dense LM params, on ``device``.
+
+    ``params_np`` is ``repro.models.transformer.init_params``' dict as numpy
+    arrays: ``embed``, ``ln_f``, ``layers`` (stacked (L, ...) arrays) and
+    ``lm_head`` when untied.  ``ValueError`` when a name, shape or dtype
+    differs from what ``cfg`` gives.
+    """
+    from repro_torch.models.transformer import LAYER_WEIGHTS, LMParams, _dt
+
+    dev = resolve_device(device)
+    d, L, V = cfg.d_model, cfg.n_layers, cfg.vocab_size
+    hq, hkv = cfg.n_heads_padded * cfg.d_head, cfg.n_kv_heads * cfg.d_head
+    want = {"embed": (V, d), "ln_f": (d,), "layers.ln_attn": (L, d), "layers.ln_mlp": (L, d),
+            "layers.wq": (L, d, hq), "layers.wk": (L, d, hkv), "layers.wv": (L, d, hkv),
+            "layers.wo": (L, hq, d), "layers.w_gate": (L, d, cfg.d_ff),
+            "layers.w_up": (L, d, cfg.d_ff), "layers.w_down": (L, cfg.d_ff, d)}
+    if not cfg.tie_embeddings:
+        want["lm_head"] = (d, V)
+    arrays = {k: v for k, v in params_np.items() if k != "layers"}
+    arrays.update({f"layers.{k}": v for k, v in params_np.get("layers", {}).items()})
+    if set(arrays) != set(want):
+        raise ValueError(f"param names {sorted(arrays)} differ from the model's {sorted(want)}")
+    tensors = {}
+    for name, shape in want.items():
+        t = _from_np(arrays[name])
+        if tuple(t.shape) != shape or t.dtype != _dt(cfg):
+            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, the model's {shape} "
+                             f"{_dt(cfg)}")
+        tensors[name] = t.to(dev)
+    return LMParams(tensors["embed"], tensors["ln_f"],
+                    {k: tensors[f"layers.{k}"] for k in LAYER_WEIGHTS}, tensors.get("lm_head"))

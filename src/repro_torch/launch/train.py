@@ -1,31 +1,113 @@
-"""Training launcher (PyTorch port of ``repro.launch.train``, recsys).
+"""Training launcher (PyTorch port of ``repro.launch.train``): config -> data
+pipeline -> train step -> checkpoints.
 
+    python -m repro_torch.launch.train [--arch llama3.2-1b] [--smoke] [--steps 100] \
+        [--batch 8] [--seq 128] [--ckpt-dir DIR] [--device cpu]
     python -m repro_torch.launch.train --arch two-tower-retrieval --smoke --steps 60 \
-        --batch 256 [--device cpu]
+        --batch 256
 
-``train_recsys`` trains the two-tower model with AdamW under a warmup-cosine
-schedule on synthetic batches (``data.synthetic.recsys_batch``, batch
-``step`` drawn from ``numpy.random.default_rng((BATCH_SEED, step))``).  The LM
-and GNN families, checkpointing and the mesh wait for ROADMAP M17.
+``train_lm`` trains a dense LM with AdamW under a warmup-cosine schedule on
+synthetic token batches (``lm_batch_fn``: batch ``step`` drawn from
+``numpy.random.default_rng((seed, step))``, since ``jax.random`` cannot be
+replayed).  With a checkpoint directory it resumes (params, optimizer state)
+and the data cursor from the latest checkpoint, so a killed run continues
+where it stopped.  ``train_recsys`` trains the two-tower model.  The GNN
+family and the mesh wait for ROADMAP M17's queue.
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import get_config, get_family, get_smoke_config
+from repro_torch.data.pipeline import DataPipeline
 from repro_torch.data.synthetic import recsys_batch
-from repro_torch.models import recsys
+from repro_torch.models import recsys, transformer
+from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train.optimizer import adamw, warmup_cosine
-from repro_torch.train.train_step import make_train_step, recsys_loss
+from repro_torch.train.train_step import lm_loss, make_train_step, recsys_loss
 
 # repro's train_recsys: its peak learning rate, warmup steps and batch key
 PEAK_LR, WARMUP, BATCH_SEED = 1e-3, 10, 1
+# repro's train_lm: its peak learning rate and batch key
+LM_PEAK_LR, LM_BATCH_SEED = 3e-4, 0
+
+
+def lm_batch_fn(cfg, batch: int, seq: int):
+    """``make(step)`` -> {"tokens", "labels"} (batch, seq) int64 CPU tensors:
+    tokens ``u * u * (V - 1)`` for u uniform in [0, 1), labels shifted by one."""
+    def make(step: int):
+        u = np.random.default_rng((LM_BATCH_SEED, step)).random((batch, seq + 1),
+                                                                dtype=np.float32)
+        toks = torch.from_numpy((u * u * (cfg.vocab_size - 1)).astype(np.int64))
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    return make
+
+
+def lm_trainer(cfg, steps: int, block: int, device):
+    """``train_lm``'s model (seed 0), AdamW state and train step for a run of
+    ``steps`` steps with attention blocks of ``block``."""
+    model = transformer.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+    opt = adamw(warmup_cosine(LM_PEAK_LR, max(steps // 20, 5), steps))
+    step_fn = make_train_step(lambda m, b: lm_loss(m, b, cfg, block_q=block, block_kv=block),
+                              opt)
+    return model, opt.init(dict(model.named_parameters())), step_fn
+
+
+def train_lm(cfg, *, steps: int = 200, batch: int = 8, seq: int = 128,
+             ckpt_dir: Optional[str] = None, ckpt_every: int = 50, log_every: int = 10,
+             block: int = 64, device="cuda"):
+    """Train an LM config for ``steps`` steps; returns (model, history).
+
+    History: per logged step its ``loss``, ``grad_norm``, ``tok_s`` and ``s``
+    (seconds since the loop began, read after the loss's host copy, which
+    waits for the step).  An exception from the batch source ends the run
+    at that step, as a crash would; a rerun with the same ``ckpt_dir``
+    resumes from the latest checkpoint.
+    """
+    dev = resolve_device(device)
+    model, opt_state, step_fn = lm_trainer(cfg, steps, block, dev)
+
+    start, mgr = 0, None
+    if ckpt_dir:
+        mgr = ckpt_lib.CheckpointManager(ckpt_dir, keep=2, every=ckpt_every)
+        state, last = mgr.resume({"params": dict(model.named_parameters()), "opt": opt_state})
+        if last >= 0:
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    p.copy_(state["params"][name])
+            opt_state, start = state["opt"], last + 1
+            print(f"resumed from step {last}")
+
+    pipe = iter(DataPipeline(lm_batch_fn(cfg, batch, seq), start_step=start))
+    history = []
+    t0 = time.perf_counter()
+    try:
+        for _ in range(start, steps):
+            step, b = next(pipe)
+            b = {k: v.to(dev) for k, v in b.items()}
+            model, opt_state, metrics = step_fn(model, opt_state, b)
+            if step % log_every == 0 or step == steps - 1:
+                loss = float(metrics["loss"])  # jaxlint: disable=JL003 (logged steps only)
+                gnorm = float(metrics["grad_norm"])  # jaxlint: disable=JL003 (logged steps only)
+                s = time.perf_counter() - t0
+                tok_s = batch * seq * (step - start + 1) / max(s, 1e-9)
+                print(f"step {step:5d} loss {loss:.4f} gnorm {gnorm:.3f} tok/s {tok_s:,.0f}")
+                history.append({"step": step, "loss": loss, "grad_norm": gnorm,
+                                "tok_s": tok_s, "s": s})
+            if mgr:
+                mgr.maybe_save(step, {"params": dict(model.named_parameters()),
+                                      "opt": opt_state})
+    finally:
+        pipe.close()
+    return model, history
 
 
 def train_recsys(cfg, *, steps: int = 100, batch: int = 256, log_every: int = 10,
@@ -52,15 +134,22 @@ def train_recsys(cfg, *, steps: int = 100, batch: int = 256, log_every: int = 10
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="two-tower-retrieval")
+    ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--smoke", action="store_true", help="reduced config")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    _, history = train_recsys(cfg, steps=args.steps, batch=args.batch, device=args.device)
+    family = get_family(args.arch)
+    if family == "lm":
+        _, history = train_lm(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
+                              ckpt_dir=args.ckpt_dir, device=args.device)
+    else:  # the registry's only other ported family
+        _, history = train_recsys(cfg, steps=args.steps, batch=args.batch, device=args.device)
     return history
 
 

@@ -1,0 +1,273 @@
+"""Decoder-only transformer LM, dense (PyTorch port of ``repro.models.transformer``).
+
+Parameters keep ``repro``'s STACKED layout: each per-layer weight is one
+(L, d_in, d_out) parameter (``layers.wq`` ... ``layers.w_down``, the norms
+(L, d)), beside ``embed`` (V, d), ``ln_f`` (d,) and, when the embeddings are
+not tied, ``lm_head`` (d, V).  So ``convert.lm_params_from_jax`` is a copy,
+checkpoint names follow ``repro``'s tree, and Adafactor's RMS clip runs over
+the whole stacked tensor as ``repro``'s does.  The layer loop is Python; one
+``torch.unbind`` per stacked parameter hands each layer its views, so the
+backward stacks each gradient once.
+
+``prefill`` and ``decode_step`` serve: the KV cache is (L, B, max_len, Hkv,
+dh) per k and v plus ``length`` (B,) int32, and ``decode_step`` writes the
+new token's k and v into it in place.  gemma3's local:global pattern picks
+each layer's window in Python (``layer_locality``).
+
+Not ported here: the MoE FFN (``cfg.is_moe``), the sequence-parallel decode
+over a mesh and the mesh's partition specs; each raises
+``NotImplementedError`` naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import LMConfig
+from repro_torch.models.layers import (
+    apply_rope,
+    blockwise_attention,
+    decode_attention_local,
+    dense_init,
+    lse_combine,
+    rms_norm,
+    swiglu,
+)
+
+LAYER_WEIGHTS = ("ln_attn", "ln_mlp", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def _dt(cfg: LMConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+class LMParams(nn.Module):
+    """``repro``'s param dict as module attributes: ``embed``, ``ln_f``,
+    ``layers.<name>`` (stacked over L) and ``lm_head`` (None when tied)."""
+
+    def __init__(self, embed, ln_f, layers: dict, lm_head=None):
+        super().__init__()
+        self.embed = nn.Parameter(embed)
+        self.ln_f = nn.Parameter(ln_f)
+        self.layers = nn.ParameterDict({k: nn.Parameter(layers[k]) for k in LAYER_WEIGHTS})
+        self.lm_head = None if lm_head is None else nn.Parameter(lm_head)
+
+
+def _check_dense(cfg: LMConfig) -> None:
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name} is a mixture-of-experts LM; the MoE FFN (models/moe.py) is not "
+            "ported to repro_torch yet (ROADMAP M17: MoE)")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: LMConfig, generator=None, device="cuda") -> LMParams:
+    """Random weights of ``cfg``'s shapes and dtype: ``repro``'s scales, drawn
+    from ``generator`` (default: seed 0 on ``device``) layer by layer."""
+    _check_dense(cfg)
+    dev = resolve_device(device)
+    gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
+    dt = _dt(cfg)
+    d, L = cfg.d_model, cfg.n_layers
+    hq = cfg.n_heads_padded * cfg.d_head
+    hkv = cfg.n_kv_heads * cfg.d_head
+
+    def draw(d_in, d_out, scale=None):
+        return dense_init(gen, d_in, d_out, scale, device=gen.device).to(dev, dt)
+
+    def stacked(d_in, d_out):
+        w = torch.empty((L, d_in, d_out), dtype=dt, device=dev)
+        for i in range(L):
+            w[i] = draw(d_in, d_out)
+        return w
+
+    layers = {"ln_attn": torch.ones((L, d), dtype=dt, device=dev),
+              "ln_mlp": torch.ones((L, d), dtype=dt, device=dev),
+              "wq": stacked(d, hq), "wk": stacked(d, hkv), "wv": stacked(d, hkv),
+              "wo": stacked(hq, d), "w_gate": stacked(d, cfg.d_ff),
+              "w_up": stacked(d, cfg.d_ff), "w_down": stacked(cfg.d_ff, d)}
+    embed = draw(cfg.vocab_size, d, scale=1.0)
+    head = None if cfg.tie_embeddings else draw(d, cfg.vocab_size)
+    return LMParams(embed, torch.ones((d,), dtype=dt, device=dev), layers, head)
+
+
+def param_specs(*args, **kwargs):
+    raise NotImplementedError("partition specs need the device mesh (sharding/api.py), "
+                              "not ported to repro_torch yet (ROADMAP M17: sharding)")
+
+
+kv_cache_specs = param_specs
+
+
+def _wo_masked(wo, cfg: LMConfig):
+    """o-proj with hard-zeroed rows for padded heads: the padded model is
+    exactly the unpadded one."""
+    if cfg.n_heads_padded == cfg.n_heads:
+        return wo
+    mask = torch.arange(cfg.n_heads_padded, device=wo.device) < cfg.n_heads
+    mask = torch.repeat_interleave(mask, cfg.d_head).to(wo.dtype)
+    return wo * mask[:, None]
+
+
+def layer_locality(cfg: LMConfig) -> torch.Tensor:
+    """(L,) bool: True = sliding-window (local) layer (gemma3's 5:1 pattern)."""
+    n_local, n_global = cfg.local_global
+    period = max(n_local + n_global, 1)
+    return (torch.arange(cfg.n_layers) % period) < n_local
+
+
+def _layer_views(params: LMParams, cfg: LMConfig):
+    """Per layer: a dict of its weights (views), and its window (0 = none)."""
+    per_name = {k: torch.unbind(params.layers[k], 0) for k in LAYER_WEIGHTS}
+    windows = [cfg.sliding_window if loc else 0 for loc in layer_locality(cfg).tolist()]
+    return [({k: per_name[k][i] for k in LAYER_WEIGHTS}, windows[i])
+            for i in range(cfg.n_layers)]
+
+
+# ---------------------------------------------------------------------------
+# forward (training / prefill)
+# ---------------------------------------------------------------------------
+
+
+def _attention_block(x, lp, cfg: LMConfig, positions, window: int, *, block_q, block_kv):
+    """The residual stream after attention, and this layer's k and v."""
+    B, T, _ = x.shape
+    h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
+    q = (h @ lp["wq"]).reshape(B, T, cfg.n_heads_padded, cfg.d_head)
+    k = (h @ lp["wk"]).reshape(B, T, cfg.n_kv_heads, cfg.d_head)
+    v = (h @ lp["wv"]).reshape(B, T, cfg.n_kv_heads, cfg.d_head)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = blockwise_attention(q, k, v, window=window, block_q=block_q,
+                              block_kv=block_kv)
+    return x + out.reshape(B, T, -1) @ _wo_masked(lp["wo"], cfg), k, v
+
+
+def _ffn_block(x, lp, cfg: LMConfig):
+    h = rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
+    return x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+
+
+def _layer(x, lp, cfg, positions, window, block_q, block_kv):
+    x, _, _ = _attention_block(x, lp, cfg, positions, window, block_q=block_q,
+                               block_kv=block_kv)
+    return _ffn_block(x, lp, cfg)
+
+
+def _embed(params: LMParams, tokens, cfg: LMConfig):
+    tokens = tokens.long()
+    B, T = tokens.shape
+    positions = torch.arange(T, device=tokens.device).expand(B, T)
+    return params.embed[tokens].to(_dt(cfg)), positions
+
+
+def forward_hidden(params: LMParams, tokens, cfg: LMConfig, *, block_q: int = 512,
+                   block_kv: int = 512):
+    """tokens (B, T) -> final-norm hidden states (B, T, d), and the MoE aux
+    sum (0 for a dense model).  ``cfg.remat`` recomputes each layer in the
+    backward (``torch.utils.checkpoint``)."""
+    _check_dense(cfg)
+    x, positions = _embed(params, tokens, cfg)
+    for lp, window in _layer_views(params, cfg):
+        fn = functools.partial(_layer, lp=lp, cfg=cfg, positions=positions, window=window,
+                               block_q=block_q, block_kv=block_kv)
+        x = checkpoint(fn, x, use_reentrant=False) if cfg.remat else fn(x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return rms_norm(x, params.ln_f, cfg.norm_eps), aux
+
+
+def lm_head(params: LMParams, cfg: LMConfig):
+    return params.embed.T if cfg.tie_embeddings else params.lm_head
+
+
+def forward(params: LMParams, tokens, cfg: LMConfig, *, block_q: int = 512,
+            block_kv: int = 512):
+    """tokens (B, T) -> logits (B, T, V) in the param dtype, and aux."""
+    x, aux = forward_hidden(params, tokens, cfg, block_q=block_q, block_kv=block_kv)
+    return x @ lm_head(params, cfg), aux
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + single-token decode with KV cache
+# ---------------------------------------------------------------------------
+
+
+def init_kv_cache(cfg: LMConfig, batch: int, max_len: int, device="cuda"):
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    dt = _dt(cfg)
+    return {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev),
+            "length": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+
+
+@torch.no_grad()
+def prefill(params: LMParams, tokens, cfg: LMConfig, *, max_len: int | None = None,
+            block_q: int = 512, block_kv: int = 512):
+    """Forward over the prompt, materialising the KV cache.
+
+    Returns (last-position logits (B, V), cache); the cache's sequence axis
+    is padded to ``max_len`` (decode continues into the padding).
+    """
+    _check_dense(cfg)
+    B, T = tokens.shape
+    x, positions = _embed(params, tokens, cfg)
+    cache = init_kv_cache(cfg, B, max_len or T, device=x.device)
+    for i, (lp, window) in enumerate(_layer_views(params, cfg)):
+        x, k, v = _attention_block(x, lp, cfg, positions, window, block_q=block_q,
+                                   block_kv=block_kv)
+        x = _ffn_block(x, lp, cfg)
+        cache["k"][i, :, :T] = k
+        cache["v"][i, :, :T] = v
+    cache["length"].fill_(T)
+    x = rms_norm(x[:, -1], params.ln_f, cfg.norm_eps)
+    return x @ lm_head(params, cfg), cache
+
+
+@torch.no_grad()
+def decode_step(params: LMParams, cache, tokens, cfg: LMConfig, *, mesh=None):
+    """One decode step: tokens (B,) -> logits (B, V), and the cache with the
+    new token's k and v written in place at ``length`` and ``length`` + 1."""
+    _check_dense(cfg)
+    if mesh is not None:
+        raise NotImplementedError(
+            "sequence-parallel decode over a mesh (_sp_decode_attention) is not ported to "
+            "repro_torch yet (ROADMAP M17: sharding)")
+    tokens = tokens.long()
+    B = tokens.shape[0]
+    x = params.embed[tokens].to(_dt(cfg))[:, None, :]  # (B, 1, d)
+    length = cache["length"]
+    positions = length[:, None].long()
+    for i, (lp, window) in enumerate(_layer_views(params, cfg)):
+        h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
+        q = (h @ lp["wq"]).reshape(B, 1, cfg.n_heads_padded, cfg.d_head)
+        k_new = (h @ lp["wk"]).reshape(B, 1, cfg.n_kv_heads, cfg.d_head)
+        v_new = (h @ lp["wv"]).reshape(B, 1, cfg.n_kv_heads, cfg.d_head)
+        q = apply_rope(q, positions, cfg.rope_theta)[:, 0]  # (B, Hq, dh)
+        k_new = apply_rope(k_new, positions, cfg.rope_theta)
+        kc, vc = _append_kv(cache["k"][i], cache["v"][i], k_new, v_new, length)
+        o, m, l = decode_attention_local(q, kc, vc, length + 1, window=window)
+        out = lse_combine([(o, m, l)]).to(x.dtype).reshape(B, 1, -1)
+        x = x + out @ _wo_masked(lp["wo"], cfg)
+        x = _ffn_block(x, lp, cfg)
+    cache = {"k": cache["k"], "v": cache["v"], "length": length + 1}
+    x = rms_norm(x, params.ln_f, cfg.norm_eps)
+    return (x @ lm_head(params, cfg))[:, 0], cache
+
+
+def _append_kv(k_cache, v_cache, k_new, v_new, length):
+    """Write the new token's kv at ``length`` (per batch row), in place."""
+    b_idx = torch.arange(k_new.shape[0], device=k_cache.device)
+    pos = length.long()
+    k_cache[b_idx, pos] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[b_idx, pos] = v_new[:, 0].to(v_cache.dtype)
+    return k_cache, v_cache

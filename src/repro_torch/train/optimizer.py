@@ -1,4 +1,5 @@
-"""Hand-rolled AdamW and its schedule (PyTorch port of ``repro.train.optimizer``).
+"""Hand-rolled AdamW and Adafactor and their schedule (PyTorch port of
+``repro.train.optimizer``).
 
 The update follows ``repro``'s order of operations, not ``torch.optim.AdamW``'s:
 
@@ -8,11 +9,14 @@ The update follows ``repro``'s order of operations, not ``torch.optim.AdamW``'s:
 with the step counted from 1 and bc_i = 1 - b_i^step.  Parameters, gradients
 and moments are dicts of tensors keyed by parameter name; reductions over
 them run in sorted-key order (the JAX package's tree order for the two-tower
-params).  Adafactor waits for ROADMAP M17.
+params and the LM's).  Adafactor (Shazeer & Stern 2018) factors its second
+moment over the trailing two axes and keeps the leading (layer) axis.  The
+mesh's state specs wait for ROADMAP M17's sharding item.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, NamedTuple
 
@@ -74,5 +78,74 @@ def adamw(lr: Callable, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             updates[k] = (-lr_t.to(g.device) * u).to(p.dtype)
             mu[k], nu[k] = m, v
         return updates, {"step": step, "mu": mu, "nu": nu}
+
+    return Optimizer(init, update)
+
+
+# a stacked tensor (ndim >= 3) of at least this many elements is updated per
+# leading slice, with a per-slice RMS clip (repro's threshold, optimizer.py:157)
+PER_SLICE_MIN_SIZE = 1 << 28
+# repro's Adafactor defaults: beta = 1 - (step + 1)^-ADAFACTOR_DECAY, the
+# floor added to g^2, the RMS the update is clipped to
+ADAFACTOR_DECAY, ADAFACTOR_EPS, ADAFACTOR_CLIP = 0.8, 1e-30, 1.0
+
+
+def adafactor(lr: Callable, weight_decay: float = 0.0,
+              min_dim_factored: int = 128) -> Optimizer:
+    """Adafactor in ``repro``'s order: factored (row ``vr`` and column ``vc``
+    statistics) where both trailing dims are >= ``min_dim_factored``, no first
+    moment, beta = 1 - (step + 1)^-ADAFACTOR_DECAY, the update clipped to RMS
+    ``ADAFACTOR_CLIP``, optional weight decay."""
+    def use_factored(p):
+        return p.ndim >= 2 and min(p.shape[-1], p.shape[-2]) >= min_dim_factored
+
+    def init(params: dict) -> dict:
+        def one(p):
+            z = functools.partial(torch.zeros, dtype=torch.float32, device=p.device)
+            if use_factored(p):
+                return {"vr": z(p.shape[:-1]), "vc": z(p.shape[:-2] + p.shape[-1:])}
+            return {"v": z(p.shape)}
+
+        return {"step": 0, "v": {k: one(p) for k, p in params.items()}}
+
+    def update(grads: dict, state: dict, params: dict):
+        step = state["step"] + 1
+        lr_t = lr(step)
+        beta = 1.0 - (torch.tensor(step, dtype=torch.float32) + 1.0) ** -ADAFACTOR_DECAY
+
+        def one_small(g, s, p):
+            g = g.float()
+            b = beta.to(g.device)
+            g2 = g * g + ADAFACTOR_EPS
+            if "vr" in s:
+                vr = b * s["vr"] + (1 - b) * torch.mean(g2, dim=-1)
+                vc = b * s["vc"] + (1 - b) * torch.mean(g2, dim=-2)
+                r = vr / torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=ADAFACTOR_EPS)
+                u = g / (torch.sqrt(r)[..., None] * torch.sqrt(vc)[..., None, :])
+                new_s = {"vr": vr, "vc": vc}
+            else:
+                v = b * s["v"] + (1 - b) * g2
+                u = g / torch.sqrt(v)
+                new_s = {"v": v}
+            rms = torch.sqrt(torch.mean(u * u) + 1e-30)
+            u = u / torch.clamp(rms / ADAFACTOR_CLIP, min=1.0)
+            if weight_decay:
+                u = u + weight_decay * p.detach().float()
+            return (-lr_t.to(g.device) * u).to(p.dtype), new_s
+
+        def one(g, s, p):
+            # a huge stacked tensor updates slice by slice: bounds the f32
+            # temporaries to one layer; the RMS clip is then per layer
+            if p.ndim >= 3 and p.numel() >= PER_SLICE_MIN_SIZE:
+                outs = [one_small(g[i], {k: t[i] for k, t in s.items()}, p[i])
+                        for i in range(p.shape[0])]
+                return (torch.stack([o[0] for o in outs]),
+                        {k: torch.stack([o[1][k] for o in outs]) for k in s})
+            return one_small(g, s, p)
+
+        updates, v = {}, {}
+        for k, g in grads.items():
+            updates[k], v[k] = one(g, state["v"][k], params[k])
+        return updates, {"step": step, "v": v}
 
     return Optimizer(init, update)

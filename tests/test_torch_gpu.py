@@ -11,6 +11,8 @@ its kernels: a kernel sums the float32 dot products in another order than
 its plain version.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -913,8 +915,6 @@ def test_two_tower_embeddings_on_the_card_match_the_cpu_path(cuda):
     path's within 1e-5; one more train step from equal weights gives the same
     loss and gradient norm (rtol 1e-5); the retrieval scores go through
     ``distance_matrix``."""
-    import copy
-
     from repro_torch.configs import get_smoke_config
     from repro_torch.data.synthetic import recsys_batch
     from repro_torch.launch.train import train_recsys
@@ -946,3 +946,98 @@ def test_two_tower_embeddings_on_the_card_match_the_cpu_path(cuda):
     for key in ("loss", "grad_norm"):
         np.testing.assert_allclose(float(metrics["cuda"][key]), float(metrics["cpu"][key]),
                                    rtol=1e-5)
+
+
+# -- the dense LM (no kernel of its own: the card runs the same PyTorch code) --------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window,q_offset", [(0, 0), (7, 0), (0, 5)])
+def test_lm_blockwise_attention_on_the_card_matches_the_cpu(window, q_offset, cuda):
+    from repro_torch.models.layers import blockwise_attention
+
+    g = torch.Generator().manual_seed(window + q_offset)
+    q = torch.randn((2, 33, 8, 16), generator=g)
+    k, v = (torch.randn((2, 33, 2, 16), generator=g) for _ in range(2))
+    dout = torch.randn((2, 33, 8, 16), generator=g)
+    res = {}
+    for dev in ("cpu", cuda):
+        qq, kk, vv = (t.to(dev).requires_grad_() for t in (q, k, v))
+        out = blockwise_attention(qq, kk, vv, window=window, block_q=8, block_kv=16,
+                                  q_offset=q_offset)
+        res[str(dev)] = [out] + list(torch.autograd.grad(out, (qq, kk, vv), dout.to(dev)))
+    for got, want in zip(res[str(cuda)], res["cpu"]):
+        torch.testing.assert_close(got.detach().cpu(), want.detach(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma3-12b", "yi-34b"])
+def test_lm_decode_equals_forward_on_the_card(arch, cuda):
+    """Decode-by-steps against forward on the card (gemma's window 8 bites at
+    T = 12), and both against the CPU's."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tt
+
+    cfg = get_smoke_config(arch)
+    model = tt.init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
+    card = copy.deepcopy(model).to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 12)))
+    with torch.no_grad():
+        full, _ = tt.forward(card, toks.to(cuda), cfg, block_q=8, block_kv=8)
+        want, _ = tt.forward(model, toks, cfg, block_q=8, block_kv=8)
+    torch.testing.assert_close(full.cpu(), want, rtol=1e-5, atol=1e-5)
+    cache = tt.init_kv_cache(cfg, 2, 16, device=cuda)
+    for t in range(toks.shape[1]):
+        logits, cache = tt.decode_step(card, cache, toks[:, t].to(cuda), cfg)
+        torch.testing.assert_close(logits, full[:, t], rtol=2e-4, atol=2e-4)
+    assert cache["length"].tolist() == [12, 12] and cache["k"].device.type == "cuda"
+
+
+@pytest.mark.gpu
+def test_lm_train_steps_on_the_card_match_the_cpu(cuda):
+    """Three AdamW steps of llama3.2-1b SMOKE (f32, remat on, two microbatches)
+    on the card and the CPU give the same losses and gradient norms (rtol
+    1e-5); the embedding gather's backward sums with atomics on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import lm_batch_fn
+    from repro_torch.models import transformer as tt
+    from repro_torch.train.optimizer import adamw, warmup_cosine
+    from repro_torch.train.train_step import lm_loss, make_train_step
+
+    cfg = dataclasses.replace(get_smoke_config("llama3.2-1b"), remat=True)
+    model = tt.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    losses = {}
+    for dev, m in (("cpu", model), ("cuda", copy.deepcopy(model).to(cuda))):
+        opt = adamw(warmup_cosine(3e-4, 1, 3))
+        step = make_train_step(lambda mm, b: lm_loss(mm, b, cfg, block_q=8, block_kv=8), opt,
+                               accum_steps=2)
+        state = opt.init(dict(m.named_parameters()))
+        losses[dev] = []
+        for s in range(3):
+            b = {k: v.to(dev) for k, v in lm_batch_fn(cfg, 4, 16)(s).items()}
+            m, state, metrics = step(m, state, b)
+            losses[dev].append((float(metrics["loss"]), float(metrics["grad_norm"])))
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_lm_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tt
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import adamw, warmup_cosine
+
+    cfg = dataclasses.replace(get_smoke_config("gemma3-12b"), dtype="bfloat16")
+    params = dict(tt.init_params(cfg, device=cuda).named_parameters())
+    tree = {"params": params, "opt": adamw(warmup_cosine(1e-3, 1, 2)).init(params)}
+    ckpt.save(str(tmp_path), 3, tree, chunk_mb=0)
+    restored, step = ckpt.restore(str(tmp_path), tree)
+    assert step == 3 and restored["opt"]["step"] == 0
+    for name, p in params.items():
+        r = restored["params"][name]
+        assert r.device.type == "cuda" and r.dtype == torch.bfloat16
+        assert torch.equal(r, p.detach()), name

@@ -253,16 +253,19 @@ def test_unported_paths_raise_naming_their_roadmap_item(data):
     assert online.capacity == 400 and idx.ensure_online() is online
     for a, b in zip(idx.searcher()(Q), want):
         assert torch.equal(a, b)
-    # the model/training substrate beyond the two-tower path waits for ROADMAP M17
+    # the model/training substrate beyond the dense LMs and the two-tower path
+    # waits for ROADMAP M17's queue
     import dataclasses
 
     from repro_torch import configs
+    from repro_torch.configs.base import MoEConfig
     from repro_torch.launch import train as ttrain
     from repro_torch.models import recsys as trecsys
-    from repro_torch.train.optimizer import adamw, warmup_cosine
-    from repro_torch.train.train_step import make_train_step, recsys_loss
+    from repro_torch.models import transformer as ttransformer
+    from repro_torch.train.train_step import recsys_loss
 
-    for arch in ("llama3.2-1b", "gcn-cora", "din", "dcn-v2", "autoint", "swgraph-retrieval"):
+    for arch in ("phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b", "gcn-cora", "din", "dcn-v2",
+                 "autoint", "swgraph-retrieval"):
         for fn in (configs.get_config, configs.get_smoke_config, configs.get_family):
             with pytest.raises(NotImplementedError, match="M17"):
                 fn(arch)
@@ -277,9 +280,20 @@ def test_unported_paths_raise_naming_their_roadmap_item(data):
             trecsys.init_params(other, device="cpu")
         with pytest.raises(NotImplementedError, match="M17"):
             recsys_loss(None, {}, other)
+    moe = dataclasses.replace(configs.get_smoke_config("llama3.2-1b"),
+                              moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=32))
     with pytest.raises(NotImplementedError, match="M17"):
-        make_train_step(lambda m, b: (None, {}), adamw(warmup_cosine(1e-3, 1, 2)),
-                        accum_steps=2)
+        ttransformer.init_params(moe, device="cpu")
+    # the dense LM's mesh-only pieces wait for the sharding item
+    dense = configs.get_smoke_config("llama3.2-1b")
+    lm = ttransformer.init_params(dense, device="cpu")
+    cache = ttransformer.init_kv_cache(dense, 1, 4, device="cpu")
+    with pytest.raises(NotImplementedError, match="M17"):
+        ttransformer.decode_step(lm, cache, torch.zeros(1, dtype=torch.long), dense,
+                                 mesh=object())
+    for fn in (ttransformer.param_specs, ttransformer.kv_cache_specs):
+        with pytest.raises(NotImplementedError, match="M17"):
+            fn(dense)
 
 
 def test_m9_gate_kl_4096_equals_repro():
