@@ -233,6 +233,36 @@ Every phase is fatal on failure; nothing is caught and passed over.
     past the 1,024 window and 16 decode steps held to ``forward`` as in phase 24,
     and again with the decode window planted one key wide, which the check must
     fail; and all 48 layers in bf16: prefill of 2,048 and 16 decode steps, timed.
+26. the MoE LMs at full width, cut in depth to fit the card (no kernel of the
+    port lies on this path: the experts are batched ``@`` products).
+    phi3.5-moe (16 experts, top-2, d 4,096, d_ff 6,400) at 1 layer trained for
+    20 steps through ``train_lm`` at ``repro``'s defaults (batch 8, seq 128,
+    block 64): the loss finite and falling; ms per step, tok/s, the model-FLOPs
+    share at ``n_active_params``, peak memory and the aux printed, one step
+    profiled.  At 16 layers in bf16: prefill 8 x 512 and 32 decode tokens timed
+    (one decode step profiled) and each prefill layer's dropped share of
+    assignments.  At 4 layers in f32 with a dropless capacity (capacity_factor
+    E / top_k, C = N + 1): decode held to ``forward`` as in phase 24, and no
+    assignment dropped.  kimi-k2 (384 experts, top-8, one shared, d 7,168,
+    vocab 163,840) at 1 layer in bf16: ``forward`` and ``lm_loss`` at
+    1 x 2,048 under no_grad, then prefill 8 x 512 and 16 decode tokens, with
+    the dropped shares; its ``moe_ffn`` at 1 x 2,048 and at 8 x 1 held, at 8
+    tokens each (those with a dropped assignment first), against a plain loop
+    over each token's kept top-8 experts and the shared expert on the same
+    weights, within 2% relative Frobenius error.  The kimi-k2 SMOKE forward on
+    the card within 1e-5 of the CPU's.
+27. the GCN (gcn-cora's 2 layers, hidden 16, sym norm): ``random_graph`` at
+    ogb_products' shape (2,449,029 nodes, 61,859,140 edges, d_feat 100, 47
+    classes) trained full batch for 20 AdamW steps through ``gnn_loss``: the
+    loss finite and falling, ms per step, the peak beside the reckoned one, one
+    step profiled; the first layer's aggregate at 4,096 sampled receivers
+    within rtol = atol = 1e-4 of a float64 recomputation on the host from the
+    same edge list.  Then minibatch_lg's (232,965 nodes, 114,615,892 edges,
+    d_feat 602, 41 classes): ``build_csr`` at max_degree 64 timed, 1,024 seeds
+    sampled at fanouts (15, 10) from a generator on the card, the sampled
+    forward and its backward timed over 10 steps; the last step's logits
+    within rtol = atol = 1e-4 of the same function on the CPU over the same
+    sampled ids (``index_add_`` adds in no fixed order on the card).
 
 Phase 10 also times each kernel at the sharded paths' shapes and, each held
 to the plain version, at the shapes phases 21-23 give it: gather_scores at
@@ -383,6 +413,30 @@ CFG_110M_FIELDS = dict(name="llama-110m", n_layers=12, d_model=512, n_heads=8, n
 KILL_AT, RESUME_STEPS = 50, 75
 # gemma3-12b: one 5:1 period in f32 at a prompt longer than the 1,024 window
 GEMMA_CUT_LAYERS, GEMMA_PROMPT = 6, 1536
+# phase 26: phi3.5-moe at full width, cut in depth to fit one card: trained at
+# repro.launch.train's defaults for MOE_STEPS steps at 1 layer (1.563 B params,
+# ~38 GB with AdamW), served at 16 layers in bf16 (21.07 B, 42.1 GB), decode held to
+# forward at 4 layers in f32 (21.8 GB); kimi-k2 at 1 layer in bf16 (19.44 B with its
+# embeddings, 38.9 GB): forward and lm_loss at 1 x KIMI_SEQ, then serving at batch 8
+PHI_TRAIN_LAYERS, PHI_SERVE_LAYERS, PHI_DECODE_LAYERS, KIMI_LAYERS = 1, 16, 4, 1
+MOE_STEPS, KIMI_SEQ = 20, 2048
+# kimi-k2's moe_ffn held at MOE_CHECK_TOKENS tokens of a 1 x KIMI_SEQ input (half of
+# them with a dropped assignment where there are any) and of a decode-shaped 8 x 1
+# one, against a per-token loop over the same weights: relative Frobenius error
+# within the bf16 tolerance of the CPU tests (2%)
+MOE_CHECK_TOKENS, MOE_CHECK_TOL = 8, 0.02
+# phase 27: repro.launch.cells.GNN_SHAPE_DEFS' ogb_products (full batch) and
+# minibatch_lg (sampled), gcn-cora at each shape's widths; AdamW at the cells' peak
+# learning rate 1e-2 with train_lm's warmup (max(steps // 20, 5))
+OGB_PRODUCTS = dict(n_nodes=2_449_029, n_edges=61_859_140, d_feat=100, n_classes=47)
+MINIBATCH_LG = dict(n_nodes=232_965, n_edges=114_615_892, d_feat=602, n_classes=41,
+                    batch_nodes=1_024, fanouts=(15, 10))
+GCN_STEPS, GCN_LR, CSR_MAX_DEGREE, SAMPLED_STEPS = 20, 1e-2, 64, 10
+# index_add_ adds with atomics on the card: its sums are in no fixed order
+SAMPLED_TOL = dict(rtol=1e-4, atol=1e-4)
+# ogb_products' first-layer aggregate held at this many sampled receivers against a
+# float64 recomputation on the host, within SAMPLED_TOL
+AGG_CHECK_ROWS = 4096
 PROFILER_FALLBACKS = []  # timings read from CUDA events where the profiler fell short
 
 
@@ -1592,8 +1646,9 @@ def kernel_breakdown(wall_ms, rows, top: int = 12) -> dict:
 
 
 def profile_train_step(cfg) -> dict:
-    """One llama3.2-1b train step as ``train_lm`` builds it, after three timed
-    steps: device time by kernel (top 15) and by kind, the busy share."""
+    """One train step of ``cfg`` as ``train_lm`` builds it for LLAMA_STEPS
+    steps, after three timed steps: device time by kernel (top 15) and by kind,
+    the busy share."""
     from repro_torch.launch.train import lm_batch_fn, lm_trainer
 
     model, opt_state, step_fn = lm_trainer(cfg, LLAMA_STEPS, 64, torch.device("cuda"))
@@ -1615,6 +1670,17 @@ def profile_train_step(cfg) -> dict:
     return line
 
 
+def train_line(history, tokens: int, n_active: int, peak_gb: float, before_gb: float) -> dict:
+    """ms per step between the first and the last logged step, tok/s and the
+    model-FLOPs share (6 N_active tokens over the step time at the bf16 peak)."""
+    first, last = history[0], history[-1]
+    ms_step = 1e3 * (last["s"] - first["s"]) / (last["step"] - first["step"])
+    return {"history": history, "ms_per_step": ms_step, "first_step_s": first["s"],
+            "tok_s": tokens * 1e3 / ms_step, "peak_gb": peak_gb,
+            "allocated_before_gb": before_gb,
+            "model_flops_share": 6 * n_active * tokens / (ms_step / 1e3 * H100_BF16_FLOPS)}
+
+
 def phase24() -> dict:
     """llama3.2-1b at full width (see the module docstring)."""
     import copy
@@ -1634,16 +1700,10 @@ def phase24() -> dict:
     t0 = time.perf_counter()
     history = train_main(["--arch", "llama3.2-1b", "--steps", str(LLAMA_STEPS)])
     train_s = time.perf_counter() - t0
-    first, last = history[0], history[-1]
-    ms_step = 1e3 * (last["s"] - first["s"]) / (last["step"] - first["step"])
-    tokens = 8 * 128
-    line["train"] = {"steps": LLAMA_STEPS, "batch": 8, "seq": 128, "block": 64,
-                     "history": history, "s": train_s, "ms_per_step": ms_step,
-                     "first_step_s": first["s"], "tok_s": tokens * 1e3 / ms_step,
-                     "peak_gb": (torch.cuda.max_memory_allocated() - before) / 1e9,
-                     "allocated_before_gb": before / 1e9,
-                     "model_flops_share": 6 * cfg.n_params() * tokens
-                     / (ms_step / 1e3 * H100_BF16_FLOPS)}
+    line["train"] = {"steps": LLAMA_STEPS, "batch": 8, "seq": 128, "block": 64, "s": train_s,
+                     **train_line(history, 8 * 128, cfg.n_params(),
+                                  (torch.cuda.max_memory_allocated() - before) / 1e9,
+                                  before / 1e9)}
     log("llama3.2-1b train: " + json.dumps(line["train"]))
     losses = [h["loss"] for h in history]
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -1857,6 +1917,404 @@ def phase25() -> dict:
     if not line["gemma_full"]["finite"]:
         raise AssertionError(f"phase 25: gemma3-12b {line['gemma_full']}")
     del model
+    torch.cuda.empty_cache()
+    return line
+
+
+@contextlib.contextmanager
+def routing_drops():
+    """Each MoE layer's share of assignments past its capacity (``dest`` = E*C
+    in ``_routing_plan``), one device scalar per call, read after the run."""
+    from repro_torch.models import moe
+
+    plan_fn = moe._routing_plan
+    shares = []
+
+    def recording(idx, E, C):
+        plan = plan_fn(idx, E, C)
+        shares.append((plan["dest"] == E * C).float().mean())
+        return plan
+
+    moe._routing_plan = recording
+    try:
+        yield shares
+    finally:
+        moe._routing_plan = plan_fn
+
+
+def prefill_drops(model, cfg, batch: int, prompt_len: int, gen) -> dict:
+    """One more prefill of ``batch`` x ``prompt_len`` random tokens: the dropped
+    share of each layer's assignments and the capacity C per expert."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tt
+
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen,
+                           device="cuda")
+    with routing_drops() as shares:
+        tt.prefill(model, prompt, cfg)
+    return {"tokens": batch * prompt_len, "capacity": moe._capacity(batch * prompt_len, cfg),
+            "dropped_share_per_layer": [float(x) for x in shares]}
+
+
+def moe_against_loop(lp, cfg, h, gen) -> dict:
+    """``moe_ffn(h)`` held at MOE_CHECK_TOKENS tokens against a plain loop on
+    the same weights: softmax over the router, ``torch.topk``, the gates
+    renormalised, an assignment kept while its expert has had fewer than C
+    earlier ones in token-major order, each kept expert's SwiGLU in the
+    model's dtype weighted by its gate, plus the shared expert.  At
+    ``repro``'s init a routed expert's output is ~1e-4 of the shared one's,
+    so the routed part is also held alone (``n_shared`` set to 0).  Tokens
+    with a dropped assignment are checked first, the rest drawn from ``gen``."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.models import moe
+
+    m = cfg.moe
+    B, T, d = h.shape
+    N, E, K = B * T, m.n_experts, m.top_k
+    c = int(N * K * m.capacity_factor / E) + 1
+    C = max(8, -(-c // 8) * 8)
+    routed_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(m, n_shared=0))
+    with torch.no_grad():
+        out = moe.moe_ffn(h, lp, cfg)[0].reshape(N, d)
+        out_routed = moe.moe_ffn(h, lp, routed_cfg)[0].reshape(N, d)
+        flat = h.reshape(N, d)
+        probs = torch.softmax(flat[None].float() @ lp["router"], dim=-1)[0]
+        gate, idx = torch.topk(probs, K, dim=-1)
+        gate = gate / gate.sum(-1, keepdim=True)
+        seen = np.zeros(E, dtype=np.int64)
+        kept = np.zeros(N * K, dtype=bool)
+        for j, e in enumerate(idx.reshape(-1).tolist()):
+            kept[j] = seen[e] < C
+            seen[e] += 1
+        kept = kept.reshape(N, K)
+        dropped = np.nonzero(~kept.all(1))[0]
+        rest = np.setdiff1d(np.arange(N), dropped)
+        pick = torch.randperm(len(rest), generator=gen, device=gen.device).cpu().numpy()
+        n_drop = min(len(dropped), MOE_CHECK_TOKENS // 2)
+        tokens = np.concatenate([dropped[:n_drop], rest[pick[:MOE_CHECK_TOKENS - n_drop]]])
+
+        def rel(got, want):
+            return float(torch.linalg.norm(got.float() - want) / torch.linalg.norm(want))
+
+        errs, errs_routed = [], []
+        for t in tokens.tolist():
+            x = flat[t]
+            routed = torch.zeros(d, dtype=torch.float32, device=h.device)
+            for k in range(K):
+                if kept[t, k]:
+                    e = int(idx[t, k])
+                    y = (F.silu(x @ lp["e_gate"][e]) * (x @ lp["e_up"][e])) @ lp["e_down"][e]
+                    routed += gate[t, k] * y.float()
+            shared = 0.0
+            if m.n_shared:
+                shared = ((F.silu(x @ lp["sh_gate"]) * (x @ lp["sh_up"])) @ lp["sh_down"]).float()
+            errs.append(rel(out[t], routed + shared))
+            errs_routed.append(rel(out_routed[t], routed))
+    return {"shape": [B, T], "capacity": C, "tokens": tokens.tolist(),
+            "dropped_assignments_in_checked": int((~kept[tokens]).sum()),
+            "dropped_share": float((~kept).mean()), "max_rel_err": max(errs),
+            "max_rel_err_routed": max(errs_routed)}
+
+
+def phase26() -> dict:
+    """The MoE LMs at full width, cut in depth (module docstring)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch.train import lm_batch_fn, train_lm
+    from repro_torch.models import transformer as tt
+    from repro_torch.train.train_step import lm_loss
+
+    phi = get_config("phi3.5-moe-42b-a6.6b")
+    line = {}
+    # 1. phi3.5-moe at 1 layer, trained at repro's launcher defaults
+    cfg1 = dataclasses.replace(phi, n_layers=PHI_TRAIN_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model, history = train_lm(cfg1, steps=MOE_STEPS, batch=8, seq=128, block=64, device="cuda")
+    train_s = time.perf_counter() - t0
+    line["phi_train"] = {"layers": PHI_TRAIN_LAYERS, "n_params": cfg1.n_params(),
+                         "n_active_params": cfg1.n_active_params(), "steps": MOE_STEPS,
+                         "batch": 8, "seq": 128, "block": 64, "s": train_s,
+                         **train_line(history, 8 * 128, cfg1.n_active_params(),
+                                      (torch.cuda.max_memory_allocated() - before) / 1e9,
+                                      before / 1e9)}
+    log("phi3.5-moe train: " + json.dumps(line["phi_train"]))
+    losses = [h["loss"] for h in history]
+    if not all(np.isfinite(losses + [h["aux"] for h in history])) or not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 26: the loss is not finite and falling: {history}")
+    del model
+    torch.cuda.empty_cache()
+    line["phi_train_profile"] = profile_train_step(cfg1)
+    log("phi3.5-moe train step profile: " + json.dumps(line["phi_train_profile"]))
+
+    # 2. serving at 16 layers, bf16
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    cfg16 = dataclasses.replace(phi, n_layers=PHI_SERVE_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = tt.init_params(cfg16, gen, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    line["phi_serve"] = serve_times(model, cfg16, 8, 512, 32, gen)
+    line["phi_serve"].update(layers=PHI_SERVE_LAYERS, n_params=cfg16.n_params(), init_s=init_s,
+                             prefill=prefill_drops(model, cfg16, 8, 512, gen),
+                             peak_gb=(torch.cuda.max_memory_allocated() - before) / 1e9)
+    log("phi3.5-moe serve, bf16: " + json.dumps(line["phi_serve"]))
+    if not line["phi_serve"]["finite"] or line["phi_serve"]["length"] != 512 + 32:
+        raise AssertionError(f"phase 26: phi3.5-moe serving {line['phi_serve']}")
+    del model
+    torch.cuda.empty_cache()
+
+    # 3. decode = forward at 4 layers in f32, on a dropless copy (C = N + 1): forward
+    # over T tokens drops past the capacity, a decode step's B tokens never reach it
+    cfg4 = dataclasses.replace(phi, n_layers=PHI_DECODE_LAYERS, dtype="float32",
+                               moe=dataclasses.replace(phi.moe, capacity_factor=phi.moe.n_experts
+                                                       / phi.moe.top_k))
+    model = tt.init_params(cfg4, gen, "cuda")
+    prompt = torch.randint(0, phi.vocab_size, (2, LM_PROMPT), generator=gen, device="cuda")
+    with routing_drops() as shares:
+        line["phi_decode_vs_forward"] = greedy_decode_against_forward(model, cfg4, prompt,
+                                                                      LM_DECODE, 64)
+    line["phi_decode_vs_forward"].update(layers=PHI_DECODE_LAYERS, n_params=cfg4.n_params(),
+                                         max_dropped_share=max(float(x) for x in shares))
+    log("phi3.5-moe decode vs forward, f32, dropless: "
+        + json.dumps(line["phi_decode_vs_forward"]))
+    check_decode("phase 26", line["phi_decode_vs_forward"])
+    if line["phi_decode_vs_forward"]["max_dropped_share"] != 0.0:
+        raise AssertionError("phase 26: the dropless copy dropped assignments")
+    del model
+    torch.cuda.empty_cache()
+
+    # 4. kimi-k2 at 1 layer, bf16, its shared expert on: forward and lm_loss at
+    # 1 x KIMI_SEQ, then prefill and decode at batch 8
+    cfg_k = dataclasses.replace(get_config("kimi-k2-1t-a32b"), n_layers=KIMI_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = tt.init_params(cfg_k, gen, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = {k: v.cuda() for k, v in lm_batch_fn(cfg_k, 1, KIMI_SEQ)(0).items()}
+    with torch.no_grad():
+        lm_loss(model, batch, cfg_k)  # warm-up
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        with routing_drops() as shares:
+            loss, aux = lm_loss(model, batch, cfg_k)
+        t1.record()
+        torch.cuda.synchronize()
+    line["kimi"] = {"layers": KIMI_LAYERS, "n_params": cfg_k.n_params(),
+                    "n_active_params": cfg_k.n_active_params(), "init_s": init_s,
+                    "loss_tokens": KIMI_SEQ, "forward_loss_ms": t0.elapsed_time(t1),
+                    "loss": float(loss), "nll": float(aux["nll"]), "aux": float(aux["aux"]),
+                    "forward_dropped_share_per_layer": [float(x) for x in shares]}
+    line["kimi"]["serve"] = serve_times(model, cfg_k, 8, 512, LM_DECODE, gen)
+    line["kimi"]["serve"]["prefill"] = prefill_drops(model, cfg_k, 8, 512, gen)
+    line["kimi"]["peak_gb"] = (torch.cuda.max_memory_allocated() - before) / 1e9
+    log("kimi-k2 at 1 layer, bf16: " + json.dumps(line["kimi"]))
+    if not (np.isfinite(line["kimi"]["loss"]) and line["kimi"]["serve"]["finite"]):
+        raise AssertionError(f"phase 26: kimi-k2 {line['kimi']}")
+    lp = tt._layer_views(model, cfg_k)[0][0]
+    line["kimi"]["moe_vs_loop"] = [
+        moe_against_loop(lp, cfg_k, torch.randn(shape, generator=gen, device="cuda",
+                                                dtype=model.embed.dtype), gen)
+        for shape in ((1, KIMI_SEQ, cfg_k.d_model), (8, 1, cfg_k.d_model))]
+    log("kimi-k2 moe_ffn against the per-token loop: "
+        + json.dumps(line["kimi"]["moe_vs_loop"]))
+    if not all(max(r["max_rel_err"], r["max_rel_err_routed"]) <= MOE_CHECK_TOL
+               for r in line["kimi"]["moe_vs_loop"]):
+        raise AssertionError(f"phase 26: kimi-k2's moe_ffn differs from the per-token loop "
+                             f"beyond {MOE_CHECK_TOL}: {line['kimi']['moe_vs_loop']}")
+    del model, batch
+    torch.cuda.empty_cache()
+
+    # 5. the SMOKE MoE forward on the card equals the CPU's
+    smoke = get_smoke_config("kimi-k2-1t-a32b")
+    cpu_model = tt.init_params(smoke, torch.Generator().manual_seed(1), device="cpu")
+    card_model = copy.deepcopy(cpu_model).to("cuda")
+    toks = torch.randint(0, smoke.vocab_size, (2, 24), generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        want, want_aux = tt.forward(cpu_model, toks, smoke, block_q=8, block_kv=8)
+        got, got_aux = tt.forward(card_model, toks.cuda(), smoke, block_q=8, block_kv=8)
+    line["cpu_agreement_max_abs_err"] = float((got.cpu() - want).abs().max())
+    log(f"SMOKE MoE forward, card against CPU: max abs err {line['cpu_agreement_max_abs_err']}")
+    if not (torch.allclose(got.cpu(), want, rtol=1e-5, atol=1e-5)
+            and torch.allclose(got_aux.cpu(), want_aux, rtol=1e-5)):
+        raise AssertionError(f"phase 26: the card's SMOKE MoE forward differs from the CPU's "
+                             f"by {line['cpu_agreement_max_abs_err']}")
+    return line
+
+
+def reckon_gcn_peak_gb(n: int, e: int, d: int, n_classes: int, d_hidden: int) -> float:
+    """The full-batch GCN step's largest live set, reckoned: the graph (f32
+    features, int32 edges and labels), the int64 edges with self loops, the
+    first layer's f32 scale and (E', d) message block scaled in place, its
+    (n, d) aggregate, and the hidden activations and their gradients."""
+    e_loops = e + n
+    graph = 4 * n * d + 4 * 2 * e + 4 * n
+    edges = 8 * 2 * e_loops
+    first = 4 * 3 * e_loops + 4 * e_loops * d + 4 * n * d
+    hidden = 4 * 4 * n * (d_hidden + n_classes)
+    return (graph + edges + first + hidden) / 1e9
+
+
+def gcn_aggregate_rows(g, cfg, n_rows: int) -> dict:
+    """The first layer's aggregate (``gcn_aggregate`` over the edges and the
+    self loops) on the card, held at ``n_rows`` sampled receivers against a
+    float64 recomputation on the host from the same edge list: each message
+    scaled by deg_out(s)^-1/2 deg_in(r)^-1/2, degrees counted over the whole
+    list, and summed per receiver."""
+    from repro_torch.models import gnn
+
+    if cfg.norm != "sym":
+        raise ValueError(f"the recomputation covers the sym norm, not {cfg.norm!r}")
+    x = g["features"]
+    n = x.shape[0]
+    with torch.no_grad():
+        s, r = gnn._with_self_loops(g["senders"], g["receivers"], n)
+        agg = gnn.gcn_aggregate(x, s, r, n, norm=cfg.norm, aggregator=cfg.aggregator)
+        del s, r
+    rows = np.sort(np.random.default_rng(27).choice(n, n_rows, replace=False))
+    got = agg[torch.from_numpy(rows).cuda()].double().cpu().numpy()
+    del agg
+    loops = np.arange(n, dtype=np.int64)
+    s = np.concatenate([g["senders"].cpu().numpy().astype(np.int64), loops])
+    r = np.concatenate([g["receivers"].cpu().numpy().astype(np.int64), loops])
+    deg_in = np.maximum(np.bincount(r, minlength=n), 1).astype(np.float64)
+    deg_out = np.maximum(np.bincount(s, minlength=n), 1).astype(np.float64)
+    picked = np.zeros(n, dtype=bool)
+    picked[rows] = True
+    e = np.nonzero(picked[r])[0]
+    msgs = x[torch.from_numpy(s[e]).cuda()].double().cpu().numpy()
+    msgs *= (1.0 / np.sqrt(deg_out[s[e]] * deg_in[r[e]]))[:, None]
+    want = np.zeros((n_rows, x.shape[1]))
+    np.add.at(want, np.searchsorted(rows, r[e]), msgs)
+    return {"rows": n_rows, "edges": int(e.shape[0]),
+            "max_abs_err": float(np.abs(got - want).max()),
+            "max_abs": float(np.abs(want).max()),
+            "close": bool(np.allclose(got, want, **SAMPLED_TOL))}
+
+
+def phase27() -> dict:
+    """The GCN at ogb_products' and minibatch_lg's shapes (module docstring)."""
+    import copy
+
+    from repro_torch.configs.gcn_cora import with_shape
+    from repro_torch.data.synthetic import random_graph
+    from repro_torch.models import gnn
+    from repro_torch.train.optimizer import adamw, warmup_cosine
+    from repro_torch.train.train_step import gnn_loss, make_train_step
+
+    line = {}
+    # 1. full-batch training on ogb_products' shape
+    sh = OGB_PRODUCTS
+    cfg = with_shape(sh["d_feat"], sh["n_classes"])
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    g = random_graph(np.random.default_rng(27), sh["n_nodes"], sh["n_edges"], sh["d_feat"],
+                     n_classes=sh["n_classes"], device="cuda")
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    model = gnn.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    opt = adamw(warmup_cosine(GCN_LR, max(GCN_STEPS // 20, 5), GCN_STEPS))
+    state = opt.init(dict(model.named_parameters()))
+    step_fn = make_train_step(lambda m, b: gnn_loss(m, b, cfg), opt)
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    losses, walls = [], []
+    for _ in range(GCN_STEPS):
+        t0 = time.perf_counter()
+        model, state, metrics = step_fn(model, state, g)
+        losses.append(float(metrics["loss"]))
+        walls.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    profile = kernel_breakdown(*_profiled(lambda: step_fn(model, state, g)))
+    line["ogb_products"] = {
+        **sh, "config": {"d_hidden": cfg.d_hidden, "norm": cfg.norm, "n_layers": cfg.n_layers},
+        "data_s": data_s, "steps": GCN_STEPS, "losses": losses, "first_step_ms": walls[0],
+        "ms_per_step": float(np.mean(walls[1:])), "ms_per_step_min": min(walls[1:]),
+        "peak_gb": peak, "allocated_before_gb": before / 1e9,
+        "reckoned_peak_gb": reckon_gcn_peak_gb(sh["n_nodes"], sh["n_edges"], sh["d_feat"],
+                                               sh["n_classes"], cfg.d_hidden),
+        "message_block_gb": 4 * (sh["n_edges"] + sh["n_nodes"]) * sh["d_feat"] / 1e9,
+        "step_profile": profile}
+    log("GCN full batch, ogb_products: " + json.dumps(line["ogb_products"]))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 27: the loss is not finite and falling: {losses}")
+    del state
+    torch.cuda.empty_cache()
+    line["ogb_products"]["aggregate_vs_float64"] = gcn_aggregate_rows(g, cfg, AGG_CHECK_ROWS)
+    log("GCN first-layer aggregate against float64: "
+        + json.dumps(line["ogb_products"]["aggregate_vs_float64"]))
+    if not line["ogb_products"]["aggregate_vs_float64"]["close"]:
+        raise AssertionError(f"phase 27: the aggregate differs from the float64 recomputation "
+                             f"beyond {SAMPLED_TOL}: {line['ogb_products']}")
+    del g, model
+    torch.cuda.empty_cache()
+
+    # 2. minibatch_lg: the CSR table, 1,024 seeds sampled at fanouts (15, 10), the
+    # sampled forward and its backward; the logits held to the CPU's on the same ids
+    sh = MINIBATCH_LG
+    cfg = with_shape(sh["d_feat"], sh["n_classes"])
+    n = sh["n_nodes"]
+    t0 = time.perf_counter()
+    g = random_graph(np.random.default_rng(28), n, sh["n_edges"], sh["d_feat"],
+                     n_classes=sh["n_classes"], device="cuda")
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    gnn.build_csr(g["senders"][:1000], g["receivers"][:1000], n, CSR_MAX_DEGREE)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = gnn.build_csr(g["senders"], g["receivers"], n, CSR_MAX_DEGREE)
+    torch.cuda.synchronize()
+    csr_s = time.perf_counter() - t0
+    deg = torch.bincount(g["receivers"].long(), minlength=n)
+    model = gnn.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(27)
+
+    def step():
+        seeds = torch.randperm(n, generator=gen, device="cuda")[:sh["batch_nodes"]].int()
+        sub = gnn.sample_subgraph(gen, table, seeds, sh["fanouts"])
+        loss, logits = gnn.sampled_forward(model, g["features"], g["labels"], sub, cfg,
+                                           n_seed=sh["batch_nodes"])
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        return sub, loss, logits, grads
+
+    step()  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SAMPLED_STEPS):
+        sub, loss, logits, grads = step()
+    torch.cuda.synchronize()
+    ms_step = 1e3 * (time.perf_counter() - t0) / SAMPLED_STEPS
+    cpu_model = copy.deepcopy(model).to("cpu")
+    want_loss, want = gnn.sampled_forward(cpu_model, g["features"].cpu(), g["labels"].cpu(),
+                                          {k: v.cpu() for k, v in sub.items()}, cfg,
+                                          n_seed=sh["batch_nodes"])
+    err = float((logits.detach().cpu() - want.detach()).abs().max())
+    close = bool(torch.allclose(logits.detach().cpu(), want.detach(), **SAMPLED_TOL))
+    line["minibatch_lg"] = {
+        **sh, "data_s": data_s, "max_degree": CSR_MAX_DEGREE, "csr_build_s": csr_s,
+        "rows_over_max_degree": int((deg > CSR_MAX_DEGREE).sum()),
+        "sampled_edges": int(sub["senders"].shape[0]), "steps": SAMPLED_STEPS,
+        "ms_per_step": ms_step, "loss": float(loss.detach()),
+        "cpu_loss": float(want_loss.detach()),
+        "logits_max_abs_err_vs_cpu": err, "close": close,
+        "grads_finite": all(bool(torch.isfinite(x).all()) for x in grads)}
+    log("GCN sampled, minibatch_lg: " + json.dumps(line["minibatch_lg"]))
+    if not (close and line["minibatch_lg"]["grads_finite"]
+            and np.isfinite(line["minibatch_lg"]["loss"])):
+        raise AssertionError(f"phase 27: the sampled forward on the card differs from the "
+                             f"CPU's beyond {SAMPLED_TOL}: {line['minibatch_lg']}")
+    del g, table, model
     torch.cuda.empty_cache()
     return line
 
@@ -2989,6 +3447,16 @@ def main() -> int:
 
     lap("25 resume and gemma3-12b")
 
+    # -- 26. the MoE LMs at full width: phi3.5-moe trained and served, kimi-k2 served -----
+    moe26 = phase26()
+
+    lap("26 MoE LMs")
+
+    # -- 27. the GCN: full batch at ogb_products' shape, sampled at minibatch_lg's --------
+    gnn27 = phase27()
+
+    lap("27 GCN")
+
     def err_of(kernel_name):
         return max(v for k, v in max_err.items() if k[0] == kernel_name and k[1] == "kl")
 
@@ -3131,6 +3599,8 @@ def main() -> int:
     log("tuning and learning: " + json.dumps({"tuner": tune21, "learned": learned22,
                                               "two_tower": two_tower23}))
     log("dense LM: " + json.dumps({"llama3.2-1b": lm24, "resume_and_gemma3": lm25}))
+    log("MoE LM: " + json.dumps(moe26))
+    log("GCN: " + json.dumps(gnn27))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"timings read from CUDA events, the profiler having fallen short: "
         f"{len(PROFILER_FALLBACKS)} {PROFILER_FALLBACKS}")

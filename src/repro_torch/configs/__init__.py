@@ -1,10 +1,11 @@
 """Architecture registry: ``--arch <id>`` resolution (PyTorch port of
 ``repro.configs``).
 
-Ported: the dense LMs (llama3.2-1b, gemma3-12b, yi-34b) and the two-tower
-retrieval model.  The JAX package's other architectures (the MoE LMs, GNN,
-the other recsys models and the paper's retrieval configs) raise
-``NotImplementedError`` naming their ROADMAP item (M17's queue).
+Ported: the dense LMs (llama3.2-1b, gemma3-12b, yi-34b), the MoE LMs
+(phi3.5-moe, kimi-k2), the GCN (gcn-cora) and the two-tower retrieval
+model.  The JAX package's other architectures (the other recsys models and
+the paper's retrieval configs) raise ``NotImplementedError`` naming their
+ROADMAP item (M17's queue).
 """
 
 from __future__ import annotations
@@ -15,11 +16,13 @@ _ARCH_MODULES = {
     "yi-34b": ("repro_torch.configs.yi_34b", "lm"),
     "gemma3-12b": ("repro_torch.configs.gemma3_12b", "lm"),
     "llama3.2-1b": ("repro_torch.configs.llama3_2_1b", "lm"),
+    "phi3.5-moe-42b-a6.6b": ("repro_torch.configs.phi3_5_moe", "lm"),
+    "kimi-k2-1t-a32b": ("repro_torch.configs.kimi_k2", "lm"),
+    "gcn-cora": ("repro_torch.configs.gcn_cora", "gnn"),
     "two-tower-retrieval": ("repro_torch.configs.two_tower", "recsys"),
 }
 # the JAX package's registry, not ported yet (ROADMAP M17's queue)
-_UNPORTED = ("phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b", "gcn-cora", "autoint", "din",
-             "dcn-v2", "swgraph-retrieval")
+_UNPORTED = ("autoint", "din", "dcn-v2", "swgraph-retrieval")
 
 ARCH_IDS = list(_ARCH_MODULES)
 

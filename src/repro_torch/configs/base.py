@@ -1,7 +1,7 @@
 """Config dataclasses (PyTorch port of ``repro.configs.base``: ``MoEConfig``,
-``LMConfig``, ``RecsysConfig``).
+``LMConfig``, ``GNNConfig``, ``RecsysConfig``).
 
-The GNN and retrieval configs wait for their ROADMAP items (GNN; ``paper_swgraph``).
+The retrieval configs wait for their ROADMAP item (``paper_swgraph``).
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ class MoEConfig:
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
-    """Decoder-only transformer LM (dense; the MoE model waits for ROADMAP's MoE item).
+    """Decoder-only transformer LM (dense + MoE).
 
     GQA grouping convention: q head h attends with kv head ``h % n_kv_heads``.
     ``local_global`` = (n_local, n_global) per pattern period, e.g. gemma3's
@@ -80,6 +80,17 @@ class LMConfig:
         mlp = 3 * d * self.moe.d_ff_expert * (self.moe.top_k + self.moe.n_shared)
         mlp += d * self.moe.n_experts
         return emb + L * (attn + mlp + 2 * d) + d
+
+
+@dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    n_layers: int
+    d_hidden: int
+    d_feat: int
+    n_classes: int
+    aggregator: str = "mean"  # mean | sum | max
+    norm: str = "sym"  # sym (GCN D^-1/2 A D^-1/2) | none
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,9 +7,10 @@ if need be; ``shard_from_jax`` takes ``repro``'s sharded state (the rows and
 ``build_local_subgraphs``' padded local adjacency) and returns one rank's
 block.  ``spec_dict`` is the index's ``spec.to_dict()``.
 ``recsys_params_from_jax`` loads ``repro``'s two-tower param dict into the
-port's module, ``lm_params_from_jax`` its dense LM's stacked params, and ``mahalanobis_from_jax`` takes a fitted map.  Nothing here
-imports JAX: the caller hands over plain arrays, as a model's weights would
-be handed over.
+port's module, ``lm_params_from_jax`` its LM's stacked params (dense or
+MoE), ``gnn_params_from_jax`` its GCN's, and ``mahalanobis_from_jax`` takes a
+fitted map.  Nothing here imports JAX: the caller hands over plain arrays,
+as a model's weights would be handed over.
 """
 
 from __future__ import annotations
@@ -180,34 +181,55 @@ def _from_np(a) -> torch.Tensor:
 
 
 def lm_params_from_jax(params_np: dict, cfg, device="cuda"):
-    """The port's ``LMParams`` holding ``repro``'s dense LM params, on ``device``.
+    """The port's ``LMParams`` holding ``repro``'s LM params (dense or MoE), on
+    ``device``.
 
     ``params_np`` is ``repro.models.transformer.init_params``' dict as numpy
-    arrays: ``embed``, ``ln_f``, ``layers`` (stacked (L, ...) arrays) and
-    ``lm_head`` when untied.  ``ValueError`` when a name, shape or dtype
-    differs from what ``cfg`` gives.
+    arrays: ``embed``, ``ln_f``, ``layers`` (stacked (L, ...) arrays; an MoE
+    model's ``router`` in float32) and ``lm_head`` when untied.
+    ``ValueError`` when a name, shape or dtype differs from what ``cfg`` gives.
     """
-    from repro_torch.models.transformer import LAYER_WEIGHTS, LMParams, _dt
+    from repro_torch.models.transformer import LMParams, _dt, layer_shapes
 
     dev = resolve_device(device)
-    d, L, V = cfg.d_model, cfg.n_layers, cfg.vocab_size
-    hq, hkv = cfg.n_heads_padded * cfg.d_head, cfg.n_kv_heads * cfg.d_head
-    want = {"embed": (V, d), "ln_f": (d,), "layers.ln_attn": (L, d), "layers.ln_mlp": (L, d),
-            "layers.wq": (L, d, hq), "layers.wk": (L, d, hkv), "layers.wv": (L, d, hkv),
-            "layers.wo": (L, hq, d), "layers.w_gate": (L, d, cfg.d_ff),
-            "layers.w_up": (L, d, cfg.d_ff), "layers.w_down": (L, cfg.d_ff, d)}
+    d, V = cfg.d_model, cfg.vocab_size
+    want = {"embed": ((V, d), _dt(cfg)), "ln_f": ((d,), _dt(cfg)),
+            **{f"layers.{k}": v for k, v in layer_shapes(cfg).items()}}
     if not cfg.tie_embeddings:
-        want["lm_head"] = (d, V)
+        want["lm_head"] = ((d, V), _dt(cfg))
     arrays = {k: v for k, v in params_np.items() if k != "layers"}
     arrays.update({f"layers.{k}": v for k, v in params_np.get("layers", {}).items()})
     if set(arrays) != set(want):
         raise ValueError(f"param names {sorted(arrays)} differ from the model's {sorted(want)}")
     tensors = {}
-    for name, shape in want.items():
+    for name, (shape, dt) in want.items():
         t = _from_np(arrays[name])
-        if tuple(t.shape) != shape or t.dtype != _dt(cfg):
-            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, the model's {shape} "
-                             f"{_dt(cfg)}")
+        if tuple(t.shape) != shape or t.dtype != dt:
+            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, the model's {shape} {dt}")
         tensors[name] = t.to(dev)
-    return LMParams(tensors["embed"], tensors["ln_f"],
-                    {k: tensors[f"layers.{k}"] for k in LAYER_WEIGHTS}, tensors.get("lm_head"))
+    layers = {k.removeprefix("layers."): t for k, t in tensors.items() if k.startswith("layers.")}
+    return LMParams(tensors["embed"], tensors["ln_f"], layers, tensors.get("lm_head"))
+
+
+def gnn_params_from_jax(params_np: dict, cfg, device="cuda"):
+    """The port's GCN holding ``repro``'s params, on ``device``.
+
+    ``params_np`` is ``repro.models.gnn.init_params``' dict as numpy arrays:
+    ``{"w": [(d_in, d_out), ...], "b": [(d_out,), ...]}``.  ``ValueError``
+    when the layer count or a shape differs from what ``cfg`` gives.
+    """
+    from repro_torch.models.gnn import GCNParams, layer_dims
+
+    dims = layer_dims(cfg)
+    ws, bs = list(params_np["w"]), list(params_np["b"])
+    if len(ws) != cfg.n_layers or len(bs) != cfg.n_layers:
+        raise ValueError(f"{len(ws)} weights and {len(bs)} biases, the model has "
+                         f"{cfg.n_layers} layers")
+    for i, (w, b) in enumerate(zip(ws, bs)):
+        if np.shape(w) != (dims[i], dims[i + 1]) or np.shape(b) != (dims[i + 1],):
+            raise ValueError(f"layer {i}: w {np.shape(w)}, b {np.shape(b)}, the model's "
+                             f"({dims[i]}, {dims[i + 1]}) and ({dims[i + 1]},)")
+    dev = resolve_device(device)
+    # np.array copies: arrays taken from JAX are read-only buffers
+    return GCNParams([torch.from_numpy(np.array(w, np.float32)) for w in ws],
+                     [torch.from_numpy(np.array(b, np.float32)) for b in bs], dev)

@@ -6,6 +6,7 @@
                  TF, document = saturated TF x IDF, and the natural
                  shared-sqrt(IDF) symmetrization of Eq. (4).
   recsys       : criteo-like CTR batches (per-field categorical ids).
+  graphs       : a skewed random edge list with node features and labels.
 
 Draws come from a seeded ``numpy.random.Generator`` and are then moved to the
 device as float32.  They cannot reproduce ``jax.random``, so tests that
@@ -122,3 +123,20 @@ def recsys_batch(rng: np.random.Generator, batch: int, vocab_sizes, device="cuda
     label = (rng.random(batch) < 0.25).astype(np.float32)
     return {"sparse_ids": torch.from_numpy(sparse).to(dev),
             "label": torch.from_numpy(label).to(dev)}
+
+
+def random_graph(rng: np.random.Generator, n_nodes: int, n_edges: int, d_feat: int,
+                 n_classes: int = 8, device="cuda") -> dict:
+    """A random directed edge list with features and labels, on ``device``:
+    ``senders`` ``u**1.5 * (n - 1)`` truncated (skewed to low ids, as a
+    preferential attachment would), ``receivers`` ``u * (n - 1)``, both int32;
+    ``features`` N(0, 0.25) float32 (n, d_feat); ``labels`` int32 in
+    [0, n_classes)."""
+    dev = resolve_device(device)
+    src = (rng.random(n_edges, dtype=np.float32) ** 1.5 * (n_nodes - 1)).astype(np.int32)
+    dst = (rng.random(n_edges, dtype=np.float32) * (n_nodes - 1)).astype(np.int32)
+    feats = rng.standard_normal((n_nodes, d_feat), dtype=np.float32)
+    feats *= np.float32(0.5)
+    labels = rng.integers(0, n_classes, n_nodes, dtype=np.int32)
+    return {name: torch.from_numpy(a).to(dev) for name, a in
+            (("senders", src), ("receivers", dst), ("features", feats), ("labels", labels))}

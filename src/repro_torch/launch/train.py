@@ -6,13 +6,14 @@ pipeline -> train step -> checkpoints.
     python -m repro_torch.launch.train --arch two-tower-retrieval --smoke --steps 60 \
         --batch 256
 
-``train_lm`` trains a dense LM with AdamW under a warmup-cosine schedule on
+``train_lm`` trains an LM (dense or MoE) with AdamW under a warmup-cosine schedule on
 synthetic token batches (``lm_batch_fn``: batch ``step`` drawn from
 ``numpy.random.default_rng((seed, step))``, since ``jax.random`` cannot be
 replayed).  With a checkpoint directory it resumes (params, optimizer state)
 and the data cursor from the latest checkpoint, so a killed run continues
-where it stopped.  ``train_recsys`` trains the two-tower model.  The GNN
-family and the mesh wait for ROADMAP M17's queue.
+where it stopped.  ``train_recsys`` trains the two-tower model.  The GNN family has no
+launcher here, as in ``repro`` (``main`` exits naming ``examples/``); the
+mesh waits for ROADMAP M17's queue.
 """
 
 from __future__ import annotations
@@ -66,8 +67,8 @@ def train_lm(cfg, *, steps: int = 200, batch: int = 8, seq: int = 128,
              block: int = 64, device="cuda"):
     """Train an LM config for ``steps`` steps; returns (model, history).
 
-    History: per logged step its ``loss``, ``grad_norm``, ``tok_s`` and ``s``
-    (seconds since the loop began, read after the loss's host copy, which
+    History: per logged step its ``loss``, ``grad_norm``, the MoE ``aux``
+    (0 for a dense model), ``tok_s`` and ``s`` (seconds since the loop began, read after the loss's host copy, which
     waits for the step).  An exception from the batch source ends the run
     at that step, as a crash would; a rerun with the same ``ckpt_dir``
     resumes from the latest checkpoint.
@@ -97,10 +98,11 @@ def train_lm(cfg, *, steps: int = 200, batch: int = 8, seq: int = 128,
             if step % log_every == 0 or step == steps - 1:
                 loss = float(metrics["loss"])  # jaxlint: disable=JL003 (logged steps only)
                 gnorm = float(metrics["grad_norm"])  # jaxlint: disable=JL003 (logged steps only)
+                aux = float(metrics["aux"])  # jaxlint: disable=JL003 (logged steps only)
                 s = time.perf_counter() - t0
                 tok_s = batch * seq * (step - start + 1) / max(s, 1e-9)
                 print(f"step {step:5d} loss {loss:.4f} gnorm {gnorm:.3f} tok/s {tok_s:,.0f}")
-                history.append({"step": step, "loss": loss, "grad_norm": gnorm,
+                history.append({"step": step, "loss": loss, "grad_norm": gnorm, "aux": aux,
                                 "tok_s": tok_s, "s": s})
             if mgr:
                 mgr.maybe_save(step, {"params": dict(model.named_parameters()),
@@ -148,8 +150,10 @@ def main(argv=None):
     if family == "lm":
         _, history = train_lm(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
                               ckpt_dir=args.ckpt_dir, device=args.device)
-    else:  # the registry's only other ported family
+    elif family == "recsys":
         _, history = train_recsys(cfg, steps=args.steps, batch=args.batch, device=args.device)
+    else:
+        raise SystemExit(f"use examples/ for family {family}")
     return history
 
 

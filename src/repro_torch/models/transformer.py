@@ -1,9 +1,14 @@
-"""Decoder-only transformer LM, dense (PyTorch port of ``repro.models.transformer``).
+"""Decoder-only transformer LM, dense and MoE (PyTorch port of
+``repro.models.transformer``).
 
 Parameters keep ``repro``'s STACKED layout: each per-layer weight is one
 (L, d_in, d_out) parameter (``layers.wq`` ... ``layers.w_down``, the norms
 (L, d)), beside ``embed`` (V, d), ``ln_f`` (d,) and, when the embeddings are
-not tied, ``lm_head`` (d, V).  So ``convert.lm_params_from_jax`` is a copy,
+not tied, ``lm_head`` (d, V).  An MoE model holds ``repro``'s MoE names in
+place of ``w_gate``, ``w_up`` and ``w_down``: ``router`` (L, d, E) in
+float32, ``e_gate``, ``e_up`` (L, E, d, ff), ``e_down`` (L, E, ff, d) and,
+with shared experts, ``sh_gate``, ``sh_up``, ``sh_down``
+(``layer_shapes``).  So ``convert.lm_params_from_jax`` is a copy,
 checkpoint names follow ``repro``'s tree, and Adafactor's RMS clip runs over
 the whole stacked tensor as ``repro``'s does.  The layer loop is Python; one
 ``torch.unbind`` per stacked parameter hands each layer its views, so the
@@ -14,9 +19,10 @@ dh) per k and v plus ``length`` (B,) int32, and ``decode_step`` writes the
 new token's k and v into it in place.  gemma3's local:global pattern picks
 each layer's window in Python (``layer_locality``).
 
-Not ported here: the MoE FFN (``cfg.is_moe``), the sequence-parallel decode
-over a mesh and the mesh's partition specs; each raises
-``NotImplementedError`` naming its ROADMAP item.
+Each layer's FFN is the SwiGLU MLP or ``models/moe.py``'s ``moe_ffn``
+(off the mesh), whose load-balance aux ``forward`` sums over the layers.
+Not ported here: the sequence-parallel decode over a mesh and the mesh's
+partition specs; each raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -35,15 +41,31 @@ from repro_torch.models.layers import (
     decode_attention_local,
     dense_init,
     lse_combine,
+    mesh_unported,
     rms_norm,
     swiglu,
 )
-
-LAYER_WEIGHTS = ("ln_attn", "ln_mlp", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+from repro_torch.models.moe import init_moe_layer, moe_ffn, moe_layer_shapes
 
 
 def _dt(cfg: LMConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def layer_shapes(cfg: LMConfig) -> dict:
+    """name -> (shape, dtype) of the stacked per-layer weights: attention and
+    norms, then the dense MLP's or the MoE layer's."""
+    d, L, dt = cfg.d_model, cfg.n_layers, _dt(cfg)
+    hq = cfg.n_heads_padded * cfg.d_head
+    hkv = cfg.n_kv_heads * cfg.d_head
+    shapes = {"ln_attn": ((L, d), dt), "ln_mlp": ((L, d), dt), "wq": ((L, d, hq), dt),
+              "wk": ((L, d, hkv), dt), "wv": ((L, d, hkv), dt), "wo": ((L, hq, d), dt)}
+    if cfg.is_moe:
+        shapes.update(moe_layer_shapes(cfg))
+    else:
+        shapes.update({"w_gate": ((L, d, cfg.d_ff), dt), "w_up": ((L, d, cfg.d_ff), dt),
+                       "w_down": ((L, cfg.d_ff, d), dt)})
+    return shapes
 
 
 class LMParams(nn.Module):
@@ -54,15 +76,8 @@ class LMParams(nn.Module):
         super().__init__()
         self.embed = nn.Parameter(embed)
         self.ln_f = nn.Parameter(ln_f)
-        self.layers = nn.ParameterDict({k: nn.Parameter(layers[k]) for k in LAYER_WEIGHTS})
+        self.layers = nn.ParameterDict({k: nn.Parameter(w) for k, w in layers.items()})
         self.lm_head = None if lm_head is None else nn.Parameter(lm_head)
-
-
-def _check_dense(cfg: LMConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name} is a mixture-of-experts LM; the MoE FFN (models/moe.py) is not "
-            "ported to repro_torch yet (ROADMAP M17: MoE)")
 
 
 # ---------------------------------------------------------------------------
@@ -71,9 +86,8 @@ def _check_dense(cfg: LMConfig) -> None:
 
 
 def init_params(cfg: LMConfig, generator=None, device="cuda") -> LMParams:
-    """Random weights of ``cfg``'s shapes and dtype: ``repro``'s scales, drawn
+    """Random weights of ``cfg``'s shapes and dtypes: ``repro``'s scales, drawn
     from ``generator`` (default: seed 0 on ``device``) layer by layer."""
-    _check_dense(cfg)
     dev = resolve_device(device)
     gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
     dt = _dt(cfg)
@@ -93,16 +107,19 @@ def init_params(cfg: LMConfig, generator=None, device="cuda") -> LMParams:
     layers = {"ln_attn": torch.ones((L, d), dtype=dt, device=dev),
               "ln_mlp": torch.ones((L, d), dtype=dt, device=dev),
               "wq": stacked(d, hq), "wk": stacked(d, hkv), "wv": stacked(d, hkv),
-              "wo": stacked(hq, d), "w_gate": stacked(d, cfg.d_ff),
-              "w_up": stacked(d, cfg.d_ff), "w_down": stacked(cfg.d_ff, d)}
+              "wo": stacked(hq, d)}
+    if cfg.is_moe:
+        layers.update(init_moe_layer(cfg, gen, dev))
+    else:
+        layers.update({"w_gate": stacked(d, cfg.d_ff), "w_up": stacked(d, cfg.d_ff),
+                       "w_down": stacked(cfg.d_ff, d)})
     embed = draw(cfg.vocab_size, d, scale=1.0)
     head = None if cfg.tie_embeddings else draw(d, cfg.vocab_size)
     return LMParams(embed, torch.ones((d,), dtype=dt, device=dev), layers, head)
 
 
 def param_specs(*args, **kwargs):
-    raise NotImplementedError("partition specs need the device mesh (sharding/api.py), "
-                              "not ported to repro_torch yet (ROADMAP M17: sharding)")
+    raise mesh_unported("partition specs")
 
 
 kv_cache_specs = param_specs
@@ -127,9 +144,9 @@ def layer_locality(cfg: LMConfig) -> torch.Tensor:
 
 def _layer_views(params: LMParams, cfg: LMConfig):
     """Per layer: a dict of its weights (views), and its window (0 = none)."""
-    per_name = {k: torch.unbind(params.layers[k], 0) for k in LAYER_WEIGHTS}
+    per_name = {k: torch.unbind(w, 0) for k, w in params.layers.items()}
     windows = [cfg.sliding_window if loc else 0 for loc in layer_locality(cfg).tolist()]
-    return [({k: per_name[k][i] for k in LAYER_WEIGHTS}, windows[i])
+    return [({k: w[i] for k, w in per_name.items()}, windows[i])
             for i in range(cfg.n_layers)]
 
 
@@ -153,8 +170,15 @@ def _attention_block(x, lp, cfg: LMConfig, positions, window: int, *, block_q, b
 
 
 def _ffn_block(x, lp, cfg: LMConfig):
+    """The residual stream after the FFN, and its aux (an f32 0-d tensor, 0
+    for the dense MLP)."""
     h = rms_norm(x, lp["ln_mlp"], cfg.norm_eps)
-    return x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+    if cfg.is_moe:
+        out, aux = moe_ffn(h, lp, cfg)
+    else:
+        out = swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + out, aux
 
 
 def _layer(x, lp, cfg, positions, window, block_q, block_kv):
@@ -173,16 +197,16 @@ def _embed(params: LMParams, tokens, cfg: LMConfig):
 def forward_hidden(params: LMParams, tokens, cfg: LMConfig, *, block_q: int = 512,
                    block_kv: int = 512):
     """tokens (B, T) -> final-norm hidden states (B, T, d), and the MoE aux
-    sum (0 for a dense model).  ``cfg.remat`` recomputes each layer in the
-    backward (``torch.utils.checkpoint``)."""
-    _check_dense(cfg)
+    summed over the layers (0 for a dense model).  ``cfg.remat`` recomputes
+    each layer in the backward (``torch.utils.checkpoint``)."""
     x, positions = _embed(params, tokens, cfg)
+    auxes = []
     for lp, window in _layer_views(params, cfg):
         fn = functools.partial(_layer, lp=lp, cfg=cfg, positions=positions, window=window,
                                block_q=block_q, block_kv=block_kv)
-        x = checkpoint(fn, x, use_reentrant=False) if cfg.remat else fn(x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return rms_norm(x, params.ln_f, cfg.norm_eps), aux
+        x, aux = checkpoint(fn, x, use_reentrant=False) if cfg.remat else fn(x)
+        auxes.append(aux)
+    return rms_norm(x, params.ln_f, cfg.norm_eps), torch.stack(auxes).sum()
 
 
 def lm_head(params: LMParams, cfg: LMConfig):
@@ -218,14 +242,13 @@ def prefill(params: LMParams, tokens, cfg: LMConfig, *, max_len: int | None = No
     Returns (last-position logits (B, V), cache); the cache's sequence axis
     is padded to ``max_len`` (decode continues into the padding).
     """
-    _check_dense(cfg)
     B, T = tokens.shape
     x, positions = _embed(params, tokens, cfg)
     cache = init_kv_cache(cfg, B, max_len or T, device=x.device)
     for i, (lp, window) in enumerate(_layer_views(params, cfg)):
         x, k, v = _attention_block(x, lp, cfg, positions, window, block_q=block_q,
                                    block_kv=block_kv)
-        x = _ffn_block(x, lp, cfg)
+        x, _ = _ffn_block(x, lp, cfg)
         cache["k"][i, :, :T] = k
         cache["v"][i, :, :T] = v
     cache["length"].fill_(T)
@@ -237,7 +260,6 @@ def prefill(params: LMParams, tokens, cfg: LMConfig, *, max_len: int | None = No
 def decode_step(params: LMParams, cache, tokens, cfg: LMConfig, *, mesh=None):
     """One decode step: tokens (B,) -> logits (B, V), and the cache with the
     new token's k and v written in place at ``length`` and ``length`` + 1."""
-    _check_dense(cfg)
     if mesh is not None:
         raise NotImplementedError(
             "sequence-parallel decode over a mesh (_sp_decode_attention) is not ported to "
@@ -258,7 +280,7 @@ def decode_step(params: LMParams, cache, tokens, cfg: LMConfig, *, mesh=None):
         o, m, l = decode_attention_local(q, kc, vc, length + 1, window=window)
         out = lse_combine([(o, m, l)]).to(x.dtype).reshape(B, 1, -1)
         x = x + out @ _wo_masked(lp["wo"], cfg)
-        x = _ffn_block(x, lp, cfg)
+        x, _ = _ffn_block(x, lp, cfg)
     cache = {"k": cache["k"], "v": cache["v"], "length": length + 1}
     x = rms_norm(x, params.ln_f, cfg.norm_eps)
     return (x @ lm_head(params, cfg))[:, 0], cache

@@ -4,9 +4,9 @@
 opt_state, metrics)``: the loss and its gradients (``torch.autograd``),
 accumulated over ``accum_steps`` microbatches when asked, a global-norm
 clip, the optimizer's update added to the parameters in place.  Losses: the
-LM's next-token cross-entropy (off the mesh: ``sharded_xent`` waits for
-ROADMAP M17's sharding item) and the two-tower in-batch softmax.  The GNN
-loss waits for the GNN item.
+LM's next-token cross-entropy with the MoE aux (off the mesh:
+``sharded_xent`` waits for ROADMAP M17's sharding item), the GCN's node
+cross-entropy and the two-tower in-batch softmax.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.models.gnn import loss_fn as gnn_loss_fn
 from repro_torch.models.recsys import _check_interaction, inbatch_softmax_loss
 from repro_torch.models.transformer import forward
 from repro_torch.train.optimizer import Optimizer, clip_by_global_norm
@@ -33,6 +34,13 @@ def lm_loss(model, batch, cfg, **fwd_kw):
     ll = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
     nll = torch.mean(lse - ll)
     return nll + AUX_WEIGHT * aux, {"nll": nll.detach(), "aux": aux.detach()}
+
+
+def gnn_loss(model, batch, cfg, **kw):
+    """(loss, {"nll": loss}): the GCN's node cross-entropy over ``batch`` (a
+    graph dict), masked by ``batch["mask"]`` when it has one."""
+    loss = gnn_loss_fn(model, batch, cfg, mask=batch.get("mask"), **kw)
+    return loss, {"nll": loss.detach()}
 
 
 def recsys_loss(model, batch, cfg):

@@ -1041,3 +1041,95 @@ def test_lm_checkpoint_round_trip_on_the_card(cuda, tmp_path):
         r = restored["params"][name]
         assert r.device.type == "cuda" and r.dtype == torch.bfloat16
         assert torch.equal(r, p.detach()), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b"])
+def test_moe_smoke_forward_and_gradients_on_the_card_match_the_cpu(arch, cuda):
+    """The MoE SMOKE archs' logits, aux and ``lm_loss`` gradients on the card
+    against the CPU's (the routing plan's sorts are stable on both), and
+    decode on the card against forward at a dropless capacity."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import lm_batch_fn
+    from repro_torch.models import transformer as tt
+    from repro_torch.train.train_step import lm_loss
+
+    cfg = get_smoke_config(arch)
+    model = tt.init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
+    card = copy.deepcopy(model).to(cuda)
+    batch = lm_batch_fn(cfg, 4, 16)(0)
+    res = {}
+    for dev, m in (("cpu", model), (cuda, card)):
+        loss, aux = lm_loss(m, {k: v.to(dev) for k, v in batch.items()}, cfg, block_q=8,
+                            block_kv=8)
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        res[str(dev)] = [loss.detach(), aux["aux"]] + [g.detach() for g in grads]
+    for got, want in zip(res[str(cuda)], res["cpu"]):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+    dropless = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    toks = batch["tokens"][:2, :12].to(cuda)
+    with torch.no_grad():
+        full, _ = tt.forward(card, toks, dropless, block_q=8, block_kv=8)
+    cache = tt.init_kv_cache(dropless, 2, 16, device=cuda)
+    for t in range(toks.shape[1]):
+        logits, cache = tt.decode_step(card, cache, toks[:, t], dropless)
+        torch.testing.assert_close(logits, full[:, t], rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("norm,aggregator", [("sym", "mean"), ("none", "mean"),
+                                             ("none", "max"), ("none", "sum")])
+def test_gcn_aggregate_on_the_card_matches_the_cpu(norm, aggregator, cuda):
+    """``index_add_`` adds with atomics on the card: equal to float32 rounding."""
+    from repro_torch.data.synthetic import random_graph
+    from repro_torch.models import gnn
+
+    g = random_graph(np.random.default_rng(0), 5000, 60_000, 24, device="cpu")
+    want = gnn.gcn_aggregate(g["features"], g["senders"], g["receivers"], 5000, norm=norm,
+                             aggregator=aggregator)
+    got = gnn.gcn_aggregate(g["features"].to(cuda), g["senders"].to(cuda),
+                            g["receivers"].to(cuda), 5000, norm=norm, aggregator=aggregator)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_gcn_sampler_and_train_steps_on_the_card_match_the_cpu(cuda):
+    """``build_csr`` (overflowing rows included) and ``sample_subgraph`` with
+    given picks are equal on the card and the CPU; three AdamW steps of the
+    full-batch GCN agree in loss and gradient norm."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.synthetic import random_graph
+    from repro_torch.models import gnn
+    from repro_torch.train.optimizer import adamw, warmup_cosine
+    from repro_torch.train.train_step import gnn_loss, make_train_step
+
+    cfg = get_smoke_config("gcn-cora")
+    g = random_graph(np.random.default_rng(1), 2000, 40_000, cfg.d_feat,
+                     n_classes=cfg.n_classes, device="cpu")
+    table = gnn.build_csr(g["senders"], g["receivers"], 2000, 16)
+    card_table = gnn.build_csr(g["senders"].to(cuda), g["receivers"].to(cuda), 2000, 16)
+    assert torch.equal(card_table.cpu(), table) and bool((table[:, -1] == -1).any())
+    seeds = torch.arange(64, dtype=torch.int32)
+    gen = torch.Generator().manual_seed(2)
+    picks = [torch.randint(0, 16, (64, 15), generator=gen),
+             torch.randint(0, 16, (64 * 15, 10), generator=gen)]
+    sub = gnn.sample_subgraph(None, table, seeds, (15, 10), picks=picks)
+    card_sub = gnn.sample_subgraph(None, card_table, seeds.to(cuda), (15, 10), picks=picks)
+    assert all(torch.equal(card_sub[k].cpu(), sub[k]) for k in sub)
+
+    model = gnn.init_params(cfg, device="cpu")
+    losses = {}
+    for dev, m in (("cpu", model), (cuda, copy.deepcopy(model).to(cuda))):
+        opt = adamw(warmup_cosine(1e-2, 1, 3))
+        step = make_train_step(lambda mm, b: gnn_loss(mm, b, cfg), opt)
+        state = opt.init(dict(m.named_parameters()))
+        batch = {k: v.to(dev) for k, v in g.items()}
+        losses[str(dev)] = []
+        for _ in range(3):
+            m, state, metrics = step(m, state, batch)
+            losses[str(dev)].append((float(metrics["loss"]), float(metrics["grad_norm"])))
+    np.testing.assert_allclose(losses[str(cuda)], losses["cpu"], rtol=1e-5)

@@ -253,19 +253,20 @@ def test_unported_paths_raise_naming_their_roadmap_item(data):
     assert online.capacity == 400 and idx.ensure_online() is online
     for a, b in zip(idx.searcher()(Q), want):
         assert torch.equal(a, b)
-    # the model/training substrate beyond the dense LMs and the two-tower path
-    # waits for ROADMAP M17's queue
+    # the model/training substrate beyond the LMs (dense and MoE), the GCN and the
+    # two-tower path waits for ROADMAP M17's queue
     import dataclasses
 
     from repro_torch import configs
     from repro_torch.configs.base import MoEConfig
     from repro_torch.launch import train as ttrain
+    from repro_torch.models import gnn as tgnn
+    from repro_torch.models import moe as tmoe
     from repro_torch.models import recsys as trecsys
     from repro_torch.models import transformer as ttransformer
     from repro_torch.train.train_step import recsys_loss
 
-    for arch in ("phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b", "gcn-cora", "din", "dcn-v2",
-                 "autoint", "swgraph-retrieval"):
+    for arch in ("din", "dcn-v2", "autoint", "swgraph-retrieval"):
         for fn in (configs.get_config, configs.get_smoke_config, configs.get_family):
             with pytest.raises(NotImplementedError, match="M17"):
                 fn(arch)
@@ -280,10 +281,26 @@ def test_unported_paths_raise_naming_their_roadmap_item(data):
             trecsys.init_params(other, device="cpu")
         with pytest.raises(NotImplementedError, match="M17"):
             recsys_loss(None, {}, other)
+    # the MoE LMs and the GCN are ported (M17's MoE and GNN items): an MoE variant of a
+    # dense config initialises with the MoE layer's names, and the three archs resolve
     moe = dataclasses.replace(configs.get_smoke_config("llama3.2-1b"),
                               moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=32))
+    moe_lm = ttransformer.init_params(moe, device="cpu")
+    assert {"router", "e_gate", "e_up", "e_down"} <= set(moe_lm.layers)
+    assert "w_gate" not in moe_lm.layers
+    assert sum(p.numel() for p in moe_lm.parameters()) == moe.n_params()
+    for arch, family in (("phi3.5-moe-42b-a6.6b", "lm"), ("kimi-k2-1t-a32b", "lm"),
+                         ("gcn-cora", "gnn")):
+        assert configs.get_family(arch) == family
+        assert configs.get_config(arch).name == arch
+    assert tgnn.init_params(configs.get_smoke_config("gcn-cora"), device="cpu") is not None
+    # their mesh-only pieces wait for the sharding item
+    for fn in (tmoe.moe_layer_specs, tgnn.param_specs):
+        with pytest.raises(NotImplementedError, match="M17"):
+            fn(moe)
     with pytest.raises(NotImplementedError, match="M17"):
-        ttransformer.init_params(moe, device="cpu")
+        tmoe.moe_ffn(torch.zeros((1, 2, moe.d_model)),
+                     {k: w[0] for k, w in moe_lm.layers.items()}, moe, mesh=object())
     # the dense LM's mesh-only pieces wait for the sharding item
     dense = configs.get_smoke_config("llama3.2-1b")
     lm = ttransformer.init_params(dense, device="cpu")
