@@ -263,6 +263,27 @@ Every phase is fatal on failure; nothing is caught and passed over.
     forward and its backward timed over 10 steps; the last step's logits
     within rtol = atol = 1e-4 of the same function on the CPU over the same
     sampled ids (``index_add_`` adds in no fixed order on the card).
+28. the recsys ranking models at full width, tables not cut (no kernel of the
+    port lies on this path: ``repro``'s einsums, ``@`` products and gathers
+    stay PyTorch ops): AutoInt (39 criteo-like fields, 29,011,456 padded rows
+    x 16), DIN (5 fields, 1,111,552 x 18, history 100) and DCN-v2 (13 dense +
+    26 sparse, 28,999,168 x 16).  For each: ``launch.train.main(["--arch",
+    a])`` at ``repro``'s launcher defaults (batch 8, 100 steps), the loss
+    finite; ``train_recsys`` for 20 steps at ``repro.launch.cells``'
+    train_batch (65,536), the loss finite and falling: ms per step after the
+    first, examples/s, peak memory, the model-FLOPs share (3 x
+    ``_recsys_flops`` over the step time at the bf16 peak) and the step's
+    bytes bound (``_recsys_cell``'s ``analytic_bytes`` at 3.35 TB/s), the
+    host's draw of one batch, one step profiled; ``forward`` under no_grad
+    timed at serve_p99 (512 rows), serve_bulk (262,144) and retrieval_cand
+    (10^6 rows in chunks of 262,144, then one top-100); the trained model
+    against a CPU copy (TF32 off): a 256-row forward within 1e-5 of the
+    largest |logit|, one train step at batch 4,096 from equal weights, loss
+    and grad_norm within 1e-4 relative; the SMOKE forward within 1e-5 of
+    the CPU's; at DCN-v2 ``embedding_bag`` over its table, 65,536 ragged
+    bags of 1-40 ids in sum, mean and max, within rtol = atol = 1e-5 of the
+    CPU.  Then the paper's six retrieval configs resolve through
+    ``configs.get_config`` / ``get_module`` and are printed.
 
 Phase 10 also times each kernel at the sharded paths' shapes and, each held
 to the plain version, at the shapes phases 21-23 give it: gather_scores at
@@ -437,6 +458,23 @@ SAMPLED_TOL = dict(rtol=1e-4, atol=1e-4)
 # ogb_products' first-layer aggregate held at this many sampled receivers against a
 # float64 recomputation on the host, within SAMPLED_TOL
 AGG_CHECK_ROWS = 4096
+# phase 28: the recsys ranking models at FULL, tables not cut: repro.launch.train's
+# launcher defaults (batch 8, 100 steps), then train_recsys at repro.launch.cells'
+# train_batch (65,536) for RECSYS_STEPS steps; forward at the cells' serving shapes,
+# the 10^6 rows of retrieval_cand in chunks of RECSYS_CHUNK (DIN's attention MLP over
+# 10^6 x 100 positions needs more than 80 GB in one pass), then a top-RECSYS_TOPK
+RECSYS_ARCHS = ("autoint", "din", "dcn-v2")
+RECSYS_STEPS, RECSYS_TRAIN_BATCH = 20, 65_536
+RECSYS_SERVE = (("serve_p99", 512), ("serve_bulk", 262_144), ("retrieval_cand", 1_000_000))
+RECSYS_SERVE_REPS = {"serve_p99": 20, "serve_bulk": 5, "retrieval_cand": 3}
+RECSYS_CHUNK, RECSYS_TOPK = 262_144, 100
+# the card against the CPU: a forward of RECSYS_PARITY_ROWS rows within RECSYS_FWD_TOL
+# of the largest |logit| (f32, TF32 off); one train step at RECSYS_STEP_BATCH, loss and
+# grad_norm within RECSYS_STEP_RTOL (the table's gradient is summed with atomics)
+RECSYS_PARITY_ROWS, RECSYS_FWD_TOL = 256, 1e-5
+RECSYS_STEP_BATCH, RECSYS_STEP_RTOL = 4096, 1e-4
+# embedding_bag over DCN-v2's table: BAG_COUNT bags of 1 to BAG_MAX ids
+BAG_COUNT, BAG_MAX = 65_536, 40
 PROFILER_FALLBACKS = []  # timings read from CUDA events where the profiler fell short
 
 
@@ -2319,6 +2357,269 @@ def phase27() -> dict:
     return line
 
 
+def recsys_flops(cfg, batch: int) -> float:
+    """Forward FLOPs of one recsys batch (``repro.launch.cells._recsys_flops``)."""
+    d = cfg.embed_dim
+    f = 0.0
+    if cfg.interaction == "self-attn":
+        F = cfg.n_sparse
+        da = cfg.d_attn
+        for i in range(cfg.n_attn_layers):
+            d_in = d if i == 0 else da
+            f += 2.0 * batch * F * d_in * da * 4  # q,k,v,res projections
+            f += 2.0 * batch * F * F * da * 2  # scores + weighted sum
+        f += 2.0 * batch * (F * da)
+    elif cfg.interaction == "target-attn":
+        T = cfg.seq_len
+        dims = (4 * d,) + tuple(cfg.attn_mlp_dims) + (1,)
+        per_tok = sum(2.0 * dims[i] * dims[i + 1] for i in range(len(dims) - 1))
+        f += batch * T * per_tok
+        mdims = (2 * d + (cfg.n_sparse - 1) * d + cfg.n_dense,) + tuple(cfg.mlp_dims) + (1,)
+        f += batch * sum(2.0 * mdims[i] * mdims[i + 1] for i in range(len(mdims) - 1))
+    elif cfg.interaction == "cross":
+        x0 = cfg.n_dense + cfg.n_sparse * d
+        f += 2.0 * batch * x0 * x0 * cfg.n_cross_layers
+        mdims = (x0,) + tuple(cfg.mlp_dims) + (1,)
+        f += batch * sum(2.0 * mdims[i] * mdims[i + 1] for i in range(len(mdims) - 1))
+    elif cfg.interaction == "dot":
+        fu = cfg.n_sparse // 2
+        for dims, nf in ((cfg.tower_mlp_dims, fu), (cfg.tower_mlp_dims, cfg.n_sparse - fu)):
+            full = (nf * d,) + tuple(dims)
+            f += batch * sum(2.0 * full[i] * full[i + 1] for i in range(len(full) - 1))
+    # embedding gather bytes dominate; flops negligible but count the reduce
+    f += 2.0 * batch * cfg.n_sparse * d
+    return f
+
+
+def recsys_step_bytes(cfg, n_params: int, batch: int) -> float:
+    """The train step's bytes (``repro.launch.cells._recsys_cell``'s
+    ``analytic_bytes``): 8 x the f32 params and 2 x AdamW's two moments (the
+    dense update reads and writes the whole table), the gathered rows three
+    times, and 6 x the (batch, fields, d) embeddings."""
+    param_b = 4.0 * n_params
+    gather_b = 3.0 * batch * (cfg.n_sparse + cfg.seq_len) * cfg.embed_dim * 4
+    return (8.0 * param_b + 2.0 * (2.0 * param_b) + gather_b
+            + 6.0 * batch * cfg.embed_dim * cfg.n_sparse * 4)
+
+
+def recsys_batch_of(cfg, rows: int, seed, device="cuda") -> dict:
+    from repro_torch.data.synthetic import recsys_batch
+
+    return recsys_batch(np.random.default_rng(seed), rows, cfg.vocab_sizes, device,
+                        n_dense=cfg.n_dense, seq_len=cfg.seq_len)
+
+
+def recsys_serve(model, cfg, shape: str, rows: int) -> dict:
+    """``forward`` under no_grad over ``rows`` rows in chunks of RECSYS_CHUNK
+    (concatenated), then at retrieval_cand a top-RECSYS_TOPK over all the
+    scores: ms per call (CUDA events), rows/s, the peak above the model."""
+    from repro_torch.models.recsys import forward
+
+    batch = recsys_batch_of(cfg, rows, (28, rows))
+    chunks = [{k: v[i:i + RECSYS_CHUNK] for k, v in batch.items()}
+              for i in range(0, rows, RECSYS_CHUNK)]
+
+    def run():
+        with torch.no_grad():
+            logits = torch.cat([forward(model, c, cfg) for c in chunks])
+            return torch.topk(logits, RECSYS_TOPK) if shape == "retrieval_cand" else logits
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ms = time_ms(run, [()], RECSYS_SERVE_REPS[shape])
+    out = run()
+    torch.cuda.synchronize()
+    logits = out.values if shape == "retrieval_cand" else out
+    return {"rows": rows, "chunks": len(chunks), "ms": ms, "rows_s": rows * 1e3 / ms,
+            "peak_gb": (torch.cuda.max_memory_allocated() - before) / 1e9,
+            "finite": bool(torch.isfinite(logits).all()),
+            "shape_ok": tuple(logits.shape) == ((RECSYS_TOPK,) if shape == "retrieval_cand"
+                                                else (rows,))}
+
+
+def recsys_against_cpu(model, cfg, arch: str) -> dict:
+    """The trained card model against a CPU copy of it: a RECSYS_PARITY_ROWS-row
+    forward (TF32 off) within RECSYS_FWD_TOL of the largest |logit|; at DCN-v2
+    ``embedding_bag`` over its table; then one train step at RECSYS_STEP_BATCH
+    from the same weights, batch and a fresh AdamW state on each side: loss and
+    grad_norm within RECSYS_STEP_RTOL relative."""
+    import copy
+
+    from repro_torch.launch.train import PEAK_LR, WARMUP
+    from repro_torch.models.recsys import forward
+    from repro_torch.train.optimizer import adamw, warmup_cosine
+    from repro_torch.train.train_step import make_train_step, recsys_loss
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 28: TF32 is on; the parity needs it off")
+    line = {}
+    t0 = time.perf_counter()
+    cpu_model = copy.deepcopy(model).to("cpu")
+    batch = recsys_batch_of(cfg, RECSYS_PARITY_ROWS, (28, 1), device="cpu")
+    with torch.no_grad():
+        want = forward(cpu_model, batch, cfg)
+        got = forward(model, {k: v.cuda() for k, v in batch.items()}, cfg).cpu()
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    line["forward"] = {"rows": RECSYS_PARITY_ROWS, "max_abs_err": err, "max_abs_logit": scale,
+                       "rel_to_largest": err / scale, "ok": err <= RECSYS_FWD_TOL * scale}
+    if arch == "dcn-v2":
+        line["embedding_bag"] = embedding_bag_against_cpu(model.table.detach(),
+                                                          cpu_model.table.detach(),
+                                                          cfg.table_rows())
+    opt = adamw(warmup_cosine(PEAK_LR, WARMUP, RECSYS_STEPS))
+    step_fn = make_train_step(lambda m, b: recsys_loss(m, b, cfg), opt)
+    metrics = {}
+    for dev, m in (("cuda", model), ("cpu", cpu_model)):
+        b = recsys_batch_of(cfg, RECSYS_STEP_BATCH, (28, 2), device=dev)
+        _, _, out = step_fn(m, opt.init(dict(m.named_parameters())), b)
+        metrics[dev] = {k: float(out[k]) for k in ("loss", "grad_norm")}
+    rel = {k: abs(metrics["cuda"][k] - metrics["cpu"][k]) / abs(metrics["cpu"][k])
+           for k in ("loss", "grad_norm")}
+    line["train_step"] = {"batch": RECSYS_STEP_BATCH, "cuda": metrics["cuda"],
+                          "cpu": metrics["cpu"], "rel_err": rel,
+                          "ok": max(rel.values()) <= RECSYS_STEP_RTOL}
+    line["s"] = time.perf_counter() - t0
+    del cpu_model
+    return line
+
+
+def embedding_bag_against_cpu(table, cpu_table, n_rows: int) -> dict:
+    """BAG_COUNT ragged bags of 1 to BAG_MAX ids over the table's rows (a
+    twentieth of the ids -1), sum, mean and max on the card against the CPU
+    within rtol = atol = 1e-5 (``index_add_`` sums with atomics on the card);
+    the card's ms per call."""
+    from repro_torch.models.embedding import embedding_bag
+
+    rng = np.random.default_rng(28)
+    lengths = rng.integers(1, BAG_MAX + 1, BAG_COUNT)
+    seg = torch.from_numpy(np.repeat(np.arange(BAG_COUNT), lengths).astype(np.int32))
+    ids = rng.integers(0, n_rows, seg.shape[0]).astype(np.int32)
+    ids[rng.random(seg.shape[0]) < 0.05] = -1
+    ids = torch.from_numpy(ids)
+    line = {"bags": BAG_COUNT, "ids": int(ids.shape[0]), "table_rows": int(table.shape[0])}
+    seg_c, ids_c = seg.cuda(), ids.cuda()
+    for mode in ("sum", "mean", "max"):
+        got = embedding_bag(table, ids_c, seg_c, BAG_COUNT, mode=mode)
+        want = embedding_bag(cpu_table, ids, seg, BAG_COUNT, mode=mode)
+        ms = time_ms(lambda: embedding_bag(table, ids_c, seg_c, BAG_COUNT, mode=mode), [()], 10)
+        line[mode] = {"max_abs_err": float((got.cpu() - want).abs().max()), "ms": ms,
+                      "ok": bool(torch.allclose(got.cpu(), want, rtol=1e-5, atol=1e-5))}
+    return line
+
+
+def phase28() -> dict:
+    """The recsys ranking models at full width, and the retrieval configs
+    (module docstring)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_module, get_smoke_config
+    from repro_torch.launch.train import PEAK_LR, WARMUP
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.launch.train import train_recsys
+    from repro_torch.models import recsys
+    from repro_torch.train.optimizer import adamw, warmup_cosine
+    from repro_torch.train.train_step import make_train_step, recsys_loss
+
+    line = {}
+    for arch in RECSYS_ARCHS:
+        cfg = get_config(arch)
+        res = {"table_rows": recsys._pad_vocab(cfg), "embed_dim": cfg.embed_dim}
+        # 1. the launcher at repro's defaults
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        history = train_main(["--arch", arch])
+        res["launcher"] = {"steps": 100, "batch": 8, "s": time.perf_counter() - t0,
+                           "losses": [h["loss"] for h in history]}
+        if not all(np.isfinite(res["launcher"]["losses"])):
+            raise AssertionError(f"phase 28: {arch}'s launcher loss is not finite: {history}")
+        torch.cuda.empty_cache()
+
+        # 2. training at the train_batch cell's batch
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        model, history = train_recsys(cfg, steps=RECSYS_STEPS, batch=RECSYS_TRAIN_BATCH)
+        peak = (torch.cuda.max_memory_allocated() - before) / 1e9
+        first, last = history[0], history[-1]
+        ms_step = 1e3 * (last["s"] - first["s"]) / (last["step"] - first["step"])
+        n_params = sum(p.numel() for p in model.parameters())
+        res["train"] = {
+            "steps": RECSYS_STEPS, "batch": RECSYS_TRAIN_BATCH, "n_params": n_params,
+            "history": history, "first_step_s": first["s"], "ms_per_step": ms_step,
+            "examples_s": RECSYS_TRAIN_BATCH * 1e3 / ms_step, "peak_gb": peak,
+            "model_flops_share": 3 * recsys_flops(cfg, RECSYS_TRAIN_BATCH)
+            / (ms_step / 1e3 * H100_BF16_FLOPS),
+            "step_gb": recsys_step_bytes(cfg, n_params, RECSYS_TRAIN_BATCH) / 1e9,
+            "bytes_bound_ms": 1e3 * recsys_step_bytes(cfg, n_params, RECSYS_TRAIN_BATCH)
+            / H100_BYTES_PER_S}
+        losses = [h["loss"] for h in history]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"phase 28: {arch}'s loss is not finite and falling: {history}")
+        # the host's share of a step: train_recsys draws each batch with numpy
+        t0 = time.perf_counter()
+        for i in range(3):
+            recsys_batch_of(cfg, RECSYS_TRAIN_BATCH, (28, 10 + i))
+        torch.cuda.synchronize()
+        res["train"]["batch_draw_ms"] = 1e3 * (time.perf_counter() - t0) / 3
+
+        # one step profiled, from a fresh AdamW state after a warm step
+        opt = adamw(warmup_cosine(PEAK_LR, WARMUP, RECSYS_STEPS))
+        step_fn = make_train_step(lambda m, b: recsys_loss(m, b, cfg), opt)
+        state = [opt.init(dict(model.named_parameters()))]
+        batch = recsys_batch_of(cfg, RECSYS_TRAIN_BATCH, (28, 0))
+
+        def one():
+            _, state[0], _ = step_fn(model, state[0], batch)
+
+        one()
+        res["train"]["step_profile"] = kernel_breakdown(*_profiled(one), top=10)
+        del state, batch
+        torch.cuda.empty_cache()
+        log(f"{arch} train: " + json.dumps(res))
+
+        # 3. serving
+        res["serve"] = {shape: recsys_serve(model, cfg, shape, rows)
+                        for shape, rows in RECSYS_SERVE}
+        log(f"{arch} serve: " + json.dumps(res["serve"]))
+        if not all(r["finite"] and r["shape_ok"] for r in res["serve"].values()):
+            raise AssertionError(f"phase 28: {arch}'s serving output: {res['serve']}")
+        torch.cuda.empty_cache()
+
+        # 4. the card against the CPU, at full width and at SMOKE
+        res["vs_cpu"] = recsys_against_cpu(model, cfg, arch)
+        del model
+        torch.cuda.empty_cache()
+        smoke = get_smoke_config(arch)
+        cpu_model = recsys.init_params(smoke, torch.Generator().manual_seed(1), device="cpu")
+        card_model = recsys.init_params(smoke, torch.Generator().manual_seed(1), device="cuda")
+        b = recsys_batch_of(smoke, 64, (28, 3), device="cpu")
+        with torch.no_grad():
+            want = recsys.forward(cpu_model, b, smoke)
+            got = recsys.forward(card_model, {k: v.cuda() for k, v in b.items()}, smoke).cpu()
+        res["vs_cpu"]["smoke"] = {"max_abs_err": float((got - want).abs().max()),
+                                  "ok": bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5))}
+        log(f"{arch} card against the CPU: " + json.dumps(res["vs_cpu"]))
+        checks = [res["vs_cpu"]["forward"]["ok"], res["vs_cpu"]["train_step"]["ok"],
+                  res["vs_cpu"]["smoke"]["ok"]]
+        checks += [res["vs_cpu"]["embedding_bag"][m]["ok"] for m in ("sum", "mean", "max")
+                   if "embedding_bag" in res["vs_cpu"]]
+        if not all(checks):
+            raise AssertionError(f"phase 28: {arch} on the card differs from the CPU: "
+                                 f"{res['vs_cpu']}")
+        line[arch] = res
+
+    # 5. the paper's retrieval configs resolve through the registry
+    mod = get_module("swgraph-retrieval")
+    names = ("WIKI8_KL", "WIKI128_KL", "RCV128_IS", "RANDHIST32_RENYI2", "MANNER_BM25", "SMOKE")
+    line["retrieval_configs"] = {n: dataclasses.asdict(getattr(mod, n)) for n in names}
+    if not (get_config("swgraph-retrieval") is mod.WIKI128_KL
+            and get_smoke_config("swgraph-retrieval") is mod.SMOKE):
+        raise AssertionError("phase 28: swgraph-retrieval does not resolve to WIKI128_KL and "
+                             "SMOKE")
+    log("retrieval configs: " + json.dumps(line["retrieval_configs"]))
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -3457,6 +3758,11 @@ def main() -> int:
 
     lap("27 GCN")
 
+    # -- 28. the recsys ranking models at full width; the retrieval configs ------------
+    recsys28 = phase28()
+
+    lap("28 recsys")
+
     def err_of(kernel_name):
         return max(v for k, v in max_err.items() if k[0] == kernel_name and k[1] == "kl")
 
@@ -3601,6 +3907,7 @@ def main() -> int:
     log("dense LM: " + json.dumps({"llama3.2-1b": lm24, "resume_and_gemma3": lm25}))
     log("MoE LM: " + json.dumps(moe26))
     log("GCN: " + json.dumps(gnn27))
+    log("recsys: " + json.dumps(recsys28))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"timings read from CUDA events, the profiler having fallen short: "
         f"{len(PROFILER_FALLBACKS)} {PROFILER_FALLBACKS}")

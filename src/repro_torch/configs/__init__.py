@@ -1,37 +1,34 @@
 """Architecture registry: ``--arch <id>`` resolution (PyTorch port of
-``repro.configs``).
-
-Ported: the dense LMs (llama3.2-1b, gemma3-12b, yi-34b), the MoE LMs
-(phi3.5-moe, kimi-k2), the GCN (gcn-cora) and the two-tower retrieval
-model.  The JAX package's other architectures (the other recsys models and
-the paper's retrieval configs) raise ``NotImplementedError`` naming their
-ROADMAP item (M17's queue).
-"""
+``repro.configs``) for the ten assigned architectures plus the paper's own
+retrieval configs (``swgraph-retrieval``, family ``retrieval``, left out of
+``ARCH_IDS`` as in ``repro``)."""
 
 from __future__ import annotations
 
 import importlib
 
 _ARCH_MODULES = {
+    # LM family
     "yi-34b": ("repro_torch.configs.yi_34b", "lm"),
     "gemma3-12b": ("repro_torch.configs.gemma3_12b", "lm"),
     "llama3.2-1b": ("repro_torch.configs.llama3_2_1b", "lm"),
     "phi3.5-moe-42b-a6.6b": ("repro_torch.configs.phi3_5_moe", "lm"),
     "kimi-k2-1t-a32b": ("repro_torch.configs.kimi_k2", "lm"),
+    # GNN
     "gcn-cora": ("repro_torch.configs.gcn_cora", "gnn"),
+    # recsys
+    "autoint": ("repro_torch.configs.autoint", "recsys"),
+    "din": ("repro_torch.configs.din", "recsys"),
     "two-tower-retrieval": ("repro_torch.configs.two_tower", "recsys"),
+    "dcn-v2": ("repro_torch.configs.dcn_v2", "recsys"),
+    # the paper's own architecture
+    "swgraph-retrieval": ("repro_torch.configs.paper_swgraph", "retrieval"),
 }
-# the JAX package's registry, not ported yet (ROADMAP M17's queue)
-_UNPORTED = ("autoint", "din", "dcn-v2", "swgraph-retrieval")
 
-ARCH_IDS = list(_ARCH_MODULES)
+ARCH_IDS = [a for a in _ARCH_MODULES if a != "swgraph-retrieval"]
 
 
 def _entry(arch: str):
-    if arch in _UNPORTED:
-        raise NotImplementedError(
-            f"architecture {arch!r} is not ported to repro_torch yet (ROADMAP M17); "
-            f"ported: {ARCH_IDS}")
     try:
         return _ARCH_MODULES[arch]
     except KeyError:
@@ -43,8 +40,15 @@ def get_family(arch: str) -> str:
 
 
 def get_config(arch: str):
-    return importlib.import_module(_entry(arch)[0]).FULL
+    mod = get_module(arch)
+    if hasattr(mod, "FULL"):
+        return mod.FULL
+    return mod.WIKI128_KL  # paper retrieval default
 
 
 def get_smoke_config(arch: str):
-    return importlib.import_module(_entry(arch)[0]).SMOKE
+    return get_module(arch).SMOKE
+
+
+def get_module(arch: str):
+    return importlib.import_module(_entry(arch)[0])

@@ -1,8 +1,5 @@
 """Config dataclasses (PyTorch port of ``repro.configs.base``: ``MoEConfig``,
-``LMConfig``, ``GNNConfig``, ``RecsysConfig``).
-
-The retrieval configs wait for their ROADMAP item (``paper_swgraph``).
-"""
+``LMConfig``, ``GNNConfig``, ``RecsysConfig``, ``RetrievalConfig``)."""
 
 from __future__ import annotations
 
@@ -95,19 +92,29 @@ class GNNConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RecsysConfig:
-    """Sparse-embedding CTR/retrieval models: the fields the two-tower path reads.
+    """Sparse-embedding CTR/retrieval models.
 
     ``interaction``: self-attn (AutoInt) | target-attn (DIN) | cross (DCN-v2)
-                     | dot (two-tower retrieval; the only one ported)
-    ``vocab_sizes``: per-field embedding table rows.
-    The other interactions' fields (dense features, attention, cross layers)
-    come with them in ROADMAP M17.
+                     | dot (two-tower retrieval)
+    ``vocab_sizes``: per-field embedding table rows (criteo-like defaults).
     """
 
     name: str
     interaction: str
+    n_dense: int
     vocab_sizes: Tuple[int, ...]
     embed_dim: int
+    mlp_dims: Tuple[int, ...]
+    # AutoInt
+    n_attn_layers: int = 0
+    n_attn_heads: int = 0
+    d_attn: int = 0
+    # DIN
+    seq_len: int = 0
+    attn_mlp_dims: Tuple[int, ...] = ()
+    # DCN-v2
+    n_cross_layers: int = 0
+    # two-tower
     tower_mlp_dims: Tuple[int, ...] = ()
 
     @property
@@ -116,3 +123,20 @@ class RecsysConfig:
 
     def table_rows(self) -> int:
         return sum(self.vocab_sizes)
+
+
+@dataclasses.dataclass(frozen=True)
+class RetrievalConfig:
+    """The paper's own architecture: a non-metric ANN retrieval index."""
+
+    name: str
+    distance: str = "kl"
+    index_sym: str = "none"
+    query_sym: str = "none"
+    builder: str = "nndescent"
+    NN: int = 15
+    ef_construction: int = 100
+    ef_search: int = 128
+    k: int = 10
+    dim: int = 128
+    n_db: int = 500_000

@@ -6,11 +6,11 @@
 if need be; ``shard_from_jax`` takes ``repro``'s sharded state (the rows and
 ``build_local_subgraphs``' padded local adjacency) and returns one rank's
 block.  ``spec_dict`` is the index's ``spec.to_dict()``.
-``recsys_params_from_jax`` loads ``repro``'s two-tower param dict into the
-port's module, ``lm_params_from_jax`` its LM's stacked params (dense or
-MoE), ``gnn_params_from_jax`` its GCN's, and ``mahalanobis_from_jax`` takes a
-fitted map.  Nothing here imports JAX: the caller hands over plain arrays,
-as a model's weights would be handed over.
+``recsys_params_from_jax`` loads ``repro``'s recsys param dict (any
+interaction) into the port's module, ``lm_params_from_jax`` its LM's stacked
+params (dense or MoE), ``gnn_params_from_jax`` its GCN's, and
+``mahalanobis_from_jax`` takes a fitted map.  Nothing here imports JAX: the
+caller hands over plain arrays, as a model's weights would be handed over.
 """
 
 from __future__ import annotations
@@ -135,22 +135,36 @@ def shard_from_jax(arrays: dict, shard: int, n_shards: int, device="cuda") -> Sh
                       n_real, n_local)
 
 
+def _flatten(tree, prefix: str = "") -> dict:
+    """A nested dict / list of arrays as {"a.b.0": array}: dict keys and list
+    positions joined by dots, the port's parameter names."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(_flatten(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
 def recsys_params_from_jax(params_np: dict, cfg, device="cuda"):
-    """The port's two-tower model holding ``repro``'s params, on ``device``.
+    """The port's recsys model (any interaction) holding ``repro``'s params,
+    on ``device``.
 
     ``params_np`` is ``repro.models.recsys.init_params``' dict as numpy arrays:
-    ``table`` (padded rows, d) and ``user_tower`` / ``item_tower``, each
-    ``{"w": [(d_in, d_out), ...], "b": [(d_out,), ...]}``.  ``ValueError``
-    when a shape differs from what ``cfg`` gives.
+    ``table`` (padded rows, d) and the interaction's layers: ``user_tower`` /
+    ``item_tower`` and ``att_mlp`` / ``head``, each ``{"w": [(d_in, d_out),
+    ...], "b": [(d_out,), ...]}``; ``attn``, a list of ``{"wq", "wk", "wv",
+    "wres"}``; ``cross``, a list of ``{"w", "b"}``.  ``ValueError`` when a
+    name or shape differs from what ``cfg`` gives.
     """
     from repro_torch.models.recsys import init_params
 
     model = init_params(cfg, device=device)
-    arrays = {"table": params_np["table"]}
-    for tower in ("user_tower", "item_tower"):
-        for part in ("w", "b"):
-            for i, a in enumerate(params_np[tower][part]):
-                arrays[f"{tower}.{part}.{i}"] = a
+    arrays = _flatten(params_np)
     params = dict(model.named_parameters())
     if set(arrays) != set(params):
         raise ValueError(f"param names {sorted(arrays)} differ from the model's {sorted(params)}")

@@ -5,7 +5,8 @@
   Manner       : Zipf-sampled term counts with the BM25 views: query = raw
                  TF, document = saturated TF x IDF, and the natural
                  shared-sqrt(IDF) symmetrization of Eq. (4).
-  recsys       : criteo-like CTR batches (per-field categorical ids).
+  recsys       : criteo-like CTR batches (per-field categorical ids, dense
+                 features, behaviour histories).
   graphs       : a skewed random edge list with node features and labels.
 
 Draws come from a seeded ``numpy.random.Generator`` and are then moved to the
@@ -112,17 +113,28 @@ def text_collection(rng: np.random.Generator, n: int, vocab: int = 2048, mean_le
     return TextCollection.from_counts(torch.from_numpy(counts).to(resolve_device(device)))
 
 
-def recsys_batch(rng: np.random.Generator, batch: int, vocab_sizes, device="cuda") -> dict:
+def recsys_batch(rng: np.random.Generator, batch: int, vocab_sizes, device="cuda", *,
+                 n_dense: int = 0, seq_len: int = 0) -> dict:
     """One synthetic CTR batch on ``device``: ``sparse_ids`` (batch, F) int32,
     field f's ids ``uniform**2 * (v_f - 1)`` truncated (Zipf-ish, low ids
-    hot), and ``label`` Bernoulli(0.25) float32.  The dense features and
-    the behaviour history of the other recsys models wait for ROADMAP M17."""
+    hot), and ``label`` Bernoulli(0.25) float32.  With ``n_dense``, ``dense``
+    (batch, n_dense) N(0, 1) float32; with ``seq_len``, DIN's behaviour
+    history: ``history`` (batch, seq_len) int32 ids of field 0's vocabulary,
+    ``uniform**2 * (vocab_sizes[0] - 1)`` truncated, and ``hist_len`` (batch,)
+    int32 in [1, seq_len].  The dense and history draws come after the ids
+    and the label, so a batch without them is drawn as before."""
     dev = resolve_device(device)
     sparse = np.stack([(rng.random(batch, dtype=np.float32) ** 2 * (v - 1)).astype(np.int32)
                        for v in vocab_sizes], axis=1)
     label = (rng.random(batch) < 0.25).astype(np.float32)
-    return {"sparse_ids": torch.from_numpy(sparse).to(dev),
-            "label": torch.from_numpy(label).to(dev)}
+    out = {"sparse_ids": sparse, "label": label}
+    if n_dense:
+        out["dense"] = rng.standard_normal((batch, n_dense), dtype=np.float32)
+    if seq_len:
+        u = rng.random((batch, seq_len), dtype=np.float32)
+        out["history"] = (u ** 2 * (vocab_sizes[0] - 1)).astype(np.int32)
+        out["hist_len"] = rng.integers(1, seq_len + 1, batch, dtype=np.int32)
+    return {k: torch.from_numpy(v).to(dev) for k, v in out.items()}
 
 
 def random_graph(rng: np.random.Generator, n_nodes: int, n_edges: int, d_feat: int,

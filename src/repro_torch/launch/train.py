@@ -5,15 +5,17 @@ pipeline -> train step -> checkpoints.
         [--batch 8] [--seq 128] [--ckpt-dir DIR] [--device cpu]
     python -m repro_torch.launch.train --arch two-tower-retrieval --smoke --steps 60 \
         --batch 256
+    python -m repro_torch.launch.train --arch dcn-v2 [--smoke] [--device cpu]
 
 ``train_lm`` trains an LM (dense or MoE) with AdamW under a warmup-cosine schedule on
 synthetic token batches (``lm_batch_fn``: batch ``step`` drawn from
 ``numpy.random.default_rng((seed, step))``, since ``jax.random`` cannot be
 replayed).  With a checkpoint directory it resumes (params, optimizer state)
 and the data cursor from the latest checkpoint, so a killed run continues
-where it stopped.  ``train_recsys`` trains the two-tower model.  The GNN family has no
-launcher here, as in ``repro`` (``main`` exits naming ``examples/``); the
-mesh waits for ROADMAP M17's queue.
+where it stopped.  ``train_recsys`` trains a recsys model (two-tower, AutoInt,
+DIN, DCN-v2).  The GNN and retrieval families have no launcher here, as in
+``repro`` (``main`` exits naming ``examples/``); the mesh waits for ROADMAP
+M17's queue.
 """
 
 from __future__ import annotations
@@ -114,7 +116,10 @@ def train_lm(cfg, *, steps: int = 200, batch: int = 8, seq: int = 128,
 
 def train_recsys(cfg, *, steps: int = 100, batch: int = 256, log_every: int = 10,
                  device="cuda"):
-    """Train ``cfg``'s model; returns (model, history of {"step", "loss"})."""
+    """Train ``cfg``'s model; returns (model, history of {"step", "loss",
+    "s"}), ``s`` the seconds since the loop began, read after the loss's host
+    copy (which waits for the step).  AdamW updates the whole table densely
+    every step, as ``repro``'s does."""
     dev = resolve_device(device)
     model = recsys.init_params(cfg, torch.Generator().manual_seed(0), dev)
     opt = adamw(warmup_cosine(PEAK_LR, WARMUP, steps))
@@ -124,13 +129,13 @@ def train_recsys(cfg, *, steps: int = 100, batch: int = 256, log_every: int = 10
     history = []
     t0 = time.perf_counter()
     for step in range(steps):
-        b = recsys_batch(np.random.default_rng((BATCH_SEED, step)), batch, cfg.vocab_sizes, dev)
+        b = recsys_batch(np.random.default_rng((BATCH_SEED, step)), batch, cfg.vocab_sizes, dev,
+                         n_dense=cfg.n_dense, seq_len=cfg.seq_len)
         model, opt_state, metrics = step_fn(model, opt_state, b)
         if step % log_every == 0 or step == steps - 1:
             loss = float(metrics["loss"])  # jaxlint: disable=JL003 (logged steps only)
-            history.append({"step": step, "loss": loss})
-            print(f"step {step:4d} loss {history[-1]['loss']:.4f} "
-                  f"({time.perf_counter() - t0:.2f} s)")
+            history.append({"step": step, "loss": loss, "s": time.perf_counter() - t0})
+            print(f"step {step:4d} loss {loss:.4f} ({history[-1]['s']:.2f} s)")
     return model, history
 
 

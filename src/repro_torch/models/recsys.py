@@ -1,17 +1,26 @@
-"""The two-tower retrieval model (PyTorch port of ``repro.models.recsys``, ``dot``).
+"""Recsys ranking/retrieval models (PyTorch port of ``repro.models.recsys``):
+AutoInt, DIN, two-tower, DCN-v2.
 
-MLP towers over the concatenated embedding table, L2-normalised outputs,
-trained with an in-batch sampled softmax [RecSys'19].  The serving shape
-(one query against many candidates) is the paper's own problem: the
-item-tower embeddings are indexed by ``repro_torch.core`` under the negdot
-distance.  The other interactions (AutoInt's self-attention, DIN's target
-attention, DCN-v2's cross layers) wait for ROADMAP M17.
+All four share the concatenated embedding table (``models/embedding.py``);
+they differ in the feature-interaction op:
+
+  AutoInt  : multi-head self-attention over field embeddings [1810.11921]
+  DIN      : target-attention over user behaviour history    [1706.06978]
+  two-tower: MLP towers + dot, in-batch sampled softmax      [RecSys'19]
+  DCN-v2   : x_{l+1} = x0 * (x_l W + b) + x_l cross layers   [2008.13535]
+
+The two-tower serving shape (one query against many candidates) is the
+paper's own problem: the item-tower embeddings are indexed by
+``repro_torch.core`` under the negdot distance.  The ranking models are
+served by ``forward``, trained on ``bce_loss``.
 
 The parameters mirror ``repro``'s param dict as module attributes:
-``table``, ``user_tower.w.<i>``, ``user_tower.b.<i>``, ``item_tower.w.<i>``,
-``item_tower.b.<i>`` (``convert.recsys_params_from_jax`` carries them
+``table``; ``user_tower.{w,b}.<i>`` and ``item_tower.{w,b}.<i>``;
+``attn.<i>.{wq,wk,wv,wres}``; ``att_mlp.{w,b}.<i>``; ``cross.<i>.{w,b}``;
+``head.{w,b}.<i>`` (``convert.recsys_params_from_jax`` carries them
 across).  They are drawn on the CPU from a ``torch.Generator`` and then
-moved, so the card and the CPU start from the same weights.
+moved, so the card and the CPU start from the same weights.  The mesh's
+``param_specs`` waits for ROADMAP M17's sharding item.
 """
 
 from __future__ import annotations
@@ -24,14 +33,7 @@ from repro_torch.configs.base import RecsysConfig
 from repro_torch.core.distances import neg_inner_product
 from repro_torch.kernels.ops import query_distance_matrix
 from repro_torch.models.embedding import embedding_lookup, field_offsets, init_table
-from repro_torch.models.layers import dense_init
-
-
-def _check_interaction(cfg: RecsysConfig) -> None:
-    if cfg.interaction != "dot":
-        raise NotImplementedError(
-            f"recsys interaction {cfg.interaction!r} is not ported to repro_torch yet "
-            "(ROADMAP M17); only the two-tower 'dot' model is")
+from repro_torch.models.layers import NEG_INF, dense_init, mesh_unported
 
 
 class MLP(nn.Module):
@@ -62,31 +64,147 @@ def _pad_vocab(cfg: RecsysConfig, mult: int = 512) -> int:
     return -(-cfg.table_rows() // mult) * mult
 
 
-class TwoTower(nn.Module):
-    """The two-tower model: the padded table and the user and item towers.
+class _Recsys(nn.Module):
+    """The padded table and its field offsets, shared by every model."""
 
-    The first ``n_sparse // 2`` fields feed the user tower, the rest the item
-    tower.
-    """
-
-    def __init__(self, cfg: RecsysConfig, generator=None, device="cuda"):
+    def __init__(self, cfg: RecsysConfig, gen, dev):
         super().__init__()
-        _check_interaction(cfg)
-        dev = resolve_device(device)
-        gen = generator if generator is not None else torch.Generator().manual_seed(0)
-        d = cfg.embed_dim
-        fu = cfg.n_sparse // 2
-        self.table = nn.Parameter(init_table(gen, (_pad_vocab(cfg),), d).to(dev))
-        self.user_tower = _mlp_init(gen, (fu * d,) + tuple(cfg.tower_mlp_dims), dev)
-        self.item_tower = _mlp_init(gen, ((cfg.n_sparse - fu) * d,) + tuple(cfg.tower_mlp_dims),
-                                    dev)
+        self.table = nn.Parameter(init_table(gen, (_pad_vocab(cfg),), cfg.embed_dim).to(dev))
         self.register_buffer("offsets", field_offsets(cfg.vocab_sizes, dev), persistent=False)
 
 
-def init_params(cfg: RecsysConfig, generator=None, device="cuda") -> TwoTower:
-    """The model for ``cfg`` on ``device`` (weights from ``generator``, a CPU
-    ``torch.Generator``; seed 0 when omitted)."""
-    return TwoTower(cfg, generator, device)
+class TwoTower(_Recsys):
+    """The two-tower model: the first ``n_sparse // 2`` fields feed the user
+    tower, the rest the item tower."""
+
+    def __init__(self, cfg: RecsysConfig, gen, dev):
+        super().__init__(cfg, gen, dev)
+        d, fu = cfg.embed_dim, cfg.n_sparse // 2
+        self.user_tower = _mlp_init(gen, (fu * d,) + tuple(cfg.tower_mlp_dims), dev)
+        self.item_tower = _mlp_init(gen, ((cfg.n_sparse - fu) * d,) + tuple(cfg.tower_mlp_dims),
+                                    dev)
+
+
+class _AttnLayer(nn.Module):
+    def __init__(self, gen, d_in: int, d_attn: int, dev):
+        super().__init__()
+        for name in ("wq", "wk", "wv", "wres"):
+            setattr(self, name, nn.Parameter(dense_init(gen, d_in, d_attn).to(dev)))
+
+
+class AutoInt(_Recsys):
+    """Self-attention layers over the field embeddings (the first from
+    ``embed_dim``, the rest from ``d_attn``), then one linear head over the
+    flattened fields and the dense features."""
+
+    def __init__(self, cfg: RecsysConfig, gen, dev):
+        super().__init__(cfg, gen, dev)
+        d, da = cfg.embed_dim, cfg.d_attn
+        self.attn = nn.ModuleList([_AttnLayer(gen, d if i == 0 else da, da, dev)
+                                   for i in range(cfg.n_attn_layers)])
+        self.head = _mlp_init(gen, (cfg.n_sparse * da + cfg.n_dense, 1), dev)
+
+
+class DIN(_Recsys):
+    """The attention MLP over ``[h, t, h - t, h * t]`` and the head over
+    ``[user, target, rest, dense]``."""
+
+    def __init__(self, cfg: RecsysConfig, gen, dev):
+        super().__init__(cfg, gen, dev)
+        d = cfg.embed_dim
+        self.att_mlp = _mlp_init(gen, (4 * d,) + tuple(cfg.attn_mlp_dims) + (1,), dev)
+        in_dim = 2 * d + (cfg.n_sparse - 1) * d + cfg.n_dense
+        self.head = _mlp_init(gen, (in_dim,) + tuple(cfg.mlp_dims) + (1,), dev)
+
+
+class _CrossLayer(nn.Module):
+    def __init__(self, gen, x0: int, dev):
+        super().__init__()
+        self.w = nn.Parameter(dense_init(gen, x0, x0).to(dev))
+        self.b = nn.Parameter(torch.zeros(x0, device=dev))
+
+
+class DCNv2(_Recsys):
+    """Cross layers over ``x0 = [dense, embeddings]``, then the MLP head."""
+
+    def __init__(self, cfg: RecsysConfig, gen, dev):
+        super().__init__(cfg, gen, dev)
+        x0 = cfg.n_dense + cfg.n_sparse * cfg.embed_dim
+        self.cross = nn.ModuleList([_CrossLayer(gen, x0, dev)
+                                    for _ in range(cfg.n_cross_layers)])
+        self.head = _mlp_init(gen, (x0,) + tuple(cfg.mlp_dims) + (1,), dev)
+
+
+_MODELS = {"dot": TwoTower, "self-attn": AutoInt, "target-attn": DIN, "cross": DCNv2}
+
+
+def init_params(cfg: RecsysConfig, generator=None, device="cuda") -> _Recsys:
+    """The model for ``cfg.interaction`` on ``device`` (weights from
+    ``generator``, a CPU ``torch.Generator``; seed 0 when omitted): the table
+    first, then the layers in ``repro``'s order."""
+    if cfg.interaction not in _MODELS:
+        raise ValueError(cfg.interaction)
+    gen = generator if generator is not None else torch.Generator().manual_seed(0)
+    return _MODELS[cfg.interaction](cfg, gen, resolve_device(device))
+
+
+def param_specs(cfg: RecsysConfig, fsdp_axis="data", tp_axis="model"):
+    raise mesh_unported("the recsys models' partition specs")
+
+
+# ---------------------------------------------------------------------------
+# forward passes
+# ---------------------------------------------------------------------------
+
+
+def forward(model: _Recsys, batch, cfg: RecsysConfig):
+    """-> logits (B,) of a ranking model (AutoInt, DIN, DCN-v2)."""
+    emb = embedding_lookup(model.table, batch["sparse_ids"], model.offsets)  # (B, F, d)
+    B = emb.shape[0]
+
+    if cfg.interaction == "self-attn":
+        x = emb
+        h = cfg.n_attn_heads
+        e = cfg.d_attn // h
+        for lp in model.attn:
+            q = (x @ lp.wq).reshape(B, -1, h, e)
+            k = (x @ lp.wk).reshape(B, -1, h, e)
+            v = (x @ lp.wv).reshape(B, -1, h, e)
+            s = torch.einsum("bfhe,bghe->bhfg", q, k) / e ** 0.5
+            a = torch.softmax(s, dim=-1)
+            o = torch.einsum("bhfg,bghe->bfhe", a, v).reshape(B, -1, cfg.d_attn)
+            x = torch.relu(o + x @ lp.wres)
+        flat = x.reshape(B, -1)
+        if cfg.n_dense:
+            flat = torch.cat([flat, batch["dense"]], dim=1)
+        return _mlp_apply(model.head, flat)[:, 0]
+
+    if cfg.interaction == "target-attn":
+        # field 0 = target item; history ids share field 0's rows (offset 0)
+        target = emb[:, 0]  # (B, d)
+        T = batch["history"].shape[1]
+        hist = embedding_lookup(model.table, batch["history"], model.offsets[:1].expand(T))
+        t = target[:, None, :].expand(hist.shape)
+        att_in = torch.cat([hist, t, hist - t, hist * t], dim=-1)
+        w = _mlp_apply(model.att_mlp, att_in)[..., 0]  # (B, T)
+        mask = torch.arange(T, device=w.device)[None, :] < batch["hist_len"][:, None]
+        w = torch.where(mask, w, NEG_INF)  # -1e30, as repro's
+        w = torch.softmax(w, dim=-1)
+        user = torch.einsum("bt,btd->bd", w, hist)
+        rest = emb[:, 1:].reshape(B, -1)
+        feats = [user, target, rest]
+        if cfg.n_dense:
+            feats.append(batch["dense"])
+        return _mlp_apply(model.head, torch.cat(feats, dim=1))[:, 0]
+
+    if cfg.interaction == "cross":
+        x0 = torch.cat([batch["dense"], emb.reshape(B, -1)], dim=1)
+        x = x0
+        for lp in model.cross:
+            x = x0 * (x @ lp.w + lp.b) + x
+        return _mlp_apply(model.head, x)[:, 0]
+
+    raise ValueError(f"forward() not defined for {cfg.interaction}; use tower fns")
 
 
 def tower_embeddings(model: TwoTower, batch, cfg: RecsysConfig):
@@ -100,6 +218,20 @@ def tower_embeddings(model: TwoTower, batch, cfg: RecsysConfig):
     u = u / torch.clamp(torch.sqrt(torch.sum(u * u, dim=-1, keepdim=True)), min=1e-6)
     it = it / torch.clamp(torch.sqrt(torch.sum(it * it, dim=-1, keepdim=True)), min=1e-6)
     return u, it
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+
+def bce_loss(model: _Recsys, batch, cfg: RecsysConfig):
+    """Mean binary cross-entropy of ``forward``'s logits against ``label``, in
+    the stable form ``max(z, 0) - z y + log1p(exp(-|z|))``."""
+    logits = forward(model, batch, cfg)
+    y = batch["label"]
+    return torch.mean(torch.maximum(logits, torch.zeros_like(logits)) - logits * y
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
 
 
 def inbatch_softmax_loss(model: TwoTower, batch, cfg: RecsysConfig, temperature: float = 0.05):

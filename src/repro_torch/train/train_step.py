@@ -6,7 +6,8 @@ accumulated over ``accum_steps`` microbatches when asked, a global-norm
 clip, the optimizer's update added to the parameters in place.  Losses: the
 LM's next-token cross-entropy with the MoE aux (off the mesh:
 ``sharded_xent`` waits for ROADMAP M17's sharding item), the GCN's node
-cross-entropy and the two-tower in-batch softmax.
+cross-entropy, the two-tower in-batch softmax and the ranking models' binary
+cross-entropy.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Callable
 import torch
 
 from repro_torch.models.gnn import loss_fn as gnn_loss_fn
-from repro_torch.models.recsys import _check_interaction, inbatch_softmax_loss
+from repro_torch.models.recsys import bce_loss, inbatch_softmax_loss
 from repro_torch.models.transformer import forward
 from repro_torch.train.optimizer import Optimizer, clip_by_global_norm
 
@@ -44,9 +45,12 @@ def gnn_loss(model, batch, cfg, **kw):
 
 
 def recsys_loss(model, batch, cfg):
-    """(loss, {"nll": loss}): the two-tower in-batch softmax."""
-    _check_interaction(cfg)
-    loss = inbatch_softmax_loss(model, batch, cfg)
+    """(loss, {"nll": loss}): the in-batch softmax for the two-tower ``dot``
+    model, the binary cross-entropy for every other interaction."""
+    if cfg.interaction == "dot":
+        loss = inbatch_softmax_loss(model, batch, cfg)
+    else:
+        loss = bce_loss(model, batch, cfg)
     return loss, {"nll": loss.detach()}
 
 

@@ -948,6 +948,64 @@ def test_two_tower_embeddings_on_the_card_match_the_cpu_path(cuda):
                                    rtol=1e-5)
 
 
+# -- the recsys ranking models (no kernel of their own) ------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["autoint", "din", "dcn-v2"])
+def test_recsys_ranking_models_on_the_card_match_the_cpu(arch, cuda):
+    """The SMOKE model trained 5 steps on the CPU, carried to the card: its
+    logits over 4,096 rows within 1e-5 of the CPU path's; one more train step
+    from equal weights gives the same loss and gradient norm (rtol 1e-5; the
+    table's gradient sums with atomics on the card)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.synthetic import recsys_batch
+    from repro_torch.launch.train import train_recsys
+    from repro_torch.models.recsys import forward
+    from repro_torch.train.optimizer import adamw, warmup_cosine
+    from repro_torch.train.train_step import make_train_step, recsys_loss
+
+    cfg = get_smoke_config(arch)
+    model, _ = train_recsys(cfg, steps=5, batch=256, log_every=100, device="cpu")
+    card = copy.deepcopy(model).to(cuda)
+    batch = recsys_batch(np.random.default_rng(7), 4096, cfg.vocab_sizes, device="cpu",
+                         n_dense=cfg.n_dense, seq_len=cfg.seq_len)
+    with torch.no_grad():
+        want = forward(model, batch, cfg)
+        got = forward(card, {k: v.to(cuda) for k, v in batch.items()}, cfg)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    metrics = {}
+    for label, m in (("cpu", model), ("cuda", card)):
+        opt = adamw(warmup_cosine(1e-3, 10, 60))
+        step = make_train_step(lambda mm, b: recsys_loss(mm, b, cfg), opt)
+        b = recsys_batch(np.random.default_rng((1, 10)), 256, cfg.vocab_sizes, device=label,
+                         n_dense=cfg.n_dense, seq_len=cfg.seq_len)
+        _, _, metrics[label] = step(m, opt.init(dict(m.named_parameters())), b)
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(metrics["cuda"][key]), float(metrics["cpu"][key]),
+                                   rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["sum", "mean", "max"])
+def test_embedding_bag_on_the_card_matches_the_cpu(mode, cuda):
+    """4,096 ragged bags of 1-40 ids (a twentieth -1, per-id weights) over a
+    (100,000, 16) table, within rtol = atol = 1e-5 of the CPU path."""
+    from repro_torch.models.embedding import embedding_bag
+
+    rng = np.random.default_rng(3)
+    table = torch.from_numpy(rng.standard_normal((100_000, 16)).astype(np.float32))
+    seg = np.repeat(np.arange(4096), rng.integers(1, 41, 4096)).astype(np.int32)
+    ids = rng.integers(0, 100_000, seg.shape[0]).astype(np.int32)
+    ids[rng.random(seg.shape[0]) < 0.05] = -1
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, seg.shape[0]).astype(np.float32))
+    args = [torch.from_numpy(ids), torch.from_numpy(seg)]
+    want = embedding_bag(table, *args, 4096, mode=mode, weights=w)
+    got = embedding_bag(table.to(cuda), *(a.to(cuda) for a in args), 4096, mode=mode,
+                        weights=w.to(cuda))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
 # -- the dense LM (no kernel of its own: the card runs the same PyTorch code) --------
 
 

@@ -253,12 +253,13 @@ def test_unported_paths_raise_naming_their_roadmap_item(data):
     assert online.capacity == 400 and idx.ensure_online() is online
     for a, b in zip(idx.searcher()(Q), want):
         assert torch.equal(a, b)
-    # the model/training substrate beyond the LMs (dense and MoE), the GCN and the
-    # two-tower path waits for ROADMAP M17's queue
+    # the model/training substrate off the mesh is ported (M17's LM, MoE, GNN and
+    # recsys items); the mesh waits for ROADMAP M17's sharding item
     import dataclasses
 
     from repro_torch import configs
     from repro_torch.configs.base import MoEConfig
+    from repro_torch.data.synthetic import recsys_batch
     from repro_torch.launch import train as ttrain
     from repro_torch.models import gnn as tgnn
     from repro_torch.models import moe as tmoe
@@ -266,21 +267,31 @@ def test_unported_paths_raise_naming_their_roadmap_item(data):
     from repro_torch.models import transformer as ttransformer
     from repro_torch.train.train_step import recsys_loss
 
-    for arch in ("din", "dcn-v2", "autoint", "swgraph-retrieval"):
-        for fn in (configs.get_config, configs.get_smoke_config, configs.get_family):
-            with pytest.raises(NotImplementedError, match="M17"):
-                fn(arch)
-        with pytest.raises(NotImplementedError, match="M17"):
-            ttrain.main(["--device", "cpu", "--arch", arch, "--smoke", "--steps", "1"])
+    # the other recsys models and the paper's retrieval configs resolve (M17's recsys
+    # item): each family as repro's, the ranking models train through the launcher
+    for arch, family in (("din", "recsys"), ("dcn-v2", "recsys"), ("autoint", "recsys"),
+                         ("swgraph-retrieval", "retrieval")):
+        assert configs.get_family(arch) == family
+        assert configs.get_config(arch).name == ("wiki128-kl" if family == "retrieval"
+                                                 else arch)
+        assert configs.get_smoke_config(arch).name.endswith("smoke")
     with pytest.raises(KeyError):
         configs.get_config("no-such-arch")
     smoke = configs.get_smoke_config("two-tower-retrieval")
-    for interaction in ("self-attn", "target-attn", "cross"):
-        other = dataclasses.replace(smoke, interaction=interaction)
-        with pytest.raises(NotImplementedError, match="M17"):
-            trecsys.init_params(other, device="cpu")
-        with pytest.raises(NotImplementedError, match="M17"):
-            recsys_loss(None, {}, other)
+    for interaction, arch in (("self-attn", "autoint"), ("target-attn", "din"),
+                              ("cross", "dcn-v2")):
+        cfg = configs.get_smoke_config(arch)
+        assert cfg.interaction == interaction
+        model = trecsys.init_params(cfg, device="cpu")
+        batch = recsys_batch(np.random.default_rng(0), 8, cfg.vocab_sizes, "cpu",
+                             n_dense=cfg.n_dense, seq_len=cfg.seq_len)
+        loss, _ = recsys_loss(model, batch, cfg)
+        assert torch.isfinite(loss)
+        with pytest.raises(ValueError):  # the ranking models have no towers
+            trecsys.init_params(dataclasses.replace(smoke, interaction=interaction + "?"),
+                                device="cpu")
+    with pytest.raises(SystemExit, match="family retrieval"):
+        ttrain.main(["--device", "cpu", "--arch", "swgraph-retrieval", "--smoke", "--steps", "1"])
     # the MoE LMs and the GCN are ported (M17's MoE and GNN items): an MoE variant of a
     # dense config initialises with the MoE layer's names, and the three archs resolve
     moe = dataclasses.replace(configs.get_smoke_config("llama3.2-1b"),
@@ -295,7 +306,7 @@ def test_unported_paths_raise_naming_their_roadmap_item(data):
         assert configs.get_config(arch).name == arch
     assert tgnn.init_params(configs.get_smoke_config("gcn-cora"), device="cpu") is not None
     # their mesh-only pieces wait for the sharding item
-    for fn in (tmoe.moe_layer_specs, tgnn.param_specs):
+    for fn in (tmoe.moe_layer_specs, tgnn.param_specs, trecsys.param_specs):
         with pytest.raises(NotImplementedError, match="M17"):
             fn(moe)
     with pytest.raises(NotImplementedError, match="M17"):
