@@ -47,7 +47,7 @@ Every phase is fatal on failure; nothing is caught and passed over.
    picks the largest n of 10^6, 200,000, 100,000, 50,000, 30,000 and 20,000 whose build fits
    SWGRAPH_BUILD_BUDGET_S; at that n, recall@10 at ef 96 and 512 beside an
    NN-descent build (the full cell's NN 30) on the same data.  No floor.
-7. sequential and reference paths: ``build_swgraph`` at n=500, d=16,
+7. sequential and reference paths: ``build_swgraph`` at n=250, d=16,
    NN 8, ef_construction 40 against ``build_swgraph_wave`` at W=1 (equal
    adjacency); a batch of 64 through the reference engine against the
    batched engine at frontier 1 from entry 0 under kl (equal ids, n_evals
@@ -284,6 +284,36 @@ Every phase is fatal on failure; nothing is caught and passed over.
     bags of 1-40 ids in sum, mean and max, within rtol = atol = 1e-5 of the
     CPU.  Then the paper's six retrieval configs resolve through
     ``configs.get_config`` / ``get_module`` and are printed.
+29. the device mesh (``repro_torch.sharding.api``; no kernel of the port lies on
+    these paths: ``repro``'s regions are einsums, takes, softmax and
+    ``segment_sum``): one spawn of 4 ranks that share the card (gloo with CUDA
+    tensors, ``psum_scatter`` composed of an all-reduce and the rank's block), a
+    (2, 2) ("data", "model") mesh, the sub-checks in turn with memory freed
+    between them, rank 0 running each off-mesh reference first on the global
+    tensors it shards.  ``sharded_xent`` on llama3.2-1b FULL's tied head (vocab
+    over "model") and hidden states of its ``forward_hidden`` at 4 x 4,096
+    (``t_chunk`` 512): loss rtol 1e-5, gradients of hidden and the head rtol
+    1e-4, atol 1e-6.  ``decode_step(mesh=)`` for 8 steps from seeded random
+    caches, llama3.2-1b FULL in f32 at cache 32,768 and gemma3-12b at 6 layers in
+    f32 at cache 4,096 (batch 4, dp 2 x seq 2; rows cross the seq-shard boundary,
+    gemma3's past its window): each step's logits within DECODE_TOL of its
+    largest |logit|, equal argmax, the written k and v within rtol = atol = 1e-5
+    and no other entry changed; a block-local mask planted into gemma3's run
+    must fail.  ``moe_ffn`` (expert-parallel) on phi3.5-moe at 1 layer in f32, 8
+    x 512 tokens at its capacity factor (assignments drop): output, aux and the
+    gradients of the input, the router and the experts within rtol 2e-4, atol
+    2e-5 of the off-mesh gather path over the 2 data groups.  The row-sharded
+    ``embedding_lookup`` over AutoInt FULL's whole table at B 65,536 (scatter
+    path) and 5 (psum path), with an integer-valued cotangent: the lookup and
+    each rank's block of the table's gradient equal, and no collective of the
+    path as large as a table block.  The GCN at ogb_products' shape on a (4, 1)
+    mesh, each rank a quarter of the self-looped edges: ``forward(edge_sharded=
+    True)``, ``loss_fn`` and the gradients within rtol = atol = 1e-4.  Per
+    check: the collectives by kind (calls, bytes, seconds), ms on and off the
+    mesh, peak memory per rank.  Then every path at SMOKE (and ``lm_loss``
+    through ``sharded_xent``, dense and MoE, and the MoE's on a ("data",) mesh
+    through the gather path) on a (1, 1) mesh of a world-1 NCCL group in this
+    process, against the off-mesh path.
 
 Phase 10 also times each kernel at the sharded paths' shapes and, each held
 to the plain version, at the shapes phases 21-23 give it: gather_scores at
@@ -338,10 +368,10 @@ DM_CHECK_SHAPES = [(128, 4096, 8), (128, 4096, 32), (128, 4096, 128), (512, 8192
 GS_CHECK_SHAPES = [(64, 30, 128), (64, 240, 128), (960, 1, 32), (960, 1, 128), (64, 30, 2100),
                    (5, 3, 16), (1, 1, 4), (960, 1, 512), (4, 3, 2100)]
 SWGRAPH_NS = (1_000_000, 200_000, 100_000, 50_000, 30_000, 20_000)
-# phase 7's n: 500 (2,000 before the churn phases joined the script, 1,000 before
-# the tuning and learning phases; the sequential paths are host-bound, one
-# lock-step per kernel launch)
-SEQ_N = 500
+# phase 7's n: 250 (500 before the mesh phase joined the script, 2,000 before the
+# churn phases, 1,000 before the tuning and learning phases; the sequential paths
+# are host-bound, one lock-step per kernel launch)
+SEQ_N = 250
 # 45 s (75 s, which chose n = 50,000, before the LM phases joined the script; 150 s,
 # which chose n = 100,000, before the churn phases); 30,000 and 20,000 joined the
 # sizes when a host at 82.5 ms per wave fit none of the others in 75 s
@@ -475,6 +505,29 @@ RECSYS_PARITY_ROWS, RECSYS_FWD_TOL = 256, 1e-5
 RECSYS_STEP_BATCH, RECSYS_STEP_RTOL = 4096, 1e-4
 # embedding_bag over DCN-v2's table: BAG_COUNT bags of 1 to BAG_MAX ids
 BAG_COUNT, BAG_MAX = 65_536, 40
+# phase 29: the on-mesh paths on 4 ranks that share the card, a (2, 2) ("data",
+# "model") mesh (gloo with CUDA tensors), each held to the off-mesh path on rank 0;
+# the GCN on a (4, 1) mesh so that its edges split four ways
+MESH_RANKS, MESH_22, MESH_41 = SHARDS, ((2, 2), ("data", "model")), ((4, 1), ("data", "model"))
+# sharded_xent: llama3.2-1b FULL's tied head and its hidden states at train_4k's seq
+# 4,096, batch cut from the cell's 256 to 4; tests/test_multidevice.py's tolerances
+XENT_B, XENT_T, XENT_CHUNK = 4, 4096, 512
+XENT_LOSS_RTOL, XENT_GRAD_TOL = 1e-5, dict(rtol=1e-4, atol=1e-6)
+# decode_step(mesh=): 8 steps from caches of seeded random k and v, batch cut from
+# decode_32k's 128 to 4; rows 0 and 1 cross the seq-shard boundary (S / 2) during the
+# steps, and gemma3-12b's rows all lie past its 1,024 window
+MESH_DECODE_STEPS, MESH_DECODE_B = 8, 4
+LLAMA_CACHE, LLAMA_LENGTHS = 32_768, (16_380, 16_383, 100, 32_000)
+GEMMA_CACHE, GEMMA_LENGTHS = 4_096, (2_044, 2_047, 1_500, 3_000)
+CACHE_TOL = dict(rtol=1e-5, atol=1e-5)
+# moe_ffn -> _moe_ffn_ep: phi3.5-moe at 1 layer in f32, 8 x 512 tokens at its own
+# capacity factor; held to the off-mesh gather path over the mesh's 2 data groups
+MOE_MESH_TOKENS, MOE_MESH_TOL = (8, 512), dict(rtol=2e-4, atol=2e-5)
+# embedding_lookup: AutoInt FULL's whole table, the scatter path at the cells'
+# train_batch and the psum path at a batch the 4 row shards do not divide
+EMB_MESH_BATCHES = (65_536, 5)
+# the GCN at ogb_products' shape: phase 27's tolerance (index_add_'s atomics)
+GCN_MESH_TOL = dict(rtol=1e-4, atol=1e-4)
 PROFILER_FALLBACKS = []  # timings read from CUDA events where the profiler fell short
 
 
@@ -2620,6 +2673,661 @@ def phase28() -> dict:
     return line
 
 
+# ---------------------------------------------------------------------------
+# phase 29: the device mesh, every on-mesh path against the off-mesh one
+# ---------------------------------------------------------------------------
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _timed_call(dev, fn):
+    """(fn(), ms): the host clock around one synchronised call."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _seeded(dev, seed: int):
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def _free() -> None:
+    import gc
+
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def _close(got, want, tol: dict) -> dict:
+    """Elementwise ``|got - want| <= atol + rtol |want|``, with the largest error."""
+    diff = (got.float() - want.float()).abs()
+    ok = bool(torch.all(diff <= tol["atol"] + tol["rtol"] * want.float().abs()))
+    return {"ok": ok and bool(torch.isfinite(got).all()), "max_abs_err": float(diff.max()),
+            "max_abs": float(want.float().abs().max())}
+
+
+def _rel_to_max(got, want) -> float:
+    """max |got - want| over max |want|: the decode checks' measure."""
+    want = want.float()
+    return float((got.float() - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def mesh_xent_check(mesh, dev, cfg, B: int, T: int, t_chunk: int) -> dict:
+    """``sharded_xent`` on ``cfg``'s tied head (vocab over "model") and hidden
+    states from its ``forward_hidden`` (computed once on rank 0, sharded over
+    "data"): the loss and the gradients of hidden and the head block, against
+    the plain cross-entropy's autograd on rank 0, one batch row at a time.
+    Twice: with the head as drawn, whose logits (std ~sqrt(d) at init)
+    saturate the softmax, so the gradients are differences of two head rows;
+    and with the head scaled by d^-1/2, logits of unit scale, where every
+    vocabulary block's share of the log-sum-exp counts."""
+    import torch.distributed as tdist
+
+    from repro_torch.core import distributed as cd
+    from repro_torch.models import transformer
+    from repro_torch.sharding.api import P, shard, unshard
+    from repro_torch.train.train_step import sharded_xent
+
+    rank0 = mesh.rank == 0
+    V, d = cfg.vocab_size, cfg.d_model
+    hidden = torch.empty((B, T, d), device=dev)
+    head = torch.empty((d, V), device=dev)
+    if rank0:
+        model = transformer.init_params(cfg, device=dev)
+        tokens = torch.randint(0, V, (B, T), generator=_seeded(dev, 290), device=dev)
+        with torch.no_grad():
+            h, _ = transformer.forward_hidden(model, tokens, cfg)
+        hidden.copy_(h.float())
+        head.copy_(transformer.lm_head(model, cfg).detach().float())
+        del model, h
+        _free()
+    tdist.broadcast(hidden, 0, group=mesh.group)
+    tdist.broadcast(head, 0, group=mesh.group)
+    labels = torch.randint(0, V, (B, T), generator=_seeded(dev, 291), device=dev)
+    rows, cols = P(("data",), None, None), P(None, "model")
+    hidden_l, head_l = shard(hidden, rows, mesh), shard(head, cols, mesh)
+    labels_l = shard(labels, P(("data",), None), mesh)
+    res = {"shape": [B, T, d, V], "t_chunk": t_chunk}
+    for tag, scale in (("head", 1.0), ("head_scaled", d ** -0.5)):
+        r = {"head_scale": scale}
+        if rank0:
+            hr = hidden.clone().requires_grad_(True)
+            wr = (head * scale).requires_grad_(True)
+
+            def reference():
+                total = 0.0
+                for b in range(B):
+                    logits = hr[b] @ wr
+                    ll = torch.gather(logits, -1, labels[b][:, None])[:, 0]
+                    nll = torch.sum(torch.logsumexp(logits, dim=-1) - ll) / (B * T)
+                    nll.backward()
+                    total += float(nll.detach())
+                return total
+
+            ref_loss, r["off_mesh_ms"] = _timed_call(dev, reference)
+            ref_gh, ref_gw = hr.grad, wr.grad
+            del hr, wr
+            _free()
+        hl = hidden_l.clone().requires_grad_(True)
+        wl = (head_l * scale).requires_grad_(True)
+        cd.reset_collective_stats()
+
+        def run():
+            loss = sharded_xent(hl, wl, labels_l, mesh, t_chunk=t_chunk)
+            loss.backward()
+            return loss.detach()
+
+        loss, r["mesh_ms"] = _timed_call(dev, run)
+        r["collectives"] = cd.collective_stats()["kinds"]
+        gh, gw = unshard(hl.grad, rows, mesh), unshard(wl.grad, cols, mesh)
+        if rank0:
+            r.update(loss=float(loss), loss_off_mesh=ref_loss,
+                     loss_rel_err=abs(float(loss) - ref_loss) / abs(ref_loss),
+                     grad_hidden=_close(gh, ref_gh, XENT_GRAD_TOL),
+                     grad_head=_close(gw, ref_gw, XENT_GRAD_TOL))
+            r["ok"] = (r["loss_rel_err"] <= XENT_LOSS_RTOL and r["grad_hidden"]["ok"]
+                       and r["grad_head"]["ok"])
+            del ref_gh, ref_gw
+        del hl, wl, gh, gw
+        _free()
+        res[tag] = r
+    if rank0:
+        res["ok"] = res["head"]["ok"] and res["head_scaled"]["ok"]
+    return res
+
+
+def _kv_fill(dev, kind: str, cfg, layer: int, row: int, cache_len: int):
+    """The seeded random k or v of one (layer, row) of a decode check's cache."""
+    seed = 29_000_000 + 10_000 * layer + 10 * row + ("k", "v").index(kind)
+    return torch.randn((cache_len, cfg.n_kv_heads, cfg.d_head), generator=_seeded(dev, seed),
+                       device=dev)
+
+
+def block_local_mask(attend):
+    """A planted fault: the sequence-parallel decode masks by the block's own
+    positions (``pos_offset`` 0), not the absolute ones."""
+    def planted(*args, **kw):
+        kw["pos_offset"] = 0
+        return attend(*args, **kw)
+
+    return planted
+
+
+def mesh_decode_check(mesh, dev, cfg, cache_len: int, lengths, steps: int,
+                      plant: bool = False) -> dict:
+    """``decode_step(mesh=)``, the cache over ("data", "model"): ``steps``
+    steps from seeded random caches at ``lengths``, each step's logits within
+    DECODE_TOL of rank 0's off-mesh decode relative to its largest |logit|,
+    equal argmax; the written k and v within CACHE_TOL and no other entry
+    changed.  With ``plant``, the same run under a block-local mask must fail."""
+    from repro_torch.core import distributed as cd
+    from repro_torch.models import transformer as tt
+    from repro_torch.sharding.api import P, psum, shard, unshard, use_mesh
+
+    rank0 = mesh.rank == 0
+    B, L = len(lengths), cfg.n_layers
+    params = tt.init_params(cfg, device=dev)  # one seed on one card: alike on every rank
+    tokens = torch.randint(0, cfg.vocab_size, (steps, B), generator=_seeded(dev, 292), device=dev)
+    length0 = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    res = {"layers": L, "batch": B, "cache_len": cache_len, "lengths": list(lengths),
+           "steps": steps}
+    if rank0:
+        cache = tt.init_kv_cache(cfg, B, cache_len, device=dev)
+        for layer in range(L):
+            for b in range(B):
+                for kind in ("k", "v"):
+                    cache[kind][layer, b] = _kv_fill(dev, kind, cfg, layer, b, cache_len)
+        cache["length"].copy_(length0)
+        ref_logits, ms = [], []
+        for i in range(steps):
+            (logits, cache), t = _timed_call(dev, lambda: tt.decode_step(params, cache,
+                                                                         tokens[i], cfg))
+            ref_logits.append(logits)
+            ms.append(t)
+        res["off_mesh_ms_per_step"] = float(np.mean(ms[1:]))
+        pos = length0.long()[:, None] + torch.arange(steps, device=dev)
+        rows_idx = torch.arange(B, device=dev)[:, None]
+        ref_written = {kind: cache[kind][:, rows_idx, pos] for kind in ("k", "v")}
+        del cache
+        _free()
+    n_dp, n_sp = mesh.shape["data"], mesh.shape["model"]
+    B_loc, S_loc = B // n_dp, cache_len // n_sp
+    rows = [mesh.axis_index("data") * B_loc + j for j in range(B_loc)]
+    lo = mesh.axis_index("model") * S_loc
+    length_l = shard(length0, P(("data",)), mesh)
+
+    def local_cache():
+        shape = (L, B_loc, S_loc, cfg.n_kv_heads, cfg.d_head)
+        c = {"k": torch.empty(shape, device=dev), "v": torch.empty(shape, device=dev),
+             "length": length_l.clone()}
+        for layer in range(L):
+            for j, b in enumerate(rows):
+                for kind in ("k", "v"):
+                    c[kind][layer, j] = _kv_fill(dev, kind, cfg, layer, b, cache_len)[lo:lo + S_loc]
+        return c
+
+    def run(cache):
+        logits, ms = [], []
+        with use_mesh(mesh):
+            for i in range(steps):
+                toks = shard(tokens[i], P(("data",)), mesh)
+                (lg, cache), t = _timed_call(dev, lambda: tt.decode_step(
+                    params, cache, toks, cfg, mesh=mesh, seq_axes=("model",), dp=("data",)))
+                logits.append(lg)
+                ms.append(t)
+        return [unshard(lg, P(("data",), None), mesh) for lg in logits], cache, ms
+
+    cd.reset_collective_stats()
+    logits, cache_l, ms = run(local_cache())
+    res["collectives"] = cd.collective_stats()["kinds"]
+    res["mesh_ms_per_step"] = float(np.mean(ms[1:]))
+    # the written entries, from whichever block holds each; nothing else changed
+    pos = length_l.long()[:, None] + torch.arange(steps, device=dev) - lo  # (B_loc, steps)
+    held = (pos >= 0) & (pos < S_loc)
+    j_idx = torch.arange(B_loc, device=dev)[:, None]
+    written = {kind: unshard(psum(cache_l[kind][:, j_idx, pos.clamp(0, S_loc - 1)]
+                                  * held[None, :, :, None, None], "model", mesh),
+                             P(None, ("data",), None, None, None), mesh)
+               for kind in ("k", "v")}
+    changed = 0
+    for layer in range(L):
+        for j, b in enumerate(rows):
+            keep = torch.ones(S_loc, dtype=torch.bool, device=dev)
+            keep[pos[j][held[j]]] = False
+            for kind in ("k", "v"):
+                want = _kv_fill(dev, kind, cfg, layer, b, cache_len)[lo:lo + S_loc]
+                changed += int((cache_l[kind][layer, j] != want).flatten(1).any(1)[keep].sum())
+    res["unwritten_changed"] = int(psum(torch.tensor(float(changed), device=dev),
+                                        ("data", "model"), mesh))
+    del cache_l
+    _free()
+    if plant:
+        attend = tt.decode_attention_local
+        tt.decode_attention_local = block_local_mask(attend)
+        try:
+            planted, _, _ = run(local_cache())
+        finally:
+            tt.decode_attention_local = attend
+    if rank0:
+        errs = [_rel_to_max(g, w) for g, w in zip(logits, ref_logits)]
+        res.update(rel_err_per_step=errs, max_rel_err=max(errs),
+                   argmax_equal=all(bool(torch.equal(g.argmax(-1), w.argmax(-1)))
+                                    for g, w in zip(logits, ref_logits)),
+                   finite=all(bool(torch.isfinite(g).all()) for g in logits),
+                   written={kind: _close(written[kind], ref_written[kind], CACHE_TOL)
+                            for kind in ("k", "v")})
+        res["ok"] = (res["max_rel_err"] <= DECODE_TOL and res["argmax_equal"] and res["finite"]
+                     and all(w["ok"] for w in res["written"].values())
+                     and res["unwritten_changed"] == 0)
+        if plant:
+            res["planted_max_rel_err"] = max(_rel_to_max(g, w)
+                                             for g, w in zip(planted, ref_logits))
+            res["planted_fails"] = res["planted_max_rel_err"] > DECODE_TOL
+            res["ok"] = res["ok"] and res["planted_fails"]
+    return res
+
+
+def mesh_moe_check(mesh, dev, cfg, shape) -> dict:
+    """``moe_ffn`` under the mesh (``_moe_ffn_ep``): the output, aux and the
+    gradients of the input, the router and every expert of ``loss = sum(out
+    * cot) + 0.5 aux``, against rank 0's off-mesh ``_moe_ffn_gather`` over the
+    mesh's data groups (one call per group, the aux their mean); some
+    assignment must drop."""
+    from repro_torch.core import distributed as cd
+    from repro_torch.models import moe
+    from repro_torch.sharding.api import P, psum, shard, unshard, use_mesh
+
+    rank0 = mesh.rank == 0
+    n_dp = mesh.shape["data"]
+    B, T = shape
+    d = cfg.d_model
+    full = {k: w[0] for k, w in moe.init_moe_layer(cfg, _seeded(dev, 293), dev).items()}
+    # tokens that share a component route alike: the experts' loads skew and the
+    # capacity drops assignments (independent tokens at init spread evenly)
+    shared = torch.randn((d,), generator=_seeded(dev, 300), device=dev)
+    h = torch.randn((B, T, d), generator=_seeded(dev, 294), device=dev) + shared
+    cot = torch.randn((B, T, d), generator=_seeded(dev, 295), device=dev)
+    res = {"tokens": [B, T], "capacity_factor": cfg.moe.capacity_factor}
+    if rank0:
+        ref_h = h.clone().requires_grad_(True)
+        ref_lp = {k: w.clone().requires_grad_(True) for k, w in full.items()}
+
+        def reference():
+            parts = [moe._moe_ffn_gather(hb, ref_lp, cfg) for hb in ref_h.chunk(n_dp)]
+            out = torch.cat([p[0] for p in parts])
+            aux = torch.stack([p[1] for p in parts]).mean()
+            (torch.sum(out * cot) + 0.5 * aux).backward()
+            return out.detach(), aux.detach()
+
+        (ref_out, ref_aux), res["off_mesh_ms"] = _timed_call(dev, reference)
+        ref_grads = {"h": ref_h.grad, **{k: w.grad for k, w in ref_lp.items()}}
+        del ref_h, ref_lp
+        _free()
+    specs = {k: P(*s[1:]) for k, s in moe.moe_layer_specs(cfg).items()}
+    rows = P(("data",), None, None)
+    lp = {k: shard(full[k], specs[k], mesh).requires_grad_(True) for k in specs}
+    hl = shard(h, rows, mesh).requires_grad_(True)
+    cot_l = shard(cot, rows, mesh)
+    del full, h, cot
+    _free()
+    cd.reset_collective_stats()
+
+    def run():
+        with use_mesh(mesh):
+            out, aux = moe.moe_ffn(hl, lp, cfg)
+            (psum(torch.sum(out * cot_l), "data", mesh) + 0.5 * aux).backward()
+        return out.detach(), aux.detach()
+
+    (out, aux), res["mesh_ms"] = _timed_call(dev, run)
+    res["collectives"] = cd.collective_stats()["kinds"]
+    N_loc = hl.shape[0] * hl.shape[1]
+    _, _, idx = moe._route(hl.detach().reshape(N_loc, d), lp["router"].detach(), cfg.moe.top_k)
+    C = moe._capacity(N_loc, cfg)
+    plan = moe._routing_plan(idx[None], cfg.moe.n_experts, C)
+    dropped = psum((plan["dest"] >= cfg.moe.n_experts * C).sum().float(), "data", mesh)
+    res["dropped_share"] = float(dropped) / (B * T * cfg.moe.top_k)
+    got = {"out": unshard(out, rows, mesh)}
+    if rank0:
+        res["out"] = _close(got.pop("out"), ref_out, MOE_MESH_TOL)
+        res["aux"] = _close(aux, ref_aux, MOE_MESH_TOL)
+    grads = {"h": (hl, rows), **{k: (lp[k], specs[k]) for k in specs}}
+    for name, (t, spec) in grads.items():  # one full gradient at a time
+        g = unshard(t.grad, spec, mesh)
+        if rank0:
+            res[f"grad_{name}"] = _close(g, ref_grads.pop(name), MOE_MESH_TOL)
+        del g
+        _free()
+    if rank0:
+        res["ok"] = (res["dropped_share"] > 0
+                     and all(v["ok"] for v in res.values() if isinstance(v, dict) and "ok" in v))
+    return res
+
+
+def mesh_embedding_check(mesh, dev, cfg, batches) -> dict:
+    """The row-sharded ``embedding_lookup`` over ``cfg``'s whole padded table,
+    its rows over ("model", "data"), at each batch (the scatter path where the
+    4 row shards divide it, else the psum path): the lookup against rank 0's
+    ``table[ids + offsets]``, and each rank's block of the table's gradient
+    against the off-mesh gradient's rows.  The cotangent is integer-valued,
+    so every sum is exact in float32 in any order: both must be equal.  No
+    collective of the path, forward or backward, moves more than the
+    lookup's (B, F, dim) block."""
+    from repro_torch.core import distributed as cd
+    from repro_torch.data.synthetic import recsys_batch
+    from repro_torch.models import recsys
+    from repro_torch.models.embedding import embedding_lookup, field_offsets, table_spec
+    from repro_torch.sharding.api import P, psum, shard, unshard, use_mesh
+
+    rank0 = mesh.rank == 0
+    rows, d = recsys._pad_vocab(cfg), cfg.embed_dim
+    table = torch.randn((rows, d), generator=_seeded(dev, 296), device=dev) * d ** -0.5
+    offsets = field_offsets(cfg.vocab_sizes, dev)
+    spec = table_spec("model", "data")
+    block = shard(table, spec, mesh)
+    res = {"table_rows": rows, "embed_dim": d, "table_gb": table.numel() * 4 / 1e9,
+           "block_gb": block.numel() * 4 / 1e9}
+    if not rank0:
+        del table
+        _free()
+    for B in batches:
+        ids = recsys_batch(np.random.default_rng(297), B, cfg.vocab_sizes, dev,
+                           n_dense=cfg.n_dense)["sparse_ids"]
+        cot = torch.randint(-4, 5, (B, ids.shape[1], d), generator=_seeded(dev, 298),
+                            device=dev).float()
+        r = {}
+        if rank0:
+            tr = table.clone().requires_grad_(True)
+
+            def reference():
+                out = embedding_lookup(tr, ids, offsets)
+                torch.sum(out * cot).backward()
+                return out.detach()
+
+            ref_out, r["off_mesh_ms"] = _timed_call(dev, reference)
+            ref_grad = tr.grad
+            del tr
+        n_shards = mesh.size_of(("model", "data"))
+        scatter = B % n_shards == 0 and B >= n_shards
+        out_spec = P(("data",), None, None) if scatter else P()
+        tl = block.clone().requires_grad_(True)
+        cot_l = shard(cot, out_spec, mesh)
+        cd.reset_collective_stats()
+
+        def run():
+            with use_mesh(mesh):
+                out = embedding_lookup(tl, ids, offsets)
+                loss = torch.sum(out * cot_l)
+                (psum(loss, "data", mesh) if scatter else loss).backward()
+            return out.detach()
+
+        out, r["mesh_ms"] = _timed_call(dev, run)
+        r["collectives"] = cd.collective_stats()["kinds"]
+        r["path"] = "psum_scatter" if scatter else "psum"
+        r["max_collective_bytes"] = max(s["max_bytes"] for s in r["collectives"].values())
+        r["lookup_bytes"] = cot.numel() * 4
+        r["moves_at_most_the_lookup"] = r["max_collective_bytes"] <= r["lookup_bytes"]
+        got_out, got_grad = unshard(out, out_spec, mesh), unshard(tl.grad, spec, mesh)
+        if rank0:
+            r["out_equal"] = bool(torch.equal(got_out, ref_out))
+            r["grad_equal"] = bool(torch.equal(got_grad, ref_grad))
+            r["grad"] = _close(got_grad, ref_grad, dict(rtol=1e-6, atol=0.0))
+            r["ok"] = r["out_equal"] and r["grad_equal"] and r["moves_at_most_the_lookup"]
+            del ref_grad
+        del got_grad, tl
+        _free()
+        res[f"B={B}"] = r
+    if rank0:
+        res["ok"] = all(r["ok"] for k, r in res.items() if k.startswith("B="))
+    return res
+
+
+def mesh_gcn_check(mesh, dev, cfg, n_nodes: int, n_edges: int, seed: int) -> dict:
+    """``gnn.forward(edge_sharded=True)``, ``loss_fn`` and the gradients: each
+    rank holds a contiguous quarter of the self-looped edge list (the count
+    need not divide), the features whole; against rank 0's off-mesh path."""
+    from repro_torch.core import distributed as cd
+    from repro_torch.data.synthetic import random_graph
+    from repro_torch.models import gnn
+    from repro_torch.sharding.api import use_mesh
+
+    rank0 = mesh.rank == 0
+    g = random_graph(np.random.default_rng(seed), n_nodes, n_edges, cfg.d_feat,
+                     n_classes=cfg.n_classes, device=dev)
+    params = gnn.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    res = {"n_nodes": n_nodes, "n_edges": n_edges, "d_feat": cfg.d_feat,
+           "n_classes": cfg.n_classes}
+    if rank0:
+        def reference():
+            with torch.no_grad():
+                logits = gnn.forward(params, g, cfg)
+            loss = gnn.loss_fn(params, g, cfg)
+            loss.backward()
+            return logits, loss.detach()
+
+        (ref_logits, ref_loss), res["off_mesh_ms"] = _timed_call(dev, reference)
+        ref_grads = {k: p.grad for k, p in params.named_parameters()}
+        params.zero_grad(set_to_none=True)
+        _free()
+    loops = torch.arange(n_nodes, dtype=g["senders"].dtype, device=dev)
+    shards = mesh.size_of(("data",))
+    local = {k: torch.tensor_split(torch.cat([g.pop(k), loops]), shards)[mesh.index("data")]
+             .clone() for k in ("senders", "receivers")}
+    local.update(features=g["features"], labels=g["labels"])
+    res["edges_per_rank"] = int(local["senders"].shape[0])
+    del g
+    _free()
+    cd.reset_collective_stats()
+
+    def run():
+        with use_mesh(mesh):
+            with torch.no_grad():
+                logits = gnn.forward(params, local, cfg, edge_sharded=True)
+            loss = gnn.loss_fn(params, local, cfg, edge_sharded=True)
+            loss.backward()
+        return logits, loss.detach()
+
+    (logits, loss), res["mesh_ms"] = _timed_call(dev, run)
+    res["collectives"] = cd.collective_stats()["kinds"]
+    if rank0:
+        res["logits"] = _close(logits, ref_logits, GCN_MESH_TOL)
+        res["loss"] = _close(loss, ref_loss, GCN_MESH_TOL)
+        res["grads"] = {k: _close(p.grad, ref_grads[k], GCN_MESH_TOL)
+                        for k, p in params.named_parameters()}
+        res["ok"] = (res["logits"]["ok"] and res["loss"]["ok"]
+                     and all(v["ok"] for v in res["grads"].values()))
+    return res
+
+
+def mesh_lm_loss_check(mesh, dev, cfg, B: int, T: int) -> dict:
+    """``lm_loss`` under the mesh (``sharded_xent``; the MoE expert-parallel,
+    its experts as ``moe_layer_specs`` blocks, or on a mesh without "model"
+    the gather path on the rank's block; the dense weights replicated)
+    against the mean of the off-mesh ``lm_loss`` over the data blocks: the
+    loss and every parameter's gradient."""
+    from repro_torch.convert import shard_tree
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tt
+    from repro_torch.sharding.api import P, shard, unshard, use_mesh
+    from repro_torch.train.train_step import lm_loss
+
+    n_dp = mesh.shape["data"]
+    full = tt.init_params(cfg, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (B, T + 1), generator=_seeded(dev, 299), device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    ref, off_ms = _timed_call(dev, lambda: sum(
+        lm_loss(full, {k: v.chunk(n_dp)[b] for k, v in batch.items()}, cfg)[0]
+        for b in range(n_dp)) / n_dp)
+    ref.backward()
+    specs = moe.moe_layer_specs(cfg) if cfg.is_moe and "model" in mesh.axis_names else {}
+    layers = {k: p.detach() for k, p in full.layers.items()}
+    local = shard_tree(layers, {k: specs.get(k, P()) for k in layers}, mesh)
+    model = tt.LMParams(full.embed.detach().clone(), full.ln_f.detach().clone(), local,
+                        None if full.lm_head is None else full.lm_head.detach().clone())
+
+    def run():
+        with use_mesh(mesh):
+            block = {k: shard(v, P(("data",), None), mesh) for k, v in batch.items()}
+            loss, _ = lm_loss(model, block, cfg)
+            loss.backward()
+        return loss.detach()
+
+    loss, ms = _timed_call(dev, run)
+    grads = {k: _close(unshard(p.grad, specs.get(k.removeprefix("layers."), P()), mesh),
+                       dict(full.named_parameters())[k].grad, TOL)
+             for k, p in model.named_parameters()}
+    res = {"loss": float(loss), "loss_off_mesh": float(ref.detach()), "mesh_ms": ms,
+           "off_mesh_ms": off_ms,
+           "loss_close": _close(loss, ref.detach(), TOL), "grads": grads}
+    res["ok"] = res["loss_close"]["ok"] and all(g["ok"] for g in grads.values())
+    return res
+
+
+def mesh_rank(dev) -> dict:
+    """Phase 29 on one of the 4 ranks: the sub-checks in turn, memory freed
+    between them; rank 0 runs each off-mesh reference first."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.gcn_cora import with_shape
+    from repro_torch.sharding.api import Mesh
+
+    float32_highest()
+    mesh22, mesh41 = Mesh(*MESH_22), Mesh(*MESH_41)
+    llama, gemma = get_config("llama3.2-1b"), get_config("gemma3-12b")
+    phi = get_config("phi3.5-moe-42b-a6.6b")
+    sh = OGB_PRODUCTS
+    checks = {
+        "sharded_xent llama3.2-1b": lambda: mesh_xent_check(mesh22, dev, llama, XENT_B, XENT_T,
+                                                            XENT_CHUNK),
+        "decode_step llama3.2-1b": lambda: mesh_decode_check(
+            mesh22, dev, dataclasses.replace(llama, dtype="float32"), LLAMA_CACHE,
+            LLAMA_LENGTHS, MESH_DECODE_STEPS),
+        "decode_step gemma3-12b": lambda: mesh_decode_check(
+            mesh22, dev, dataclasses.replace(gemma, dtype="float32", n_layers=GEMMA_CUT_LAYERS),
+            GEMMA_CACHE, GEMMA_LENGTHS, MESH_DECODE_STEPS, plant=True),
+        "moe_ffn phi3.5-moe": lambda: mesh_moe_check(
+            mesh22, dev, dataclasses.replace(phi, n_layers=1, dtype="float32"), MOE_MESH_TOKENS),
+        "embedding_lookup autoint": lambda: mesh_embedding_check(mesh22, dev,
+                                                                 get_config("autoint"),
+                                                                 EMB_MESH_BATCHES),
+        "gcn ogb_products": lambda: mesh_gcn_check(
+            mesh41, dev, with_shape(sh["d_feat"], sh["n_classes"]), sh["n_nodes"],
+            sh["n_edges"], 29),
+    }
+    out = {"rank": mesh22.rank, "backend": mesh22.backend, "composed": mesh22.composed,
+           "checks": {}}
+    for name, fn in checks.items():
+        _free()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        res["seconds"] = time.perf_counter() - t0
+        res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        out["checks"][name] = res
+    return out
+
+
+def mesh_world1() -> dict:
+    """Every on-mesh path at SMOKE on a (1, 1) mesh of a world-1 NCCL group in
+    this process (one card per rank: NCCL's reduce_scatter_tensor and
+    all_gather_into_tensor), against the off-mesh path."""
+    import torch.distributed as tdist
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import distributed as cd
+    from repro_torch.core.distributed import init_group
+    from repro_torch.sharding import api
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    init_group("nccl", f"tcp://localhost:{free_port()}", 0, 1)
+    try:
+        mesh = api.Mesh((1, 1), ("data", "model"))
+        cd.reset_collective_stats()
+        checks = {
+            "sharded_xent": mesh_xent_check(mesh, dev, get_smoke_config("llama3.2-1b"), 2, 64,
+                                            16),
+            "lm_loss llama3.2-1b": mesh_lm_loss_check(mesh, dev,
+                                                      get_smoke_config("llama3.2-1b"), 8, 32),
+            "lm_loss phi3.5-moe": mesh_lm_loss_check(
+                mesh, dev, get_smoke_config("phi3.5-moe-42b-a6.6b"), 8, 32),
+            "lm_loss phi3.5-moe data-only": mesh_lm_loss_check(
+                api.Mesh((1,), ("data",)), dev, get_smoke_config("phi3.5-moe-42b-a6.6b"), 8, 32),
+            "decode_step gemma3-12b": mesh_decode_check(mesh, dev, get_smoke_config("gemma3-12b"),
+                                                        32, (13, 15, 9, 20), 5),
+            "moe_ffn phi3.5-moe": mesh_moe_check(mesh, dev,
+                                                 get_smoke_config("phi3.5-moe-42b-a6.6b"),
+                                                 (4, 16)),
+            "embedding_lookup autoint": mesh_embedding_check(mesh, dev,
+                                                             get_smoke_config("autoint"), (64, 5)),
+            "gcn": mesh_gcn_check(mesh, dev, get_smoke_config("gcn-cora"), 500, 2000, 29),
+        }
+        totals = cd.collective_stats()["kinds"]
+    finally:
+        tdist.destroy_process_group()
+    return {"backend": mesh.backend, "composed": mesh.composed, "checks": checks,
+            "collectives": totals}
+
+
+def mesh_line(ranks: list, backend: str, per_card) -> dict:
+    """Phase 29's line from every rank's results; fails unless every check
+    held, and unless no rank's lookup moved a collective as large as a table
+    block or larger than its (B, F, dim) lookup."""
+    line = {"backend": backend, "ranks_per_card": per_card, "composed": ranks[0]["composed"],
+            "checks": ranks[0]["checks"],
+            "peak_gb_by_rank": {name: [rk["checks"][name]["peak_gb"] for rk in ranks]
+                                for name in ranks[0]["checks"]}}
+    for name, res in line["checks"].items():
+        log(f"phase 29 {name}: " + json.dumps(res))
+        if not res["ok"]:
+            raise AssertionError(f"phase 29: {name} on the mesh differs from the off-mesh path: "
+                                 f"{res}")
+    for rk in ranks:  # no collective the size of the table, or of a rank's block of it
+        emb = rk["checks"]["embedding_lookup autoint"]
+        for key, r in emb.items():
+            if key.startswith("B=") and not (r["moves_at_most_the_lookup"] and
+                                             r["max_collective_bytes"] < 1e9 * emb["block_gb"]):
+                raise AssertionError(f"phase 29: rank {rk['rank']}'s lookup at {key} moved "
+                                     f"{r['max_collective_bytes']} bytes in one collective")
+    log("phase 29 peak GB by rank: " + json.dumps(line["peak_gb_by_rank"]))
+    log(f"phase 29: backend {backend}, composed {json.dumps(line['composed'])}")
+    return line
+
+
+def phase29() -> dict:
+    """The device mesh (module docstring)."""
+    from repro_torch.core.distributed import pick_backend
+
+    from repro_torch.launch import mesh as launch_mesh
+
+    backend, per_card = pick_backend(MESH_RANKS, "cuda")
+    log(f"phase 29: {MESH_RANKS} ranks, backend {backend}, {per_card} ranks per card")
+    constants = {name: getattr(launch_mesh, name)
+                 for name in ("PEAK_FLOPS_BF16", "HBM_BW", "NVLINK_BW", "HBM_PER_CHIP")}
+    constants["card_total_memory"] = torch.cuda.get_device_properties(0).total_memory
+    log(f"phase 29: launch/mesh.py's constants beside the card ({card_line()}): "
+        + json.dumps(constants))
+    line = mesh_line(spawn_ranks(mesh_rank), backend, per_card)
+    line["constants"] = constants
+    world1 = mesh_world1()
+    for name, res in world1["checks"].items():
+        log(f"phase 29 world 1 (nccl) {name}: " + json.dumps(res))
+        if not res["ok"]:
+            raise AssertionError(f"phase 29: world size 1 {name} differs from the off-mesh "
+                                 f"path: {res}")
+    if world1["backend"] != "nccl" or world1["composed"]:
+        raise AssertionError(f"phase 29: world size 1 ran on {world1['backend']}, composed "
+                             f"{world1['composed']}")
+    line["world1"] = world1
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -3763,6 +4471,11 @@ def main() -> int:
 
     lap("28 recsys")
 
+    # -- 29. the device mesh: every on-mesh path on 4 ranks, then world 1 under NCCL -----
+    mesh29 = phase29()
+
+    lap("29 mesh")
+
     def err_of(kernel_name):
         return max(v for k, v in max_err.items() if k[0] == kernel_name and k[1] == "kl")
 
@@ -3908,6 +4621,7 @@ def main() -> int:
     log("MoE LM: " + json.dumps(moe26))
     log("GCN: " + json.dumps(gnn27))
     log("recsys: " + json.dumps(recsys28))
+    log("mesh: " + json.dumps(mesh29))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"timings read from CUDA events, the profiler having fallen short: "
         f"{len(PROFILER_FALLBACKS)} {PROFILER_FALLBACKS}")

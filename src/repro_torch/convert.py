@@ -9,7 +9,8 @@ block.  ``spec_dict`` is the index's ``spec.to_dict()``.
 ``recsys_params_from_jax`` loads ``repro``'s recsys param dict (any
 interaction) into the port's module, ``lm_params_from_jax`` its LM's stacked
 params (dense or MoE), ``gnn_params_from_jax`` its GCN's, and
-``mahalanobis_from_jax`` takes a fitted map.  Nothing here imports JAX: the
+``mahalanobis_from_jax`` takes a fitted map; ``shard_tree`` cuts any of
+these trees to one rank's blocks of a mesh.  Nothing here imports JAX: the
 caller hands over plain arrays, as a model's weights would be handed over.
 """
 
@@ -26,6 +27,7 @@ from repro_torch.core.distributed import local_block
 from repro_torch.core.index import ANNIndex, bind_policies, make_build_info
 from repro_torch.core.online import OnlineIndex
 from repro_torch.core.spec import RetrievalSpec
+from repro_torch.sharding.api import P, flatten, shard
 
 
 def _tensor(arrays, name, dtype, dev):
@@ -135,19 +137,18 @@ def shard_from_jax(arrays: dict, shard: int, n_shards: int, device="cuda") -> Sh
                       n_real, n_local)
 
 
-def _flatten(tree, prefix: str = "") -> dict:
-    """A nested dict / list of arrays as {"a.b.0": array}: dict keys and list
-    positions joined by dots, the port's parameter names."""
-    if isinstance(tree, dict):
-        items = tree.items()
-    elif isinstance(tree, (list, tuple)):
-        items = enumerate(tree)
-    else:
-        return {prefix: tree}
-    out = {}
-    for k, v in items:
-        out.update(_flatten(v, f"{prefix}.{k}" if prefix else str(k)))
-    return out
+def shard_tree(tree, specs, mesh):
+    """This rank's blocks of a carried-across parameter tree: ``tree`` a
+    nested dict / list of tensors or numpy arrays, ``specs`` the matching
+    tree of ``P`` (``param_specs``' layout), ``mesh`` the ranks' mesh.  The
+    blocks keep the leaves' dtypes, on the leaves' devices."""
+    if isinstance(specs, P):
+        t = tree if isinstance(tree, torch.Tensor) else _from_np(tree)
+        with torch.no_grad():
+            return shard(t, specs, mesh)
+    if isinstance(specs, dict):
+        return {k: shard_tree(tree[k], v, mesh) for k, v in specs.items()}
+    return [shard_tree(t, s, mesh) for t, s in zip(tree, specs)]
 
 
 def recsys_params_from_jax(params_np: dict, cfg, device="cuda"):
@@ -164,7 +165,7 @@ def recsys_params_from_jax(params_np: dict, cfg, device="cuda"):
     from repro_torch.models.recsys import init_params
 
     model = init_params(cfg, device=device)
-    arrays = _flatten(params_np)
+    arrays = flatten(params_np)
     params = dict(model.named_parameters())
     if set(arrays) != set(params):
         raise ValueError(f"param names {sorted(arrays)} differ from the model's {sorted(params)}")

@@ -40,15 +40,20 @@ NN-descent build through ``ops.round_scores`` (``two_hop_scores`` and
 
 Collectives: NCCL where each rank has a card of its own, gloo otherwise
 (``pick_backend``), both on the ranks' tensors as they lie (gloo copies a
-CUDA tensor through host memory itself).  Each collective is counted and
-timed: on the card between two CUDA events on the current stream, read
-later so that timing adds no sync; on the CPU on the host clock.  So
-``collective_stats()["seconds"]`` is the collectives alone, the wait for
-the slowest rank included.
+CUDA tensor through host memory itself).  These counted collectives are the
+only ones in the port (``sharding.api`` runs the mesh's on them, over its
+subgroups).  Each is counted by kind with its bytes on this rank (an
+all-reduce's operand, an all-gather's result, a reduce-scatter's operand)
+and timed: on the card between two CUDA events on the current stream, read
+once they have passed (each new collective drains the finished ones, so
+only those in flight are held) and so adding no sync; on the CPU on the
+host clock.  So ``collective_stats()["seconds"]`` is the collectives
+alone, the wait for the slowest rank included.
 """
 
 from __future__ import annotations
 
+import collections
 import datetime
 import math
 import time
@@ -68,8 +73,8 @@ from repro_torch.kernels.ref import exact_float32_matmul
 INF = float("inf")
 DEFAULT_TIMEOUT_S = 300.0
 
-_STATS = {"calls": 0, "seconds": 0.0}
-_PENDING: list = []  # (start, end) CUDA events of collectives not read yet
+_STATS: dict = {}  # kind -> {"calls", "bytes", "max_bytes", "seconds"}
+_PENDING: collections.deque = collections.deque()  # (kind, start, end) CUDA events in flight
 
 
 # ---------------------------------------------------------------------------
@@ -116,50 +121,86 @@ def world_and_rank(group=None) -> tuple[int, int]:
     return tdist.get_world_size(group), tdist.get_rank(group)
 
 
-def collective_stats() -> dict:
-    """Collectives so far in this process: calls, and seconds spent in them.
-    Waits for the collectives still in flight on the card."""
-    while _PENDING:
-        start, end = _PENDING.pop()
+def _drain(wait: bool) -> None:
+    """Add the times of the collectives that have passed on the card (all
+    of them with ``wait``, waiting for those in flight)."""
+    while _PENDING and (wait or _PENDING[0][2].query()):
+        kind, start, end = _PENDING.popleft()
         end.synchronize()
-        _STATS["seconds"] += start.elapsed_time(end) / 1e3
-    return dict(_STATS)
+        _STATS[kind]["seconds"] += start.elapsed_time(end) / 1e3
 
 
-def _collective(t, run):
-    """``run(t)``, counted and timed (on the card by two CUDA events around
-    it on the current stream: the span from the end of the work queued
-    before it to its result)."""
+def collective_stats() -> dict:
+    """Collectives so far in this process: ``calls``, ``bytes`` and
+    ``seconds`` in all, and ``kinds``: {kind: {"calls", "bytes",
+    "max_bytes", "seconds"}}.  Waits for those still in flight on the card."""
+    _drain(wait=True)
+    kinds = {k: dict(v) for k, v in _STATS.items()}
+    return {"calls": sum(v["calls"] for v in kinds.values()),
+            "bytes": sum(v["bytes"] for v in kinds.values()),
+            "seconds": sum(v["seconds"] for v in kinds.values()), "kinds": kinds}
+
+
+def reset_collective_stats() -> None:
+    _drain(wait=True)
+    _STATS.clear()
+
+
+def _collective(kind: str, nbytes: int, t, run):
+    """``run(t)``, counted under ``kind`` with ``nbytes`` and timed (on the
+    card by two CUDA events around it on the current stream: the span from
+    the end of the work queued before it to its result)."""
     src = t.contiguous()
-    if t.is_cuda:
-        stream = torch.cuda.current_stream(t.device)
+    st = _STATS.setdefault(kind, {"calls": 0, "bytes": 0, "max_bytes": 0, "seconds": 0.0})
+    st["calls"] += 1
+    st["bytes"] += nbytes
+    st["max_bytes"] = max(st["max_bytes"], nbytes)
+    if src.is_cuda:
+        _drain(wait=False)
+        stream = torch.cuda.current_stream(src.device)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record(stream)
         out = run(src)
         end.record(stream)
-        _PENDING.append((start, end))
-    else:
-        t0 = time.perf_counter()
-        out = run(src)
-        _STATS["seconds"] += time.perf_counter() - t0
-    _STATS["calls"] += 1
+        _PENDING.append((kind, start, end))
+        return out
+    t0 = time.perf_counter()
+    out = run(src)
+    st["seconds"] += time.perf_counter() - t0
     return out
 
 
-def all_gather(t, group=None):
-    """(world, *t.shape): every rank's ``t``, in rank order, on every rank."""
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def _is_nccl(group) -> bool:
     import torch.distributed as tdist
 
-    def run(src):
-        parts = [torch.empty_like(src) for _ in range(tdist.get_world_size(group))]
-        tdist.all_gather(parts, src, group=group)
-        return torch.stack(parts)
+    return tdist.get_backend(group) == "nccl"
 
-    return _collective(t, run)
+
+def all_gather(t, group=None):
+    """(world, *t.shape): every rank's ``t``, in rank order, on every rank
+    (NCCL: ``all_gather_into_tensor``; gloo: ``all_gather`` into its rows)."""
+    import torch.distributed as tdist
+
+    world = tdist.get_world_size(group)
+
+    def run(src):
+        out = torch.empty((world,) + tuple(src.shape), dtype=src.dtype, device=src.device)
+        if _is_nccl(group):
+            tdist.all_gather_into_tensor(out, src, group=group)
+        else:
+            tdist.all_gather(list(out.unbind(0)), src, group=group)
+        return out
+
+    return _collective("all_gather", world * _nbytes(t), t, run)
 
 
 def all_reduce(t, op: str = "sum", group=None):
-    """Elementwise ``op`` ("sum" or "max") of every rank's ``t``; a new tensor."""
+    """Elementwise ``op`` ("sum" or "max") of every rank's ``t``; a new tensor,
+    counted as a ``psum`` or a ``pmax``."""
     import torch.distributed as tdist
 
     ops = {"sum": tdist.ReduceOp.SUM, "max": tdist.ReduceOp.MAX}
@@ -169,7 +210,33 @@ def all_reduce(t, op: str = "sum", group=None):
         tdist.all_reduce(out, op=ops[op], group=group)
         return out
 
-    return _collective(t, run)
+    return _collective({"sum": "psum", "max": "pmax"}[op], _nbytes(t), t, run)
+
+
+def reduce_scatter(t, group=None):
+    """(t.shape[0] // world, ...): the sum of every rank's ``t``, this rank's
+    block of rows.  NCCL: ``reduce_scatter_tensor``.  Gloo has no
+    reduce-scatter for CUDA tensors, so there, decided by the backend, it is
+    composed of an all-reduce and the rank's block (counted as one
+    ``psum_scatter``, with the all-reduce's operand)."""
+    import torch.distributed as tdist
+
+    world, rank = world_and_rank(group)
+    if t.shape[0] % world:
+        raise ValueError(f"{t.shape[0]} rows do not split over {world} ranks")
+    rows = t.shape[0] // world
+
+    def run(src):
+        if _is_nccl(group):
+            out = torch.empty((rows,) + tuple(src.shape[1:]), dtype=src.dtype,
+                              device=src.device)
+            tdist.reduce_scatter_tensor(out, src, group=group)
+            return out
+        out = src.clone()
+        tdist.all_reduce(out, group=group)
+        return out[rank * rows:(rank + 1) * rows].clone()
+
+    return _collective("psum_scatter", _nbytes(t), t, run)
 
 
 # ---------------------------------------------------------------------------

@@ -14,8 +14,9 @@ replayed).  With a checkpoint directory it resumes (params, optimizer state)
 and the data cursor from the latest checkpoint, so a killed run continues
 where it stopped.  ``train_recsys`` trains a recsys model (two-tower, AutoInt,
 DIN, DCN-v2).  The GNN and retrieval families have no launcher here, as in
-``repro`` (``main`` exits naming ``examples/``); the mesh waits for ROADMAP
-M17's queue.
+``repro`` (``main`` exits naming ``examples/``).  Like ``repro``'s launcher it
+takes no mesh: the on-mesh paths are library calls under
+``sharding.api.use_mesh``.
 """
 
 from __future__ import annotations

@@ -1,10 +1,15 @@
-"""Sparse embedding tables (PyTorch port of ``repro.models.embedding``, off-mesh).
+"""Sparse embedding tables (PyTorch port of ``repro.models.embedding``).
 
 All per-field tables are concatenated into one (sum(vocab), dim) matrix with
 per-field row offsets, so one gather serves every field.  ``embedding_bag``
 reduces ragged multi-hot bags with ``index_add_`` (sum, mean) and
-``scatter_reduce_`` (max).  The row-sharded lookup over a device mesh waits
-for ROADMAP M17.
+``scatter_reduce_`` (max).
+
+On a mesh the table is row-sharded (``table_spec``) and ``embedding_lookup``
+is ``repro``'s ``shard_map`` region in the local view (``sharding/api.py``):
+each rank takes the replicated ids that fall in its rows (zeros elsewhere)
+and one collective combines the partial lookups, moving (B, F, dim), never
+the table.  Its backward scatter-adds into the rank's own rows.
 """
 
 from __future__ import annotations
@@ -13,6 +18,8 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.sharding.api import P, all_gather, current_mesh, psum, psum_scatter
 
 
 def field_offsets(vocab_sizes: Sequence[int], device="cpu") -> torch.Tensor:
@@ -29,9 +36,40 @@ def init_table(generator, vocab_sizes: Sequence[int], dim: int, device="cpu") ->
     return torch.randn((total, dim), generator=generator, device=device) * dim ** -0.5
 
 
-def embedding_lookup(table, ids, offsets) -> torch.Tensor:
-    """ids: (B, F) per-field local ids -> (B, F, dim): ``table[ids + offsets]``."""
-    return table[ids.long() + offsets.to(ids.device)[None, :]]
+def table_spec(tp_axis: str = "model", fsdp_axis: str = None):
+    """Rows sharded over the TP axis, and over the FSDP axis too when given."""
+    if fsdp_axis:
+        return P((tp_axis, fsdp_axis), None)
+    return P(tp_axis, None)
+
+
+def embedding_lookup(table, ids, offsets, *, row_axes=("model", "data")) -> torch.Tensor:
+    """ids: (B, F) per-field local ids -> (B, F, dim): ``table[ids + offsets]``.
+
+    Under a mesh with any of ``row_axes``: ``table`` is this rank's row block
+    (``P(axes, None)``, the shard index row-major over the axes present) and
+    ``ids`` the replicated batch.  A masked local take, then, when B splits
+    over the shards, a ``psum_scatter`` in the order ``(axes[-1],) +
+    axes[:-1]`` and a re-gather over ``axes[:-1]``: the rank's block
+    ``P((axes[-1],), None, None)`` of the rows; else one ``psum``: all rows.
+    """
+    flat = ids.long() + offsets.to(ids.device)[None, :]
+    mesh = current_mesh()
+    axes = tuple(a for a in row_axes if mesh is not None and a in mesh.axis_names)
+    if not axes:
+        return table[flat]
+    n_row_shards = mesh.size_of(axes)
+    B = flat.shape[0]
+    use_scatter = B % n_row_shards == 0 and B >= n_row_shards
+    rows_local = table.shape[0]
+    rel = flat - mesh.index(axes) * rows_local
+    inside = (rel >= 0) & (rel < rows_local)
+    emb = table[rel.clamp(0, rows_local - 1)] * inside[..., None].to(table.dtype)
+    if use_scatter:
+        # the batch axis first: after the re-gather each rank's rows are contiguous
+        part = psum_scatter(emb, (axes[-1],) + axes[:-1], 0)
+        return all_gather(part, axes[:-1], 0, tiled=True)
+    return psum(emb, axes)
 
 
 def embedding_bag(table, ids, segment_ids, n_bags: int, mode: str = "sum",

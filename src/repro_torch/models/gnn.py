@@ -18,8 +18,13 @@ replays given ones (``jax.random`` cannot be replayed).
 
 The parameters mirror ``repro``'s dict as module attributes ``w.<i>`` and
 ``b.<i>`` (``convert.gnn_params_from_jax``), drawn on the CPU and then moved.
-Edge-sharded aggregation and the partition specs wait for ROADMAP M17's
-sharding item.
+
+Edge-sharded (``forward(edge_sharded=True)`` under a mesh, the local view of
+``sharding/api.py``): each rank holds its slice of the edge list, self loops
+included, over the data axes, and the node features and weights whole.  It
+``index_add_``s its messages, and its in- and out-degrees, into full (n, .)
+tensors, and one ``psum`` over those axes follows each (``segment_sum`` is
+linear, so this is ``repro``'s math); ``max`` takes a ``pmax``.
 """
 
 from __future__ import annotations
@@ -30,7 +35,8 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import GNNConfig
-from repro_torch.models.layers import dense_init, mesh_unported
+from repro_torch.models.layers import dense_init
+from repro_torch.sharding.api import P, batch_axes, pmax, psum, pvary
 
 
 # ---------------------------------------------------------------------------
@@ -61,8 +67,10 @@ def init_params(cfg: GNNConfig, generator=None, device="cuda") -> GCNParams:
                      [torch.zeros(dims[i + 1]) for i in range(cfg.n_layers)], dev)
 
 
-def param_specs(*args, **kwargs):
-    raise mesh_unported("the GCN's partition specs")
+def param_specs(cfg: GNNConfig, fsdp_axis="data", tp_axis="model"):
+    """The GCN's weights are tiny (1433 x 16 + 16 x 7 on Cora): replicated."""
+    return {"w": [P(None, None) for _ in range(cfg.n_layers)],
+            "b": [P(None) for _ in range(cfg.n_layers)]}
 
 
 # ---------------------------------------------------------------------------
@@ -78,9 +86,9 @@ def _counts(index, n: int):
     return torch.zeros(n, dtype=torch.float32, device=index.device).index_add_(0, index, ones)
 
 
-def _degree(receivers, senders, n_nodes: int):
-    """In- and out-degree, float32 (exact counts)."""
-    return _counts(receivers, n_nodes), _counts(senders, n_nodes)
+def _degree(receivers, senders, n_nodes: int, axes=()):
+    """In- and out-degree, float32 (exact counts), summed over ``axes``."""
+    return psum(_counts(receivers, n_nodes), axes), psum(_counts(senders, n_nodes), axes)
 
 
 def _segment_sum(msgs, segments, n: int):
@@ -89,30 +97,36 @@ def _segment_sum(msgs, segments, n: int):
 
 
 def gcn_aggregate(x, senders, receivers, n_nodes: int, norm: str = "sym",
-                  aggregator: str = "mean"):
+                  aggregator: str = "mean", *, axes=()):
     """One round of (normalized) neighbourhood aggregation.
 
     x: (n, d); senders / receivers: (E,) integer.  Self loops are the
     caller's choice (``forward`` adds them).  ``sym``: each message scaled by
     deg_out(s)^-1/2 deg_in(r)^-1/2 and summed; else ``mean`` (the sum over
     max(deg_in, 1)), ``max`` (0 for a node without in-edges) or ``sum``.
+    ``axes``: the mesh axes the edges are split over; every partial sum is
+    ``psum``med over them and the max ``pmax``ed (``x`` is replicated there).
     """
     senders, receivers = senders.long(), receivers.long()
+    x = pvary(x, axes)  # replicated, gathered at this rank's edges
     if norm == "sym":
-        deg_in, deg_out = _degree(receivers, senders, n_nodes)
+        deg_in, deg_out = _degree(receivers, senders, n_nodes, axes)
         scale = torch.rsqrt(deg_out.clamp(min=1.0))[senders] * torch.rsqrt(
             deg_in.clamp(min=1.0))[receivers]
         # in place: the gathered block is the largest tensor of the pass
-        return _segment_sum(x[senders].mul_(scale[:, None]), receivers, n_nodes)
+        return psum(_segment_sum(x[senders].mul_(scale[:, None]), receivers, n_nodes), axes)
     if aggregator == "mean":
-        deg_in, _ = _degree(receivers, senders, n_nodes)
-        return _segment_sum(x[senders], receivers, n_nodes) / deg_in.clamp(min=1.0)[:, None]
+        deg_in, _ = _degree(receivers, senders, n_nodes, axes)
+        s = psum(_segment_sum(x[senders], receivers, n_nodes), axes)
+        return s / deg_in.clamp(min=1.0)[:, None]
     if aggregator == "max":
-        agg = torch.zeros((n_nodes, x.shape[1]), dtype=x.dtype, device=x.device)
+        # seeded at -inf (never a finite maximum's tie): a node without
+        # in-edges stays -inf through the pmax and becomes 0
         index = receivers[:, None].expand(-1, x.shape[1])
-        agg = agg.scatter_reduce(0, index, x[senders], "amax", include_self=False)
+        agg = torch.full((n_nodes, x.shape[1]), -torch.inf, dtype=x.dtype, device=x.device)
+        agg = pmax(agg.scatter_reduce(0, index, x[senders], "amax"), axes)
         return torch.where(torch.isfinite(agg), agg, 0.0)
-    return _segment_sum(x[senders], receivers, n_nodes)
+    return psum(_segment_sum(x[senders], receivers, n_nodes), axes)
 
 
 def _with_self_loops(senders, receivers, n: int):
@@ -120,10 +134,11 @@ def _with_self_loops(senders, receivers, n: int):
     return torch.cat([senders.long(), loops]), torch.cat([receivers.long(), loops])
 
 
-def _layers(params: GCNParams, x, senders, receivers, n: int, cfg: GNNConfig):
+def _layers(params: GCNParams, x, senders, receivers, n: int, cfg: GNNConfig, axes=()):
     last = len(params.w) - 1
     for i, (w, b) in enumerate(zip(params.w, params.b)):
-        x = gcn_aggregate(x, senders, receivers, n, norm=cfg.norm, aggregator=cfg.aggregator)
+        x = gcn_aggregate(x, senders, receivers, n, norm=cfg.norm, aggregator=cfg.aggregator,
+                          axes=axes)
         x = x @ w + b
         if i < last:
             x = torch.relu(x)
@@ -137,13 +152,20 @@ def _nll(logits, labels):
 
 def forward(params: GCNParams, graph: dict, cfg: GNNConfig, *, edge_sharded: bool = False):
     """Full-batch GCN forward over ``graph`` (``features`` (n, d_feat),
-    ``senders``, ``receivers``): node logits (n, n_classes)."""
-    if edge_sharded:
-        raise mesh_unported("edge-sharded aggregation")
+    ``senders``, ``receivers``): node logits (n, n_classes).
+
+    ``edge_sharded`` under a mesh: ``senders`` and ``receivers`` are this
+    rank's slice over the data axes of the edge list with the self loops
+    appended (``repro`` appends them, then shards the whole list), and the
+    logits are replicated."""
     x = graph["features"]
     n = x.shape[0]
-    senders, receivers = _with_self_loops(graph["senders"], graph["receivers"], n)
-    return _layers(params, x, senders, receivers, n, cfg)
+    axes = batch_axes() if edge_sharded else ()
+    if axes:
+        senders, receivers = graph["senders"].long(), graph["receivers"].long()
+    else:
+        senders, receivers = _with_self_loops(graph["senders"], graph["receivers"], n)
+    return _layers(params, x, senders, receivers, n, cfg, axes)
 
 
 def loss_fn(params: GCNParams, graph: dict, cfg: GNNConfig, mask=None, **kw):

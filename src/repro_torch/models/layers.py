@@ -29,12 +29,6 @@ import torch.nn.functional as F
 NEG_INF = -1e30
 
 
-def mesh_unported(what: str) -> NotImplementedError:
-    """The error a mesh-only piece raises: the device mesh waits for ROADMAP M17."""
-    return NotImplementedError(f"{what} needs the device mesh (sharding/api.py), not ported "
-                               "to repro_torch yet (ROADMAP M17: sharding)")
-
-
 def dense_init(generator, d_in: int, d_out: int, scale: Optional[float] = None,
                device="cpu") -> torch.Tensor:
     """(d_in, d_out) float32 weights, N(0, 1) x ``scale`` (default d_in^-1/2)."""

@@ -19,8 +19,16 @@ without the custom VJP.
 
 Routing runs in float32 (the router is a float32 weight in a bf16 model);
 top-k breaks ties toward the lower expert id, as ``jax.lax.top_k`` does.
-The expert-parallel path over a mesh (``_moe_ffn_ep``) and the partition
-specs wait for ROADMAP M17's sharding item.
+
+Under a mesh with a "model" axis that divides the experts, ``moe_ffn`` runs
+``repro``'s expert-parallel region (``_moe_ffn_ep``) in the local view of
+``sharding/api.py``: each rank routes its batch block, dispatches locally
+into the slots of its own experts, all-gathers their weights over the data
+axes, and one ``psum`` over "model" combines.  Its backward is autograd of
+that local code (the dispatch is a plain gather there, as in ``repro``).
+Under any other mesh the gather path runs on the rank's block with the MoE
+weights replicated: their gradients sum over the data axes and the aux is
+the ``pmean`` of the blocks'.
 """
 
 from __future__ import annotations
@@ -29,7 +37,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import LMConfig
-from repro_torch.models.layers import dense_init, mesh_unported
+from repro_torch.models.layers import dense_init
+from repro_torch.sharding.api import (P, all_gather, batch_axes, current_mesh, pmean, psum,
+                                      pvary)
 
 
 # ---------------------------------------------------------------------------
@@ -134,8 +144,16 @@ def init_moe_layer(cfg: LMConfig, generator, device) -> dict:
     return out
 
 
-def moe_layer_specs(*args, **kwargs):
-    raise mesh_unported("the MoE layer's partition specs")
+def moe_layer_specs(cfg: LMConfig, fsdp_axis: str = "data", tp_axis: str = "model"):
+    """``repro``'s specs of the stacked MoE weights: experts over the TP/EP
+    axis, d over the FSDP axis (all-gathered at use), the router replicated."""
+    specs = {"router": P(None, None, None), "e_gate": P(None, tp_axis, fsdp_axis, None),
+             "e_up": P(None, tp_axis, fsdp_axis, None),
+             "e_down": P(None, tp_axis, None, fsdp_axis)}
+    if cfg.moe.n_shared:
+        specs.update({"sh_gate": P(None, fsdp_axis, tp_axis), "sh_up": P(None, fsdp_axis, tp_axis),
+                      "sh_down": P(None, tp_axis, fsdp_axis)})
+    return specs
 
 
 # ---------------------------------------------------------------------------
@@ -151,7 +169,10 @@ def _capacity(n_tokens: int, cfg: LMConfig) -> int:
 
 
 def _group_count(batch: int) -> int:
-    """Dispatch groups: 1 off the mesh (``repro`` makes one per data shard)."""
+    """Dispatch groups of the ``batch`` rows the gather path is given: 1.
+    ``repro``'s GSPMD path splits its global batch into one group per data
+    shard; in the local view a rank holds one data shard's block, which is
+    that group (and off the mesh the batch is one group)."""
     return 1
 
 
@@ -201,17 +222,107 @@ def _routing_plan(idx, E: int, C: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def moe_ffn(h, lp: dict, cfg: LMConfig, *, mesh=None):
+def moe_ffn(h, lp: dict, cfg: LMConfig):
     """h: (B, T, d) -> (B, T, d), and the aux load-balance loss (f32 scalar):
     the Switch term E * sum(assign_frac * prob_frac).  ``lp``: one layer's
-    weights (``router``, ``e_gate``, ``e_up``, ``e_down``, the ``sh_*``)."""
-    if mesh is not None:
+    weights (``router``, ``e_gate``, ``e_up``, ``e_down``, the ``sh_*``).
+
+    Under a mesh with a "model" axis that divides the experts: the
+    expert-parallel region ``_moe_ffn_ep`` (``h`` and the weights are this
+    rank's blocks).  Otherwise the gather path over ``h`` as given, one
+    dispatch group (``repro``'s GSPMD path, whose groups are the data shards
+    of its global batch); under such a mesh ``h`` is this rank's block over
+    the data axes and the MoE weights are whole and replicated, so their
+    gradients sum over the data axes and the aux is the ``pmean`` of the
+    blocks', as in the expert-parallel region."""
+    mesh = current_mesh()
+    if mesh is None:
+        return _moe_ffn_gather(h, lp, cfg)
+    if "model" in mesh.axis_names and cfg.moe.n_experts % mesh.shape["model"] == 0:
         return _moe_ffn_ep(h, lp, cfg, mesh)
-    return _moe_ffn_gather(h, lp, cfg)
+    dp = batch_axes()
+    lp = {k: pvary(w, dp, mesh) if k in moe_layer_shapes(cfg) else w for k, w in lp.items()}
+    out, aux = _moe_ffn_gather(h, lp, cfg)
+    return out, pmean(aux, dp, mesh)
 
 
-def _moe_ffn_ep(*args, **kwargs):
-    raise mesh_unported("the expert-parallel MoE (_moe_ffn_ep)")
+def _route(tokens, router, K: int):
+    """(probs (.., E) f32, renormalised top-K gate values, their expert ids)."""
+    probs = torch.softmax(tokens.float() @ router, dim=-1)
+    gate_vals, idx = _top_k(probs, K)
+    return probs, gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9), idx
+
+
+def _assign_frac(idx, E: int, n: int):
+    """The share of the ``n`` assignments in ``idx`` that each expert got (an
+    ``index_add_`` of ones, not ``bincount``, which reads a maximum back to
+    the host; no gradient through the counts)."""
+    flat = idx.reshape(-1)
+    ones = torch.ones(flat.shape[0], dtype=torch.float32, device=idx.device)
+    return torch.zeros(E, dtype=torch.float32, device=idx.device).index_add_(0, flat, ones) / n
+
+
+def _moe_ffn_ep(h, lp: dict, cfg: LMConfig, mesh):
+    """``repro``'s expert-parallel region in the local view.
+
+    ``h`` (B_loc, T, d) is this rank's block over the data axes (replicated
+    over "model"); ``router`` is replicated; ``e_gate``, ``e_up`` (E_loc,
+    d / dp, ff), ``e_down`` (E_loc, ff, d / dp) are its block over ("model",
+    data axes) and the shared experts' ``sh_gate``, ``sh_up`` (d / dp,
+    ff_sh / tp), ``sh_down`` (ff_sh / tp, d / dp).  Routing and the aux are
+    computed alike on every "model" rank from its block's N_loc tokens (C
+    from N_loc); each rank fills and runs only its E_loc experts' slots, so
+    the expert outputs, and the shared experts' over its ff block, are
+    partial sums: one ``psum`` over "model" combines them.  The aux is the
+    ``pmean`` over the data axes.  Returns the block's (B_loc, T, d) output.
+    """
+    m = cfg.moe
+    B_loc, T, d = h.shape
+    E, K = m.n_experts, m.top_k
+    tp = mesh.shape["model"]
+    E_loc = E // tp
+    dp = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    N_loc = B_loc * T
+    C = _capacity(N_loc, cfg)
+    tokens = h.reshape(N_loc, d)
+    # the router, and the tokens' and gates' expert-side uses, are replicated
+    # inputs that each rank uses with its own tokens or experts
+    router = pvary(lp["router"], dp, mesh)
+    probs, gate_vals, idx = _route(tokens, router, K)
+    aux = E * torch.sum(_assign_frac(idx, E, N_loc * K) * probs.mean(dim=0))
+
+    plan = _routing_plan(idx[None], E, C)
+    lo = mesh.axis_index("model") * E_loc * C
+    tok_ep = pvary(tokens, "model", mesh)
+
+    # local dispatch: this rank's experts' slots
+    src = plan["src"][0, lo:lo + E_loc * C]
+    valid = plan["buf_valid"][0, lo:lo + E_loc * C]
+    buf = (tok_ep[src] * valid[:, None].to(h.dtype)).reshape(E_loc, C, d)
+
+    # the experts' weights gathered over the data axes (ZeRO-3), local matmuls
+    e_gate = all_gather(lp["e_gate"], dp, 1, tiled=True, varying=True, mesh=mesh)
+    e_up = all_gather(lp["e_up"], dp, 1, tiled=True, varying=True, mesh=mesh)
+    e_down = all_gather(lp["e_down"], dp, 2, tiled=True, varying=True, mesh=mesh)
+    act = F.silu(buf @ e_gate) * (buf @ e_up)
+    out_buf = (act @ e_down).reshape(E_loc * C, d)
+
+    # partial combine: the assignments routed to this rank's experts
+    rel = plan["dest"][0] - lo
+    mine = (rel >= 0) & (rel < E_loc * C)
+    picked = out_buf[rel.clamp(0, E_loc * C - 1)] * mine[:, None].to(h.dtype)
+    slot = picked[plan["inv_order"][0]]  # unsorted: (N_loc * K, d)
+    gates = pvary(gate_vals, "model", mesh).to(h.dtype)
+    partial = torch.sum(slot.reshape(N_loc, K, d) * gates[..., None], dim=1)
+
+    if m.n_shared:  # the shared experts, ff over "model": a partial too
+        sh_gate = all_gather(lp["sh_gate"], dp, 0, tiled=True, varying=True, mesh=mesh)
+        sh_up = all_gather(lp["sh_up"], dp, 0, tiled=True, varying=True, mesh=mesh)
+        sh_down = all_gather(lp["sh_down"], dp, 1, tiled=True, varying=True, mesh=mesh)
+        partial = partial + (F.silu(tok_ep @ sh_gate) * (tok_ep @ sh_up)) @ sh_down
+
+    out = psum(partial, "model", mesh)
+    return out.reshape(B_loc, T, d), pmean(aux, dp, mesh).float()
 
 
 def _moe_ffn_gather(h, lp: dict, cfg: LMConfig):
@@ -224,24 +335,15 @@ def _moe_ffn_gather(h, lp: dict, cfg: LMConfig):
     C = _capacity(Ng, cfg)
     tokens = h.reshape(G, Ng, d)
 
-    # routing, f32 for a stable softmax
-    probs = torch.softmax(tokens.float() @ lp["router"], dim=-1)  # (G, Ng, E)
-    gate_vals, idx = _top_k(probs, K)
-    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
-
-    # aux: Switch-style load balance over the assignments (no gradient through the counts)
-    # (an index_add_ of ones, not bincount, which would read a maximum back to the host)
-    flat = idx.reshape(-1)
-    assign_frac = torch.zeros(E, dtype=torch.float32, device=idx.device).index_add_(
-        0, flat, torch.ones(flat.shape[0], dtype=torch.float32, device=idx.device)) / (N * K)
-    prob_frac = probs.mean(dim=(0, 1))
-    aux = E * torch.sum(assign_frac * prob_frac)
+    # routing, f32 for a stable softmax; the Switch-style aux over the assignments
+    probs, gate_vals, idx = _route(tokens, lp["router"], K)  # (G, Ng, E), (G, Ng, K) x2
+    aux = E * torch.sum(_assign_frac(idx, E, N * K) * probs.mean(dim=(0, 1)))
 
     plan = _routing_plan(idx, E, C)
     buf = _DispatchGather.apply(tokens, plan["src"], plan["buf_valid"], plan["dest"],
                                 plan["inv_order"]).reshape(G, E, C, d)
 
-    # the experts, batched over E (and the one group)
+    # the experts, batched over E and the groups
     act = F.silu(buf @ lp["e_gate"]) * (buf @ lp["e_up"])
     out_buf = (act @ lp["e_down"]).reshape(G, E * C, d)
 

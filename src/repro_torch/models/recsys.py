@@ -19,8 +19,9 @@ The parameters mirror ``repro``'s param dict as module attributes:
 ``attn.<i>.{wq,wk,wv,wres}``; ``att_mlp.{w,b}.<i>``; ``cross.<i>.{w,b}``;
 ``head.{w,b}.<i>`` (``convert.recsys_params_from_jax`` carries them
 across).  They are drawn on the CPU from a ``torch.Generator`` and then
-moved, so the card and the CPU start from the same weights.  The mesh's
-``param_specs`` waits for ROADMAP M17's sharding item.
+moved, so the card and the CPU start from the same weights.
+``param_specs`` is ``repro``'s spec tree: the table row-sharded
+(``embedding.table_spec``), every dense layer replicated.
 """
 
 from __future__ import annotations
@@ -32,8 +33,9 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.core.distances import neg_inner_product
 from repro_torch.kernels.ops import query_distance_matrix
-from repro_torch.models.embedding import embedding_lookup, field_offsets, init_table
-from repro_torch.models.layers import NEG_INF, dense_init, mesh_unported
+from repro_torch.models.embedding import embedding_lookup, field_offsets, init_table, table_spec
+from repro_torch.models.layers import NEG_INF, dense_init
+from repro_torch.sharding.api import P
 
 
 class MLP(nn.Module):
@@ -58,6 +60,11 @@ def _mlp_apply(p: MLP, x, act=torch.relu, final_act: bool = False):
         if i < n - 1 or final_act:
             x = act(x)
     return x
+
+
+def _mlp_specs(dims):
+    return {"w": [P(None, None) for _ in range(len(dims) - 1)],
+            "b": [P(None) for _ in range(len(dims) - 1)]}
 
 
 def _pad_vocab(cfg: RecsysConfig, mult: int = 512) -> int:
@@ -149,7 +156,26 @@ def init_params(cfg: RecsysConfig, generator=None, device="cuda") -> _Recsys:
 
 
 def param_specs(cfg: RecsysConfig, fsdp_axis="data", tp_axis="model"):
-    raise mesh_unported("the recsys models' partition specs")
+    """``repro``'s spec tree for ``cfg.interaction``'s params."""
+    specs = {"table": table_spec(tp_axis, fsdp_axis)}
+    d = cfg.embed_dim
+    if cfg.interaction == "self-attn":
+        specs["attn"] = [{k: P(None, None) for k in ("wq", "wk", "wv", "wres")}
+                         for _ in range(cfg.n_attn_layers)]
+        specs["head"] = _mlp_specs((cfg.n_sparse * cfg.d_attn + cfg.n_dense, 1))
+    elif cfg.interaction == "target-attn":
+        specs["att_mlp"] = _mlp_specs((4 * d,) + tuple(cfg.attn_mlp_dims) + (1,))
+        in_dim = 2 * d + (cfg.n_sparse - 1) * d + cfg.n_dense
+        specs["head"] = _mlp_specs((in_dim,) + tuple(cfg.mlp_dims) + (1,))
+    elif cfg.interaction == "cross":
+        specs["cross"] = [{"w": P(None, None), "b": P(None)} for _ in range(cfg.n_cross_layers)]
+        x0 = cfg.n_dense + cfg.n_sparse * d
+        specs["head"] = _mlp_specs((x0,) + tuple(cfg.mlp_dims) + (1,))
+    elif cfg.interaction == "dot":
+        fu = cfg.n_sparse // 2
+        specs["user_tower"] = _mlp_specs((fu * d,) + tuple(cfg.tower_mlp_dims))
+        specs["item_tower"] = _mlp_specs(((cfg.n_sparse - fu) * d,) + tuple(cfg.tower_mlp_dims))
+    return specs
 
 
 # ---------------------------------------------------------------------------

@@ -19,10 +19,16 @@ dh) per k and v plus ``length`` (B,) int32, and ``decode_step`` writes the
 new token's k and v into it in place.  gemma3's local:global pattern picks
 each layer's window in Python (``layer_locality``).
 
-Each layer's FFN is the SwiGLU MLP or ``models/moe.py``'s ``moe_ffn``
-(off the mesh), whose load-balance aux ``forward`` sums over the layers.
-Not ported here: the sequence-parallel decode over a mesh and the mesh's
-partition specs; each raises ``NotImplementedError`` naming its ROADMAP item.
+Each layer's FFN is the SwiGLU MLP or ``models/moe.py``'s ``moe_ffn``,
+whose load-balance aux ``forward`` sums over the layers.
+
+On a mesh (the local view of ``sharding/api.py``) the batch is this rank's
+block over the data axes and the dense weights are replicated: under
+``use_mesh`` each dense weight's gradient is summed over the data axes
+(``pvary``), the MoE FFN runs expert-parallel, and ``decode_step(mesh=)``
+attends sequence-parallel over its block of the cache (``kv_cache_specs``)
+with an exact log-sum-exp combine.  ``param_specs`` is ``repro``'s
+FSDP x TP layout, the layout a dry run reckons with.
 """
 
 from __future__ import annotations
@@ -41,11 +47,11 @@ from repro_torch.models.layers import (
     decode_attention_local,
     dense_init,
     lse_combine,
-    mesh_unported,
     rms_norm,
     swiglu,
 )
-from repro_torch.models.moe import init_moe_layer, moe_ffn, moe_layer_shapes
+from repro_torch.models.moe import init_moe_layer, moe_ffn, moe_layer_shapes, moe_layer_specs
+from repro_torch.sharding.api import P, batch_axes, current_mesh, pmax, psum, pvary
 
 
 def _dt(cfg: LMConfig) -> torch.dtype:
@@ -118,11 +124,31 @@ def init_params(cfg: LMConfig, generator=None, device="cuda") -> LMParams:
     return LMParams(embed, torch.ones((d,), dtype=dt, device=dev), layers, head)
 
 
-def param_specs(*args, **kwargs):
-    raise mesh_unported("partition specs")
+def param_specs(cfg: LMConfig, fsdp_axis: str = "data", tp_axis: str = "model"):
+    """``repro``'s spec tree matching ``init_params``: (L, d_in, d_out)
+    weights ``P(None, fsdp, tp)``, the out-projections ``P(None, tp,
+    fsdp)``, the vocab-sharded embedding, the MoE layer's specs.
+    ``fsdp_axis=None`` gives TP-only sharding (serving)."""
+    w2 = P(None, fsdp_axis, tp_axis)
+    layer = {"ln_attn": P(None, None), "ln_mlp": P(None, None), "wq": w2, "wk": w2, "wv": w2,
+             "wo": P(None, tp_axis, fsdp_axis)}
+    if cfg.is_moe:
+        layer.update(moe_layer_specs(cfg, fsdp_axis, tp_axis))
+    else:
+        layer.update({"w_gate": w2, "w_up": w2, "w_down": P(None, tp_axis, fsdp_axis)})
+    specs = {"embed": P(tp_axis, fsdp_axis), "ln_f": P(None), "layers": layer}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P(fsdp_axis, tp_axis)
+    return specs
 
 
-kv_cache_specs = param_specs
+def kv_cache_specs(seq_axes=("model",), batch_axes=("data",)):
+    """The KV cache sharded along the sequence over ``seq_axes`` and along the
+    batch over the DP axes (batch-1 cells pass ``batch_axes=()`` and widen
+    ``seq_axes`` to ("data", "model"))."""
+    ba = tuple(batch_axes) or None
+    kv = P(None, ba, tuple(seq_axes), None, None)
+    return {"k": kv, "v": kv, "length": P(ba)}
 
 
 def _wo_masked(wo, cfg: LMConfig):
@@ -142,9 +168,18 @@ def layer_locality(cfg: LMConfig) -> torch.Tensor:
     return (torch.arange(cfg.n_layers) % period) < n_local
 
 
+def _replicated(w):
+    """A dense weight under a mesh: replicated, used on this rank's batch
+    block, so its gradient sums over the data axes."""
+    return pvary(w, batch_axes()) if current_mesh() is not None else w
+
+
 def _layer_views(params: LMParams, cfg: LMConfig):
-    """Per layer: a dict of its weights (views), and its window (0 = none)."""
-    per_name = {k: torch.unbind(w, 0) for k, w in params.layers.items()}
+    """Per layer: a dict of its weights (views), and its window (0 = none).
+    The MoE weights enter the expert-parallel region as they are."""
+    moe = moe_layer_shapes(cfg) if cfg.is_moe else {}
+    per_name = {k: torch.unbind(w if k in moe else _replicated(w), 0)
+                for k, w in params.layers.items()}
     windows = [cfg.sliding_window if loc else 0 for loc in layer_locality(cfg).tolist()]
     return [({k: w[i] for k, w in per_name.items()}, windows[i])
             for i in range(cfg.n_layers)]
@@ -191,7 +226,7 @@ def _embed(params: LMParams, tokens, cfg: LMConfig):
     tokens = tokens.long()
     B, T = tokens.shape
     positions = torch.arange(T, device=tokens.device).expand(B, T)
-    return params.embed[tokens].to(_dt(cfg)), positions
+    return _replicated(params.embed)[tokens].to(_dt(cfg)), positions
 
 
 def forward_hidden(params: LMParams, tokens, cfg: LMConfig, *, block_q: int = 512,
@@ -206,7 +241,7 @@ def forward_hidden(params: LMParams, tokens, cfg: LMConfig, *, block_q: int = 51
                                block_q=block_q, block_kv=block_kv)
         x, aux = checkpoint(fn, x, use_reentrant=False) if cfg.remat else fn(x)
         auxes.append(aux)
-    return rms_norm(x, params.ln_f, cfg.norm_eps), torch.stack(auxes).sum()
+    return rms_norm(x, _replicated(params.ln_f), cfg.norm_eps), torch.stack(auxes).sum()
 
 
 def lm_head(params: LMParams, cfg: LMConfig):
@@ -217,7 +252,7 @@ def forward(params: LMParams, tokens, cfg: LMConfig, *, block_q: int = 512,
             block_kv: int = 512):
     """tokens (B, T) -> logits (B, T, V) in the param dtype, and aux."""
     x, aux = forward_hidden(params, tokens, cfg, block_q=block_q, block_kv=block_kv)
-    return x @ lm_head(params, cfg), aux
+    return x @ _replicated(lm_head(params, cfg)), aux
 
 
 # ---------------------------------------------------------------------------
@@ -257,13 +292,24 @@ def prefill(params: LMParams, tokens, cfg: LMConfig, *, max_len: int | None = No
 
 
 @torch.no_grad()
-def decode_step(params: LMParams, cache, tokens, cfg: LMConfig, *, mesh=None):
+def decode_step(params: LMParams, cache, tokens, cfg: LMConfig, *, mesh=None,
+                seq_axes=("model",), dp=None):
     """One decode step: tokens (B,) -> logits (B, V), and the cache with the
-    new token's k and v written in place at ``length`` and ``length`` + 1."""
+    new token's k and v written in place at ``length`` and ``length`` + 1.
+
+    With ``mesh``, attention runs sequence-parallel over ``seq_axes``
+    (``_sp_decode_attention``): ``cache`` is this rank's block
+    (``kv_cache_specs(seq_axes, dp)``) and ``tokens`` its batch block over
+    ``dp`` (None: the data axes not in ``seq_axes``; () for a batch
+    replicated on every rank); the logits are the block's, replicated over
+    ``seq_axes``."""
     if mesh is not None:
-        raise NotImplementedError(
-            "sequence-parallel decode over a mesh (_sp_decode_attention) is not ported to "
-            "repro_torch yet (ROADMAP M17: sharding)")
+        seq_axes = tuple(seq_axes)
+        if dp is None:
+            dp = tuple(a for a in ("pod", "data") if a in mesh.axis_names and a not in seq_axes)
+        if set(dp) & set(seq_axes) or not set(dp) | set(seq_axes) <= set(mesh.axis_names):
+            raise ValueError(f"batch axes {dp} and sequence axes {seq_axes} must be disjoint "
+                             f"axes of the mesh {mesh.axis_names}")
     tokens = tokens.long()
     B = tokens.shape[0]
     x = params.embed[tokens].to(_dt(cfg))[:, None, :]  # (B, 1, d)
@@ -276,10 +322,14 @@ def decode_step(params: LMParams, cache, tokens, cfg: LMConfig, *, mesh=None):
         v_new = (h @ lp["wv"]).reshape(B, 1, cfg.n_kv_heads, cfg.d_head)
         q = apply_rope(q, positions, cfg.rope_theta)[:, 0]  # (B, Hq, dh)
         k_new = apply_rope(k_new, positions, cfg.rope_theta)
-        kc, vc = _append_kv(cache["k"][i], cache["v"][i], k_new, v_new, length)
-        o, m, l = decode_attention_local(q, kc, vc, length + 1, window=window)
-        out = lse_combine([(o, m, l)]).to(x.dtype).reshape(B, 1, -1)
-        x = x + out @ _wo_masked(lp["wo"], cfg)
+        if mesh is not None:
+            out = _sp_decode_attention(q, cache["k"][i], cache["v"][i], length, k_new, v_new,
+                                       window, mesh, seq_axes)
+        else:
+            kc, vc = _append_kv(cache["k"][i], cache["v"][i], k_new, v_new, length)
+            o, m, l = decode_attention_local(q, kc, vc, length + 1, window=window)
+            out = lse_combine([(o, m, l)])
+        x = x + out.to(x.dtype).reshape(B, 1, -1) @ _wo_masked(lp["wo"], cfg)
         x, _ = _ffn_block(x, lp, cfg)
     cache = {"k": cache["k"], "v": cache["v"], "length": length + 1}
     x = rms_norm(x, params.ln_f, cfg.norm_eps)
@@ -293,3 +343,28 @@ def _append_kv(k_cache, v_cache, k_new, v_new, length):
     k_cache[b_idx, pos] = k_new[:, 0].to(k_cache.dtype)
     v_cache[b_idx, pos] = v_new[:, 0].to(v_cache.dtype)
     return k_cache, v_cache
+
+
+def _sp_decode_attention(q, k_cache, v_cache, length, k_new, v_new, window: int, mesh,
+                         seq_axes=("model",)):
+    """Sequence-parallel flash-decoding in the local view: ``k_cache`` and
+    ``v_cache`` (B, S_local, Hkv, dh) are this rank's block over
+    ``seq_axes`` (the block index row-major over them).  The new token's k
+    and v are written in place only by the rank whose block holds position
+    ``length``; the window masks by ABSOLUTE position (the block's offset),
+    so a local layer stays exact across blocks; the combine is the exact
+    log-sum-exp: a ``pmax`` of m, then ``psum``s of the shifted numerator
+    and denominator.  -> (B, Hq, dh) float32, replicated over ``seq_axes``."""
+    S_local = k_cache.shape[1]
+    offset = mesh.index(seq_axes) * S_local
+    in_shard = ((length >= offset) & (length < offset + S_local))[:, None, None]
+    pos = (length - offset).clamp(0, S_local - 1).long()
+    b_idx = torch.arange(q.shape[0], device=q.device)
+    k_cache[b_idx, pos] = torch.where(in_shard, k_new[:, 0].to(k_cache.dtype), k_cache[b_idx, pos])
+    v_cache[b_idx, pos] = torch.where(in_shard, v_new[:, 0].to(v_cache.dtype), v_cache[b_idx, pos])
+    o, m, l = decode_attention_local(q, k_cache, v_cache, length + 1, window=window,
+                                     pos_offset=offset)
+    m_g = pmax(m, seq_axes, mesh)
+    num = psum(o * torch.exp(m - m_g)[..., None], seq_axes, mesh)
+    den = psum(l * torch.exp(m - m_g), seq_axes, mesh)
+    return num / torch.clamp(den[..., None], min=1e-30)

@@ -10,8 +10,9 @@ with the step counted from 1 and bc_i = 1 - b_i^step.  Parameters, gradients
 and moments are dicts of tensors keyed by parameter name; reductions over
 them run in sorted-key order (the JAX package's tree order for the two-tower
 params and the LM's).  Adafactor (Shazeer & Stern 2018) factors its second
-moment over the trailing two axes and keeps the leading (layer) axis.  The
-mesh's state specs wait for ROADMAP M17's sharding item.
+moment over the trailing two axes and keeps the leading (layer) axis.
+Optimizer states inherit the parameters' partition specs (``state_specs``;
+Adafactor's drop the factored axis: ``adafactor_state_specs``).
 """
 
 from __future__ import annotations
@@ -22,10 +23,13 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.sharding.api import P, flatten
+
 
 class Optimizer(NamedTuple):
     init: Callable  # params -> state
     update: Callable  # (grads, state, params) -> (updates, state)
+    state_specs: Callable  # param_specs -> state specs
 
 
 def warmup_cosine(peak_lr: float, warmup: int, total: int, floor: float = 0.1):
@@ -79,7 +83,10 @@ def adamw(lr: Callable, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             mu[k], nu[k] = m, v
         return updates, {"step": step, "mu": mu, "nu": nu}
 
-    return Optimizer(init, update)
+    def state_specs(param_specs):
+        return {"step": P(), "mu": param_specs, "nu": param_specs}
+
+    return Optimizer(init, update, state_specs)
 
 
 # a stacked tensor (ndim >= 3) of at least this many elements is updated per
@@ -148,4 +155,24 @@ def adafactor(lr: Callable, weight_decay: float = 0.0,
             updates[k], v[k] = one(g, state["v"][k], params[k])
         return updates, {"step": step, "v": v}
 
-    return Optimizer(init, update)
+    def state_specs(param_specs):
+        # the factored statistics drop an axis, which the specs alone cannot show
+        raise NotImplementedError("use adafactor_state_specs(params, param_specs) for adafactor")
+
+    return Optimizer(init, update, state_specs)
+
+
+def adafactor_state_specs(params: dict, param_specs, min_dim_factored: int = 128) -> dict:
+    """Adafactor's state specs: per parameter name of ``params``, the
+    factored ``vr`` (the last axis dropped) and ``vc`` (the second to last)
+    or the unfactored ``v``, from its spec in ``param_specs`` (a flat dict
+    or ``repro``'s nested tree, padded with None to the parameter's rank)."""
+    specs = flatten(param_specs)
+
+    def one(p, spec):
+        entries = list(spec) + [None] * (p.ndim - len(spec))
+        if p.ndim >= 2 and min(p.shape[-1], p.shape[-2]) >= min_dim_factored:
+            return {"vr": P(*entries[:-1]), "vc": P(*(entries[:-2] + entries[-1:]))}
+        return {"v": P(*entries)}
+
+    return {"step": P(), "v": {k: one(p, specs[k]) for k, p in params.items()}}

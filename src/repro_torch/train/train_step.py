@@ -4,10 +4,9 @@
 opt_state, metrics)``: the loss and its gradients (``torch.autograd``),
 accumulated over ``accum_steps`` microbatches when asked, a global-norm
 clip, the optimizer's update added to the parameters in place.  Losses: the
-LM's next-token cross-entropy with the MoE aux (off the mesh:
-``sharded_xent`` waits for ROADMAP M17's sharding item), the GCN's node
-cross-entropy, the two-tower in-batch softmax and the ranking models' binary
-cross-entropy.
+LM's next-token cross-entropy with the MoE aux (on a mesh with a "model" axis through
+``sharded_xent``), the GCN's node cross-entropy, the two-tower in-batch
+softmax and the ranking models' binary cross-entropy.
 """
 
 from __future__ import annotations
@@ -15,10 +14,13 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.gnn import loss_fn as gnn_loss_fn
 from repro_torch.models.recsys import bce_loss, inbatch_softmax_loss
-from repro_torch.models.transformer import forward
+from repro_torch.models.transformer import forward, forward_hidden, lm_head
+from repro_torch.sharding.api import (P, all_gather, batch_axes, current_mesh, pmean, psum,
+                                      pvary, shard)
 from repro_torch.train.optimizer import Optimizer, clip_by_global_norm
 
 GRAD_CLIP = 1.0  # repro's make_train_step default
@@ -26,14 +28,67 @@ ACCUM_DTYPE = torch.float32  # its microbatch gradient accumulator
 AUX_WEIGHT = 0.01  # its lm_loss weight of the MoE aux loss
 
 
+def sharded_xent(hidden, head, labels, mesh, *, tp_axis: str = "model", t_chunk: int = 512):
+    """Cross-entropy with the LM head fused inside ``repro``'s ``shard_map``
+    region, in the local view: ``hidden`` (B_local, T, d) and ``labels``
+    (B_local, T) are this rank's blocks over the data axes, ``head`` (d,
+    V_local) its vocab block over ``tp_axis``; returns the replicated mean
+    over the global B x T.
+
+    Logits exist only as (B_local, t_chunk, V_local) float32 chunks, each
+    recomputed in the backward (``torch.utils.checkpoint``, whose recompute
+    runs the chunk's collectives again, in the same order on every rank).
+    The max is an all-gather of the detached chunk maxima; the sums are
+    ``psum``s over ``tp_axis``, then over the data axes.
+    """
+    dp = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    Bl, T, d = hidden.shape
+    B = Bl * mesh.size_of(dp)
+    V_local = head.shape[1]
+    tc = min(t_chunk, T)
+    n_chunks = max(T // tc, 1)
+    v_lo = mesh.axis_index(tp_axis) * V_local
+    # hidden is replicated over tp_axis and head over the data axes, and each
+    # rank uses its copy with its own vocab block or tokens
+    x = pvary(hidden, tp_axis, mesh)
+    head_l = pvary(head, dp, mesh)
+    cols = torch.arange(V_local, device=hidden.device)
+
+    def chunk_nll(xc, lc):
+        logits = (xc @ head_l).float()  # (Bl, tc, V_local)
+        m = all_gather(logits.amax(dim=-1).detach(), tp_axis, mesh=mesh).amax(dim=0)
+        se = psum(torch.sum(torch.exp(logits - m[..., None]), dim=-1), tp_axis, mesh)
+        lse = torch.log(se) + m
+        pick = torch.where(cols == (lc - v_lo)[..., None], logits, 0.0)
+        ll = psum(torch.sum(pick, dim=-1), tp_axis, mesh)
+        return torch.sum(lse - ll)
+
+    xs = x.reshape(Bl, n_chunks, tc, d)
+    ls = labels.long().reshape(Bl, n_chunks, tc)
+    total = sum(checkpoint(chunk_nll, xs[:, i], ls[:, i], use_reentrant=False)
+                for i in range(n_chunks))
+    return psum(total, dp, mesh) / (B * T)
+
+
 def lm_loss(model, batch, cfg, **fwd_kw):
     """Next-token cross-entropy (+ MoE aux, 0 for a dense model) in float32;
-    batch: ``tokens`` and ``labels`` (B, T).  ``fwd_kw``: the attention blocks."""
-    logits, aux = forward(model, batch["tokens"], cfg, **fwd_kw)
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
-    nll = torch.mean(lse - ll)
+    batch: ``tokens`` and ``labels`` (B, T).  ``fwd_kw``: the attention blocks.
+
+    On a mesh (the local view: the batch is this rank's block over the data
+    axes, the weights replicated) the loss is the mean over the global batch:
+    with a "model" axis through ``sharded_xent`` on this rank's vocab block of
+    the head, else the ``pmean`` of the blocks' means over the data axes."""
+    mesh = current_mesh()
+    if mesh is not None and "model" in mesh.axis_names:
+        hidden, aux = forward_hidden(model, batch["tokens"], cfg, **fwd_kw)
+        head = shard(lm_head(model, cfg), P(None, "model"), mesh)
+        nll = sharded_xent(hidden, head, batch["labels"], mesh)
+    else:
+        logits, aux = forward(model, batch["tokens"], cfg, **fwd_kw)
+        logits = logits.float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
+        nll = pmean(torch.mean(lse - ll), batch_axes())
     return nll + AUX_WEIGHT * aux, {"nll": nll.detach(), "aux": aux.detach()}
 
 

@@ -274,8 +274,13 @@ def test_params_conversion_and_mesh_paths():
     bad["w"][0] = bad["w"][0][:, :3]
     with pytest.raises(ValueError, match="layer 0"):
         gnn_params_from_jax(bad, cfg, device="cpu")
+    # the mesh paths are ported (tests/test_torch_mesh.py holds them on 8 ranks):
+    # off a mesh the edge-sharded forward is the plain one, as repro's, and the
+    # specs are repro's (replicated)
     _, tg = _graph()
-    with pytest.raises(NotImplementedError, match="M17"):
-        tgnn.forward(model, tg, cfg, edge_sharded=True)
-    with pytest.raises(NotImplementedError, match="M17"):
-        tgnn.param_specs(cfg)
+    torch.testing.assert_close(tgnn.forward(model, tg, cfg, edge_sharded=True),
+                               tgnn.forward(model, tg, cfg), rtol=0, atol=0)
+    specs = tgnn.param_specs(cfg)
+    jspecs = jgnn.param_specs(jcfg)
+    assert [tuple(p) for p in specs["w"] + specs["b"]] == [
+        tuple(p) for p in jspecs["w"] + jspecs["b"]]

@@ -1191,3 +1191,43 @@ def test_gcn_sampler_and_train_steps_on_the_card_match_the_cpu(cuda):
             m, state, metrics = step(m, state, batch)
             losses[str(dev)].append((float(metrics["loss"]), float(metrics["grad_norm"])))
     np.testing.assert_allclose(losses[str(cuda)], losses["cpu"], rtol=1e-5)
+
+
+# the on-mesh paths (tests/test_torch_mesh.py's ranks) on 8 ranks that share the
+# card (gloo with CUDA tensors) against the same ranks on the CPU; card tolerances
+# as the CPU tests hold the paths to repro (index_add_'s atomics: the GCN 1e-4)
+# (ids that no other -k selection of this file matches)
+MESH_PATHS = {"embedding_lookup": ("emb_", 1e-6, 1e-6), "vocab_xent": ("xent", 1e-4, 1e-6),
+              "expert_parallel": ("moe_", 2e-4, 2e-5), "sp_decode": ("dec_", 2e-4, 2e-4),
+              "edge_sharded": ("gcn_", 1e-4, 1e-4), "loss_on_mesh": ("lm_", 1e-4, 1e-5)}
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the ranks share it")
+    from repro_torch.launch.serve import run_ranks
+    from test_torch_mesh import RANKS, _inputs, _rank
+
+    tmp = tmp_path_factory.mktemp("mesh_card")
+    np.savez(tmp / "inputs.npz", **_inputs())
+    out = {}
+    for device in ("cpu", "cuda"):
+        (tmp / device).mkdir()
+        run_ranks(_rank, RANKS, device, str(tmp / "inputs.npz"), str(tmp / device))
+        out[device] = [dict(np.load(tmp / device / f"rank{r}.npz")) for r in range(RANKS)]
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", sorted(MESH_PATHS))
+def test_mesh_path_on_the_card_matches_the_cpu_ranks(path, mesh_runs, cuda):
+    """Each on-mesh path at SMOKE, every rank's results on the card against
+    the same rank's on the CPU."""
+    prefix, rtol, atol = MESH_PATHS[path]
+    for r, (card, cpu) in enumerate(zip(mesh_runs["cuda"], mesh_runs["cpu"])):
+        keys = [k for k in cpu if k.startswith(prefix) and cpu[k].dtype.kind == "f"]
+        assert keys
+        for k in keys:
+            np.testing.assert_allclose(card[k], cpu[k], rtol=rtol, atol=atol,
+                                       err_msg=f"rank {r} {k}")

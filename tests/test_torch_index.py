@@ -226,7 +226,7 @@ def test_policy_round_trip_and_bind(text):
         assert t.bind(base).name == j.bind(jd.get_distance("kl")).name
 
 
-def test_unported_paths_raise_naming_their_roadmap_item(data):
+def test_unported_paths_raise_naming_their_roadmap_item(data, tmp_path):
     _, db = data
     X = _t(db)[:200]
     # online mutation (ROADMAP M11) is ported: a capacity spec builds a mutable index
@@ -305,23 +305,42 @@ def test_unported_paths_raise_naming_their_roadmap_item(data):
         assert configs.get_family(arch) == family
         assert configs.get_config(arch).name == arch
     assert tgnn.init_params(configs.get_smoke_config("gcn-cora"), device="cpu") is not None
-    # their mesh-only pieces wait for the sharding item
-    for fn in (tmoe.moe_layer_specs, tgnn.param_specs, trecsys.param_specs):
-        with pytest.raises(NotImplementedError, match="M17"):
-            fn(moe)
-    with pytest.raises(NotImplementedError, match="M17"):
-        tmoe.moe_ffn(torch.zeros((1, 2, moe.d_model)),
-                     {k: w[0] for k, w in moe_lm.layers.items()}, moe, mesh=object())
-    # the dense LM's mesh-only pieces wait for the sharding item
-    dense = configs.get_smoke_config("llama3.2-1b")
-    lm = ttransformer.init_params(dense, device="cpu")
-    cache = ttransformer.init_kv_cache(dense, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="M17"):
-        ttransformer.decode_step(lm, cache, torch.zeros(1, dtype=torch.long), dense,
-                                 mesh=object())
-    for fn in (ttransformer.param_specs, ttransformer.kv_cache_specs):
-        with pytest.raises(NotImplementedError, match="M17"):
-            fn(dense)
+    # the mesh is ported (M17's sharding item): the mesh-only pieces run on a
+    # world-1 gloo mesh, where each equals its off-mesh path
+    import torch.distributed as tdist
+
+    from repro_torch.sharding.api import P, Mesh, use_mesh
+
+    tdist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                             world_size=1)
+    try:
+        mesh = Mesh((1, 1), ("data", "model"))
+        expert = P(None, "model", "data", None)
+        assert tmoe.moe_layer_specs(moe)["e_gate"] == expert
+        assert ttransformer.param_specs(moe)["layers"]["e_gate"] == expert
+        assert tgnn.param_specs(configs.get_smoke_config("gcn-cora"))["w"][0] == P(None, None)
+        assert trecsys.param_specs(configs.get_smoke_config("din"))["table"] == P(
+            ("model", "data"), None)
+        lp = {k: w[0] for k, w in moe_lm.layers.items()}
+        h = torch.randn((2, 4, moe.d_model), generator=torch.Generator().manual_seed(0))
+        with use_mesh(mesh):
+            got = tmoe.moe_ffn(h, lp, moe)
+        for a, b in zip(got, tmoe.moe_ffn(h, lp, moe)):
+            torch.testing.assert_close(a, b)
+        # the dense LM's sequence-parallel decode over the mesh equals the local one
+        dense = configs.get_smoke_config("llama3.2-1b")
+        lm = ttransformer.init_params(dense, device="cpu")
+        caches = [ttransformer.init_kv_cache(dense, 1, 4, device="cpu") for _ in range(2)]
+        with use_mesh(mesh):
+            on_mesh, _ = ttransformer.decode_step(lm, caches[0], torch.zeros(1, dtype=torch.long),
+                                                  dense, mesh=mesh)
+        off_mesh, _ = ttransformer.decode_step(lm, caches[1], torch.zeros(1, dtype=torch.long),
+                                               dense)
+        torch.testing.assert_close(on_mesh, off_mesh)
+        torch.testing.assert_close(caches[0]["k"], caches[1]["k"])
+        assert ttransformer.kv_cache_specs()["k"] == P(None, ("data",), ("model",), None, None)
+    finally:
+        tdist.destroy_process_group()
 
 
 def test_m9_gate_kl_4096_equals_repro():

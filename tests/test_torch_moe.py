@@ -309,11 +309,16 @@ def test_the_forward_runs_the_two_functions():
 
 
 def test_mesh_paths_raise():
-    _, cfg, _, tlp, h = _layer("E4-K1")
-    with pytest.raises(NotImplementedError, match="M17"):
-        tmoe.moe_ffn(torch.from_numpy(h), tlp, cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="M17"):
-        tmoe.moe_layer_specs(cfg)
+    """The mesh paths are ported (tests/test_torch_mesh.py holds them on 8
+    ranks): off a mesh ``moe_ffn`` is the one-group gather path, and the
+    layer's specs are ``repro``'s."""
+    jcfg, cfg, _, tlp, h = _layer("E4-K1")
+    assert tmoe._group_count(h.shape[0]) == 1
+    for a, b in zip(tmoe.moe_ffn(torch.from_numpy(h), tlp, cfg),
+                    tmoe._moe_ffn_gather(torch.from_numpy(h), tlp, cfg)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    specs = {k: tuple(v) for k, v in tmoe.moe_layer_specs(cfg).items()}
+    assert specs == {k: tuple(v) for k, v in jmoe.moe_layer_specs(jcfg).items()}
 
 
 # ---------------------------------------------------------------------------

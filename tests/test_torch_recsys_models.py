@@ -29,11 +29,12 @@ from repro.train import optimizer as jopt
 from repro.train.train_step import make_train_step as jax_make_train_step
 from repro.train.train_step import recsys_loss as jax_recsys_loss
 from repro_torch import configs
-from repro_torch.convert import _flatten, recsys_params_from_jax
+from repro_torch.convert import recsys_params_from_jax
 from repro_torch.data.synthetic import recsys_batch
 from repro_torch.launch import train as ttrain
 from repro_torch.models import recsys as trecsys
 from repro_torch.models.embedding import embedding_bag
+from repro_torch.sharding.api import flatten as _flatten
 from repro_torch.train import optimizer as topt
 from repro_torch.train.train_step import make_train_step, recsys_loss
 
@@ -274,8 +275,16 @@ def test_train_main_exits_for_the_retrieval_family_as_repro(monkeypatch):
 
 
 def test_param_specs_waits_for_the_mesh():
-    with pytest.raises(NotImplementedError, match="M17"):
-        trecsys.param_specs(configs.get_smoke_config("dcn-v2"))
+    """The mesh is ported: the specs are ``repro``'s, the table row-sharded
+    (every arch and config: tests/test_torch_specs.py)."""
+    specs = _flatten(trecsys.param_specs(configs.get_smoke_config("dcn-v2")))
+    jspecs = jax.tree_util.tree_flatten_with_path(
+        jrecsys.param_specs(jax_smoke_config("dcn-v2")),
+        is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0]
+    want = {".".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path): tuple(p)
+            for path, p in jspecs}
+    assert {k: tuple(v) for k, v in specs.items()} == want
+    assert want["table"] == (("model", "data"), None)
 
 
 def test_convert_rejects_a_wrong_shape_or_name():
