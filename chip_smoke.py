@@ -44,15 +44,15 @@ Every phase is fatal on failure; nothing is caught and passed over.
    and reverse edges) and the search must launch gather_scores.
 6. SW-graph at d=128 (the paper's Wiki-d width): first n=20,000, recall@10
    >= 0.70 (the JAX driver reaches 0.7156); the per-wave time of that build
-   picks the largest n of 10^6, 200,000, 100,000, 50,000, 30,000 and 20,000 whose build fits
-   SWGRAPH_BUILD_BUDGET_S; at that n, recall@10 at ef 96 and 512 beside an
+   picks the largest n of 10^6, 200,000, 100,000, 50,000, 30,000, 20,000 and 10,000 whose
+   build fits SWGRAPH_BUILD_BUDGET_S; at that n, recall@10 at ef 96 and 512 beside an
    NN-descent build (the full cell's NN 30) on the same data.  No floor.
 7. sequential and reference paths: ``build_swgraph`` at n=250, d=16,
    NN 8, ef_construction 40 against ``build_swgraph_wave`` at W=1 (equal
    adjacency); a batch of 64 through the reference engine against the
    batched engine at frontier 1 from entry 0 under kl (equal ids, n_evals
    and hops).
-8. build_sharded at world size 1 in a one-rank NCCL group, n=20,000, d=32:
+8. build_sharded at world size 1 in a one-rank NCCL group, n=10,000, d=32:
    distance_matrix must launch (counts set to 0 just before), every cross
    link is -1, and the local part equals ``build_swgraph_wave`` on the same
    rows.
@@ -90,7 +90,7 @@ Every phase is fatal on failure; nothing is caught and passed over.
     to the plain version on 2,048 rows and on every edge of the largest hub.
 11. profile: device time by kernel and the device's idle share for one
     full-size NN-descent build, one search batch and one SW-graph wave
-    build (``torch.profiler``).
+    build of PROFILED_WAVES waves (``torch.profiler``).
 12. graph quality of the NN-descent cell, NN 15 against NN 30, at
     n = GRAPH_QUALITY_N: the share of each node's true NN nearest neighbours
     that the graph holds, and search recall@10 at ef 96 and 512.
@@ -128,8 +128,8 @@ Every phase is fatal on failure; nothing is caught and passed over.
     with 2 rounds of 256 inserts; the deletes per round are sized so that
     ``compact()`` is predicted to fit COMPACT_BUDGET_S from phase 15's time
     per repaired node.  The same launch checks; recall@k_after_churn must
-    exceed 0.5.  One more insert round and a compact after 4 deletes are
-    profiled.
+    exceed 0.5.  One more insert round (PROFILED_INSERTS points) and a
+    compact after 4 deletes are profiled.
 17. continuous at the serve defaults through ``build_and_serve`` with
     ``continuous=True`` (48 slots, frontier 12, utilization 0.4: static,
     dynamic and slot-scheduler latency over one Poisson trace), then again
@@ -314,6 +314,33 @@ Every phase is fatal on failure; nothing is caught and passed over.
     through ``sharded_xent``, dense and MoE, and the MoE's on a ("data",) mesh
     through the gather path) on a (1, 1) mesh of a world-1 NCCL group in this
     process, against the off-mesh path.
+30. FSDP x TP and the dry run (``models/transformer.py`` on parameters laid
+    out by ``param_specs``, ``launch/{cells,dryrun,roofline}.py``).  (a) On
+    phase 29's 4 ranks and (2, 2) ("data", "model") mesh (the same spawn):
+    llama3.2-1b at full width in f32, cut to FSDP_LAYERS layers, its
+    parameters as FSDP x TP blocks: ``prefill`` of FSDP_B x FSDP_PROMPT
+    tokens into a FSDP_CACHE-position cache (sequence over "model") and
+    FSDP_DECODE_STEPS ``decode_step(mesh=)`` steps, then one AdamW train step
+    of FSDP_B x FSDP_T tokens with ``accum_steps=2``, each against rank 0's
+    off-mesh path: the prefill logits and each decode step's within
+    DECODE_TOL of the largest |logit| (logits reach ~1,600 at full width,
+    and a TP sum's rounding scales with them, not with each entry) with
+    equal argmax, the cache within rtol = atol = 1e-5, the loss and gradient norm within 1e-5 relative, the clipped
+    gradients within 1e-5 and the parameters after the step within 2e-6
+    (within the lr where the gradient is below 1e-6: AdamW's first update
+    g / (|g| + 1e-8) amplifies its rounding there).  Per rank: the
+    collectives by kind, the FSDP gathers' seconds, the peak.  Then the same
+    at SMOKE on phase 29's (1, 1) mesh of a world-1 NCCL group.  (b) In
+    subprocesses,
+    rank 0 of the (16, 16) production mesh under a ``fake`` group of 256:
+    ``dryrun.run_cell`` for PRODUCTION_CELLS, its meta pass in one process
+    beside (a), its card pass (``count=False``) in another after it; each
+    cell's measured peak beside its meta-reckoned peak and its step's ms;
+    fails if
+    a cell errs, if a cell the meta record says fits passes 80 GB, or if the
+    two-tower retrieval cell launches no ``distance_matrix`` (the counts set
+    to 0 just before its step and read just after).  ``distance_matrix`` is
+    timed at that cell's per-rank shape (1 x 3,908 x 256, negdot).
 
 Phase 10 also times each kernel at the sharded paths' shapes and, each held
 to the plain version, at the shapes phases 21-23 give it: gather_scores at
@@ -367,15 +394,23 @@ DM_CHECK_SHAPES = [(128, 4096, 8), (128, 4096, 32), (128, 4096, 128), (512, 8192
 # (reverse edges at d = 512; M = 3)
 GS_CHECK_SHAPES = [(64, 30, 128), (64, 240, 128), (960, 1, 32), (960, 1, 128), (64, 30, 2100),
                    (5, 3, 16), (1, 1, 4), (960, 1, 512), (4, 3, 2100)]
-SWGRAPH_NS = (1_000_000, 200_000, 100_000, 50_000, 30_000, 20_000)
+SWGRAPH_NS = (1_000_000, 200_000, 100_000, 50_000, 30_000, 20_000, 10_000)
 # phase 7's n: 250 (500 before the mesh phase joined the script, 2,000 before the
 # churn phases, 1,000 before the tuning and learning phases; the sequential paths
 # are host-bound, one lock-step per kernel launch)
 SEQ_N = 250
-# 45 s (75 s, which chose n = 50,000, before the LM phases joined the script; 150 s,
-# which chose n = 100,000, before the churn phases); 30,000 and 20,000 joined the
-# sizes when a host at 82.5 ms per wave fit none of the others in 75 s
-SWGRAPH_BUILD_BUDGET_S = 45.0
+# 15 s (45 s, which chose n = 20,000 at 85 ms per wave, before the FSDP x TP phase
+# joined the script; 75 s, which chose n = 50,000, before the LM phases; 150 s, which
+# chose n = 100,000, before the churn phases); 30,000 and 20,000 joined the sizes when
+# a host at 82.5 ms per wave fit none of the others in 75 s, 10,000 with the 15 s
+SWGRAPH_BUILD_BUDGET_S = 15.0
+# phase 8's rows (20,000, the serve defaults', before the FSDP x TP phase joined the
+# script; a one-shard build is two wave builds of them)
+SHARDED_BUILD_N = 10_000
+# phase 11's profiled SW-graph wave build: 8 waves of 64 (32 before the FSDP x TP
+# phase: the profiler's host work per recorded kernel, ~0.7 ms, made its 108,549
+# kernels the phase's 76 s); phase 16's profiled insert round: 64 points (192)
+PROFILED_WAVES, PROFILED_INSERTS = 8, 64
 GRAPH_QUALITY_N = 1_000_000
 WRAPPER_KINDS = ("avg", "min", "reverse", "max", "blend(0.25)", "rankblend(0.5)", "learned",
                  "bm25")
@@ -528,6 +563,16 @@ MOE_MESH_TOKENS, MOE_MESH_TOL = (8, 512), dict(rtol=2e-4, atol=2e-5)
 EMB_MESH_BATCHES = (65_536, 5)
 # the GCN at ogb_products' shape: phase 27's tolerance (index_add_'s atomics)
 GCN_MESH_TOL = dict(rtol=1e-4, atol=1e-4)
+# phase 30: FSDP x TP on the (2, 2) mesh of phase 29, llama3.2-1b at full width in f32
+# cut to FSDP_LAYERS layers; prefill of FSDP_PROMPT tokens into a FSDP_CACHE-position
+# cache and FSDP_DECODE_STEPS decode steps, one AdamW step at FSDP_LR of FSDP_B x FSDP_T
+# tokens in 2 microbatches
+FSDP_LAYERS, FSDP_B, FSDP_T, FSDP_LR = 2, 4, 1024, 1e-3
+FSDP_PROMPT, FSDP_CACHE, FSDP_DECODE_STEPS = 512, 1024, 4
+STEP_TOL = dict(rtol=2e-6, atol=2e-6)
+# one rank of the (16, 16) production mesh, executed (launch/dryrun.py)
+PRODUCTION_CELLS = ("llama3.2-1b::train_4k", "llama3.2-1b::decode_32k", "gemma3-12b::decode_32k",
+                    "two-tower-retrieval::retrieval_cand", "autoint::serve_p99")
 PROFILER_FALLBACKS = []  # timings read from CUDA events where the profiler fell short
 
 
@@ -3230,6 +3275,7 @@ def mesh_rank(dev) -> dict:
         res["seconds"] = time.perf_counter() - t0
         res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         out["checks"][name] = res
+    out["fsdp"] = fsdp_rank(dev, mesh22)  # phase 30 (a) on the same ranks and mesh
     return out
 
 
@@ -3269,10 +3315,11 @@ def mesh_world1() -> dict:
             "gcn": mesh_gcn_check(mesh, dev, get_smoke_config("gcn-cora"), 500, 2000, 29),
         }
         totals = cd.collective_stats()["kinds"]
+        fsdp = fsdp_world1(mesh, dev)  # phase 30 (a) at SMOKE on the same NCCL rank
     finally:
         tdist.destroy_process_group()
     return {"backend": mesh.backend, "composed": mesh.composed, "checks": checks,
-            "collectives": totals}
+            "collectives": totals, "fsdp": fsdp}
 
 
 def mesh_line(ranks: list, backend: str, per_card) -> dict:
@@ -3300,8 +3347,9 @@ def mesh_line(ranks: list, backend: str, per_card) -> dict:
     return line
 
 
-def phase29() -> dict:
-    """The device mesh (module docstring)."""
+def phase29() -> tuple:
+    """The device mesh (module docstring); also returns the ranks' and the
+    world-1 group's phase 30 (a) results, run on the same spawn and group."""
     from repro_torch.core.distributed import pick_backend
 
     from repro_torch.launch import mesh as launch_mesh
@@ -3313,9 +3361,12 @@ def phase29() -> dict:
     constants["card_total_memory"] = torch.cuda.get_device_properties(0).total_memory
     log(f"phase 29: launch/mesh.py's constants beside the card ({card_line()}): "
         + json.dumps(constants))
-    line = mesh_line(spawn_ranks(mesh_rank), backend, per_card)
+    ranks = spawn_ranks(mesh_rank)
+    fsdp_ranks = [rk.pop("fsdp") for rk in ranks]
+    line = mesh_line(ranks, backend, per_card)
     line["constants"] = constants
     world1 = mesh_world1()
+    fsdp_world = world1.pop("fsdp")
     for name, res in world1["checks"].items():
         log(f"phase 29 world 1 (nccl) {name}: " + json.dumps(res))
         if not res["ok"]:
@@ -3325,6 +3376,289 @@ def phase29() -> dict:
         raise AssertionError(f"phase 29: world size 1 ran on {world1['backend']}, composed "
                              f"{world1['composed']}")
     line["world1"] = world1
+    return line, fsdp_ranks, fsdp_world
+
+
+def fsdp_check(mesh, dev, cfg, B: int, T: int, prompt: int, cache_len: int,
+               steps: int) -> dict:
+    """FSDP x TP blocks of ``cfg`` against rank 0's off-mesh path: prefill,
+    ``steps`` decode steps, one AdamW step with ``accum_steps=2`` (phase 30)."""
+    from repro_torch.core import distributed as cd
+    from repro_torch.models import transformer as tt
+    from repro_torch.sharding.api import P, flatten, shard, unshard, use_mesh
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train.train_step import lm_loss, make_train_step
+
+    rank0 = mesh.rank == 0
+    full = tt.init_params(cfg, device=dev)  # one seed on one card: alike on every rank
+    specs = tt.param_specs(cfg, fsdp_axis=("data",))
+    flat = flatten(specs)
+    toks = torch.randint(0, cfg.vocab_size, (B, T + 1), generator=_seeded(dev, 301), device=dev)
+    ptoks = torch.randint(0, cfg.vocab_size, (B, prompt), generator=_seeded(dev, 302),
+                          device=dev)
+    dtoks = torch.randint(0, cfg.vocab_size, (steps, B), generator=_seeded(dev, 303), device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    rows = P(("data",), None)
+    kv = tt.kv_cache_specs(("model",), ("data",))
+    res = {"layers": cfg.n_layers, "batch": B, "seq": T, "prompt": prompt,
+           "cache_len": cache_len, "decode_steps": steps}
+    with use_mesh(mesh):
+        model = tt.shard_params(full, specs, mesh)
+    res["block_share"] = (sum(p.numel() for p in model.parameters())
+                          / sum(p.numel() for p in full.parameters()))
+
+    def stats(label, t0):
+        st = cd.collective_stats()["kinds"]
+        res[f"{label}_collectives"] = {k: {"calls": v["calls"], "bytes": v["bytes"],
+                                           "seconds": v["seconds"]} for k, v in st.items()}
+        res[f"{label}_fsdp_gather_s"] = st.get("fsdp_gather", {}).get("seconds", 0.0)
+        res[f"{label}_s"] = time.perf_counter() - t0
+
+    # serving: prefill, then decode on its cache
+    if rank0:
+        (ref_pl, ref_cache), res["off_mesh_prefill_ms"] = _timed_call(dev, lambda: tt.prefill(
+            full, ptoks, cfg, max_len=cache_len))
+        ref_dec = []
+        for i in range(steps):
+            lg, ref_cache = tt.decode_step(full, ref_cache, dtoks[i], cfg)
+            ref_dec.append(lg)
+    cd.reset_collective_stats()
+    t0 = time.perf_counter()
+    with use_mesh(mesh):
+        (pl, cache), res["mesh_prefill_ms"] = _timed_call(dev, lambda: tt.prefill(
+            model, shard(ptoks, rows, mesh), cfg, max_len=cache_len))
+        dec = []
+        for i in range(steps):
+            lg, cache = tt.decode_step(model, cache, shard(dtoks[i], P(("data",)), mesh), cfg,
+                                       mesh=mesh, seq_axes=("model",), dp=("data",))
+            dec.append(unshard(lg, rows, mesh))
+        pl = unshard(pl, rows, mesh)
+        cache = {k: unshard(cache[k], kv[k], mesh) for k in ("k", "v")}
+    _sync(dev)
+    stats("serve", t0)
+    if rank0:
+        errs = [_rel_to_max(g, w) for g, w in zip(dec, ref_dec)]
+        res.update(prefill_rel_err=_rel_to_max(pl, ref_pl),
+                   prefill_argmax_equal=bool(torch.equal(pl.argmax(-1), ref_pl.argmax(-1))),
+                   cache={k: _close(cache[k], ref_cache[k], CACHE_TOL) for k in ("k", "v")},
+                   decode_rel_err=errs,
+                   decode_argmax_equal=all(bool(torch.equal(g.argmax(-1), w.argmax(-1)))
+                                           for g, w in zip(dec, ref_dec)))
+        del ref_cache
+    del cache, pl, dec
+    _free()
+
+    # one AdamW step, accum_steps=2, against the off-mesh step on rank 0
+    lr = topt.warmup_cosine(FSDP_LR, 1, 100)
+
+    def step_of(seen):
+        inner = topt.adamw(lr)
+
+        def update(grads, state, params):
+            seen.update({k: g.detach() for k, g in grads.items()})
+            return inner.update(grads, state, params)
+
+        opt = topt.Optimizer(inner.init, update, inner.state_specs)
+        return opt, make_train_step(lambda m, b: lm_loss(m, b, cfg), opt, accum_steps=2)
+
+    if rank0:
+        ref_seen = {}
+        opt, step = step_of(ref_seen)
+        (_, _, ref_m), res["off_mesh_step_ms"] = _timed_call(dev, lambda: step(
+            full, opt.init(dict(full.named_parameters())), batch))
+        ref_params = {k: p.detach() for k, p in full.named_parameters()}
+    del full
+    _free()
+    seen = {}
+    opt, step = step_of(seen)
+    cd.reset_collective_stats()
+    t0 = time.perf_counter()
+    with use_mesh(mesh):
+        state = opt.init(dict(model.named_parameters()))
+        block = {k: shard(v, rows, mesh) for k, v in batch.items()}
+        (_, _, m), res["mesh_step_ms"] = _timed_call(dev, lambda: step(model, state, block))
+    stats("train", t0)
+    del state
+    grads, params = {}, {}
+    for k, p in model.named_parameters():
+        g = unshard(seen[k].float(), flat[k], mesh)
+        w = unshard(p.detach(), flat[k], mesh)
+        if rank0:
+            amp = ref_seen[k].abs() < 1e-6
+            grads[k] = _close(g, ref_seen[k], TOL)
+            params[k] = {"held": _close(w[~amp], ref_params[k][~amp], STEP_TOL),
+                         "amplified": int(amp.sum()),
+                         "amplified_within_lr": bool(((w - ref_params[k]).abs()[amp]
+                                                      <= FSDP_LR).all())}
+        del g, w
+    if rank0:
+        res.update(loss=float(m["loss"]), loss_off_mesh=float(ref_m["loss"]),
+                   grad_norm=float(m["grad_norm"]), grad_norm_off_mesh=float(ref_m["grad_norm"]),
+                   grads=grads, params=params)
+        res["ok"] = (res["prefill_rel_err"] <= DECODE_TOL and res["prefill_argmax_equal"]
+                     and all(c["ok"] for c in res["cache"].values())
+                     and max(errs) <= DECODE_TOL and res["decode_argmax_equal"]
+                     and abs(res["loss"] - res["loss_off_mesh"]) <= 1e-5 * abs(
+                         res["loss_off_mesh"])
+                     and abs(res["grad_norm"] - res["grad_norm_off_mesh"]) <= 1e-5 * abs(
+                         res["grad_norm_off_mesh"])
+                     and all(g["ok"] for g in grads.values())
+                     and all(p["held"]["ok"] and p["amplified_within_lr"]
+                             for p in params.values()))
+    return res
+
+
+def fsdp_rank(dev, mesh) -> dict:
+    """Phase 30 (a) on one of the 4 ranks of phase 29's (2, 2) mesh."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), dtype="float32", n_layers=FSDP_LAYERS)
+    _free()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = fsdp_check(mesh, dev, cfg, FSDP_B, FSDP_T, FSDP_PROMPT, FSDP_CACHE, FSDP_DECODE_STEPS)
+    res["seconds"] = time.perf_counter() - t0
+    res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return {"rank": mesh.rank, "backend": mesh.backend, "check": res}
+
+
+def fsdp_world1(mesh, dev) -> dict:
+    """Phase 30 (a) at SMOKE on phase 29's (1, 1) mesh of a world-1 NCCL group."""
+    from repro_torch.configs import get_smoke_config
+
+    res = fsdp_check(mesh, dev, get_smoke_config("llama3.2-1b"), 4, 32, 16, 32, 4)
+    return {"backend": mesh.backend, "check": res}
+
+
+def production_rank(out_path: str, device: str) -> None:
+    """Phase 30 (b), run in its own process: rank 0 of the (16, 16) mesh
+    under a fake group of 256 ranks, each cell's record to ``out_path``:
+    the meta pass (``device="meta"``, on the CPU beside phase 29), or the
+    card pass alone (``"cuda"``, ``count=False``, after it)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.cells import list_cells
+
+    by_id = {c.cell_id: c for c in list_cells()}
+    mesh = dryrun.make_mesh("single_pod_16x16")
+    recs = {}
+    with tempfile.TemporaryDirectory() as art:
+        for cid in PRODUCTION_CELLS:
+            t0 = time.perf_counter()
+            recs[cid] = dryrun.run_cell(by_id[cid], mesh, "single_pod_16x16", art, device,
+                                        count=device == "meta")
+            recs[cid]["wall_s"] = time.perf_counter() - t0
+            _free()
+    pathlib.Path(out_path).write_text(json.dumps(recs, default=str))
+
+
+def retrieval_dm_row(rows: int, d: int) -> dict:
+    """distance_matrix at the retrieval cell's per-rank shape: one negdot
+    query against ``rows`` candidate rows of width ``d``, held to the plain
+    version and timed beside it and ``torch.matmul``."""
+    from repro_torch.core.distances import get_distance
+    from repro_torch.kernels.distance_matrix import distance_matrix
+    from repro_torch.kernels.ref import distance_matrix_ref, exact_float32_matmul
+
+    dist = get_distance("negdot")
+    g = _seeded(torch.device("cuda"), 304)
+    # the cell's query and candidates are the towers' L2-normalised embeddings
+    Q = torch.nn.functional.normalize(torch.randn(1, d, generator=g, device="cuda"), dim=1)
+    X = torch.nn.functional.normalize(torch.randn(rows, d, generator=g, device="cuda"), dim=1)
+    args = [(dist.prep_right(Q).contiguous(), dist.prep_left(X).contiguous(),
+             dist.bias_right(Q).contiguous(), dist.bias_left(X).contiguous())]
+    dm = lambda a, b, c, e: distance_matrix(a, b, c, e, dist.post_id, dist.c0)  # noqa: E731
+    plain = lambda a, b, c, e: distance_matrix_ref(a, b, c, e, dist.post_id, dist.c0)  # noqa: E731
+
+    def library(a, b, c, e):
+        with exact_float32_matmul():
+            return torch.matmul(a, b.T)
+
+    err = check_close(f"distance_matrix retrieval cell 1x{rows}x{d}", dm(*args[0]),
+                      plain(*args[0]), TOL)
+    (b_ms, b_by) = dm_bound(1, rows, d)["tensor_core"]
+    return {"shape": f"two-tower retrieval_cand, one rank of 256: 1x{rows}x{d} negdot",
+            "B": 1, "N": rows, "m": d, "max_abs_err": err,
+            "ms": device_ms(dm, args, 50, "distance_matrix_kernel"),
+            "event_ms": time_ms(dm, args, 50), "bound_ms": b_ms, "bound_by": b_by,
+            "plain_ms": device_ms(plain, args, 50), "library_ms": device_ms(library, args, 50)}
+
+
+def production_pass(dev: str, tmp: str):
+    """Phase 30 (b)'s ``dev`` pass (``production_rank``) in a new process."""
+    code = ("import sys; sys.path[:0] = [sys.argv[3], sys.argv[4]]; import chip_smoke; "
+            "chip_smoke.production_rank(sys.argv[1], sys.argv[2])")
+    return subprocess.Popen(
+        [sys.executable, "-c", code, str(pathlib.Path(tmp) / f"{dev}.json"), dev, str(SRC),
+         str(ROOT)], cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+
+def phase30(ranks: list, world1: dict, procs: dict, tmp) -> dict:
+    """FSDP x TP and the dry run (module docstring): (a)'s results from phase
+    29's ranks and world-1 group, (b)'s meta pass already running in
+    ``procs`` (started before phase 29, on the CPU beside it)."""
+    from repro_torch.core.distributed import pick_backend
+
+    backend, per_card = pick_backend(MESH_RANKS, "cuda")
+    t0 = time.perf_counter()
+    line = {"backend": backend, "ranks_per_card": per_card, "check": ranks[0]["check"],
+            "peak_gb_by_rank": [rk["check"]["peak_gb"] for rk in ranks],
+            "fsdp_gather_s_by_rank": [{k: rk["check"][f"{k}_fsdp_gather_s"]
+                                       for k in ("serve", "train")} for rk in ranks],
+            "collectives_by_rank": [{k: rk["check"][f"{k}_collectives"]
+                                     for k in ("serve", "train")} for rk in ranks]}
+    log("phase 30 fsdp x tp llama3.2-1b: " + json.dumps(line))
+    if not line["check"]["ok"]:
+        raise AssertionError(f"phase 30: FSDP x TP differs from the off-mesh path: "
+                             f"{line['check']}")
+    log("phase 30 world 1 (nccl) fsdp x tp: " + json.dumps(world1))
+    if world1["backend"] != "nccl" or not world1["check"]["ok"]:
+        raise AssertionError(f"phase 30: world size 1 FSDP x TP differs: {world1}")
+    line["world1"] = world1
+
+    _free()
+    with tmp:  # the card's pass alone on the card, once (a) has ended
+        procs["cuda"] = production_pass("cuda", tmp.name)
+        outs = {dev: p.communicate(timeout=600)[0] for dev, p in procs.items()}
+        for dev, p in procs.items():
+            log(f"phase 30 production cells, {dev} pass: rc {p.returncode}, "
+                f"{time.perf_counter() - t0:.1f} s into phase 30\n" + outs[dev][-4000:])
+            if p.returncode:
+                raise AssertionError(f"phase 30: the production-mesh {dev} pass failed")
+        recs = {dev: json.loads((pathlib.Path(tmp.name) / f"{dev}.json").read_text())
+                for dev in procs}
+    cells = {}
+    for cid in PRODUCTION_CELLS:
+        meta, card = recs["meta"][cid], recs["cuda"][cid]
+        for rec in (meta, card):
+            if rec["status"] != "ok":
+                raise AssertionError(f"phase 30: {cid} on one rank of the (16, 16) mesh "
+                                     f"({rec['device']}): {rec.get('error')}\n"
+                                     f"{rec.get('traceback')}")
+        mem, reck = card["memory"], meta["memory"]
+        cells[cid] = {"measured_peak_gb": mem["measured_peak_bytes"] / 1e9,
+                      "reckoned_peak_gb": reck["reckoned_peak_bytes"] / 1e9,
+                      "argument_gb": reck["argument_bytes"] / 1e9, "step_ms": mem["step_ms"],
+                      "launches": mem["launches"],
+                      "useful_flops_ratio": meta["useful_flops_ratio"],
+                      "roofline": meta["roofline"], "collectives": meta["collectives"],
+                      "card_collectives": card["collectives"],
+                      "meta_s": meta["wall_s"], "card_s": card["wall_s"]}
+        log(f"phase 30 {cid}: measured peak {cells[cid]['measured_peak_gb']:.3f} GB beside "
+            f"the reckoned {cells[cid]['reckoned_peak_gb']:.3f} GB, step "
+            f"{mem['step_ms']:.2f} ms ({card_line()})")
+        if meta["memory"]["fits"] and mem["measured_peak_bytes"] > 80e9:
+            raise AssertionError(f"phase 30: {cid} fits by its meta record but peaked at "
+                                 f"{mem['measured_peak_bytes']} bytes on the card")
+    launches = cells["two-tower-retrieval::retrieval_cand"]["launches"].get("distance_matrix", 0)
+    if launches < 1:
+        raise AssertionError("phase 30: the retrieval cell launched no distance_matrix")
+    line["production_cells"] = cells
+    line["retrieval_distance_matrix_launches"] = launches
+    line["retrieval_dm"] = retrieval_dm_row(-(-1_000_000 // 512) * 512 // 256, 256)
+    log("time distance_matrix " + json.dumps(line["retrieval_dm"]))
     return line
 
 
@@ -3623,7 +3957,7 @@ def main() -> int:
     rng = np.random.default_rng(0)  # the serve-default data
     data = lda_like_histograms(rng, 20_000 + 256, 32, device="cuda")
     _, rest = split_queries(data, 256, rng)
-    X_sh = rest[:20_000]
+    X_sh = rest[:SHARDED_BUILD_N]
     torch.cuda.set_device(0)
     tdist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
                              world_size=1)
@@ -3636,7 +3970,7 @@ def main() -> int:
         sharded_launches = ops.launch_counts()
     finally:
         tdist.destroy_process_group()
-    log(f"build_sharded world 1 n=20000 d=32: shape {tuple(stitched.shape)}, "
+    log(f"build_sharded world 1 n={SHARDED_BUILD_N} d=32: shape {tuple(stitched.shape)}, "
         f"launches {sharded_launches}")
     if sharded_launches["distance_matrix"] < 1:
         raise AssertionError("build_sharded did not launch distance_matrix")
@@ -4044,9 +4378,10 @@ def main() -> int:
         raise AssertionError("search results are not finite (64, k) beams")
     log(f"profiled batch: {int(hops.max())} lock-steps, {float(n_evals.float().mean()):.1f} "
         f"evals per query")
-    # one SW-graph wave build: 32 waves of 64 at d = 128
-    profile_device(lambda: build_swgraph_wave(kl, X[:1 + 32 * 64], NN=15, wave=64),
-                   "SW-graph wave build n=2049 d=128 (32 waves of 64)")
+    # one SW-graph wave build: PROFILED_WAVES waves of 64 at d = 128
+    profile_device(lambda: build_swgraph_wave(kl, X[:1 + PROFILED_WAVES * 64], NN=15, wave=64),
+                   f"SW-graph wave build n={1 + PROFILED_WAVES * 64} d=128 ({PROFILED_WAVES} "
+                   f"waves of 64)")
 
     lap("11 profiles")
 
@@ -4292,7 +4627,7 @@ def main() -> int:
         raise AssertionError(f"recall@10 after churn {churn16['recall@k_after_churn']} <= 0.5")
     if not churn16["capacity_used"] < N_FULL + churn16["inserted"]:
         raise AssertionError(f"no slot recycled: capacity_used {churn16['capacity_used']}")
-    n_extra = min(CHURN_INSERT_FULL, idx16.online.free_slots)
+    n_extra = min(PROFILED_INSERTS, idx16.online.free_slots)
     profile_device(lambda: idx16.insert(extra[:n_extra]),
                    f"insert round of {n_extra} (waves of 32), n=1e6 d=128 (phase 16)")
     idx16.delete(np.random.default_rng(2).choice(N_FULL, size=4, replace=False))
@@ -4472,9 +4807,20 @@ def main() -> int:
     lap("28 recsys")
 
     # -- 29. the device mesh: every on-mesh path on 4 ranks, then world 1 under NCCL -----
-    mesh29 = phase29()
+    # (the same spawn and NCCL group run phase 30 (a); phase 30 (b)'s meta pass counts
+    # on the CPU meanwhile)
+    prod_tmp = tempfile.TemporaryDirectory()
+    prod_procs = {"meta": production_pass("meta", prod_tmp.name)}
+    mesh29, fsdp_ranks, fsdp_world = phase29()
 
-    lap("29 mesh")
+    lap("29 mesh (and 30 (a))")
+
+    # -- 30. FSDP x TP on 4 ranks, then one rank of the production mesh executed -----
+    fsdp30 = phase30(fsdp_ranks, fsdp_world, prod_procs, prod_tmp)
+    max_err[("distance_matrix", "negdot", "retrieval cell")] = \
+        fsdp30["retrieval_dm"]["max_abs_err"]
+
+    lap("30 fsdp x tp and the dry run")
 
     def err_of(kernel_name):
         return max(v for k, v in max_err.items() if k[0] == kernel_name and k[1] == "kl")
@@ -4570,7 +4916,8 @@ def main() -> int:
                 "at full width)" + sharded_path("distance_matrix") + m15_path("distance_matrix"),
         "max_abs_err_all_distances": all_err("distance_matrix"),
         "max_abs_err_wrappers": wrapper_errs("distance_matrix"),
-        "other_shapes": dm_rows[1:] + [dm_shard],
+        "other_shapes": dm_rows[1:] + [dm_shard, fsdp30["retrieval_dm"]],
+        "launches_phase30": fsdp30["retrieval_distance_matrix_launches"],
     }, {
         "name": "gather_scores",
         "route": "cuda",
@@ -4622,6 +4969,7 @@ def main() -> int:
     log("GCN: " + json.dumps(gnn27))
     log("recsys: " + json.dumps(recsys28))
     log("mesh: " + json.dumps(mesh29))
+    log("fsdp x tp and the dry run: " + json.dumps(fsdp30))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"timings read from CUDA events, the profiler having fallen short: "
         f"{len(PROFILER_FALLBACKS)} {PROFILER_FALLBACKS}")

@@ -48,7 +48,16 @@ and timed: on the card between two CUDA events on the current stream, read
 once they have passed (each new collective drains the finished ones, so
 only those in flight are held) and so adding no sync; on the CPU on the
 host clock.  So ``collective_stats()["seconds"]`` is the collectives
-alone, the wait for the slowest rank included.
+alone, the wait for the slowest rank included.  Each call also records its
+group's size and whether the group spans nodes of ``CARDS_PER_NODE``
+cards, which a roofline needs for the bytes on the wire.
+
+Backends: NCCL, and the ``fake`` test backend (a process group that moves
+nothing: one rank of a large mesh run alone, as the dry run does), take the
+tensor forms (``all_gather_into_tensor``, ``reduce_scatter_tensor``); gloo
+takes the list form and a composed reduce-scatter.  Any other backend
+raises.  A meta tensor (the dry run's counting pass) is counted and timed
+on the host clock.
 """
 
 from __future__ import annotations
@@ -72,8 +81,10 @@ from repro_torch.kernels.ref import exact_float32_matmul
 
 INF = float("inf")
 DEFAULT_TIMEOUT_S = 300.0
+CARDS_PER_NODE = 8  # a DGX H100 node: 8 cards on one NVLink switch fabric
 
-_STATS: dict = {}  # kind -> {"calls", "bytes", "max_bytes", "seconds"}
+_STATS: dict = {}  # kind -> {"calls", "bytes", "max_bytes", "seconds", "groups"}
+_SPANS: dict = {}  # process group -> (its size, whether its ranks span nodes)
 _PENDING: collections.deque = collections.deque()  # (kind, start, end) CUDA events in flight
 
 
@@ -133,9 +144,14 @@ def _drain(wait: bool) -> None:
 def collective_stats() -> dict:
     """Collectives so far in this process: ``calls``, ``bytes`` and
     ``seconds`` in all, and ``kinds``: {kind: {"calls", "bytes",
-    "max_bytes", "seconds"}}.  Waits for those still in flight on the card."""
+    "max_bytes", "seconds", "groups"}}, ``groups`` a list of {"size",
+    "spans_nodes", "calls", "bytes"} by the groups the calls ran over.
+    Waits for those still in flight on the card."""
     _drain(wait=True)
-    kinds = {k: dict(v) for k, v in _STATS.items()}
+    kinds = {}
+    for k, v in _STATS.items():
+        kinds[k] = dict(v, groups=[{"size": g, "spans_nodes": spans, **c}
+                                   for (g, spans), c in sorted(v["groups"].items())])
     return {"calls": sum(v["calls"] for v in kinds.values()),
             "bytes": sum(v["bytes"] for v in kinds.values()),
             "seconds": sum(v["seconds"] for v in kinds.values()), "kinds": kinds}
@@ -144,17 +160,36 @@ def collective_stats() -> dict:
 def reset_collective_stats() -> None:
     _drain(wait=True)
     _STATS.clear()
+    _SPANS.clear()
 
 
-def _collective(kind: str, nbytes: int, t, run):
-    """``run(t)``, counted under ``kind`` with ``nbytes`` and timed (on the
-    card by two CUDA events around it on the current stream: the span from
-    the end of the work queued before it to its result)."""
+def _group_span(group) -> tuple:
+    """(size, spans nodes) of ``group``: whether its global ranks lie on more
+    than one node of ``CARDS_PER_NODE`` consecutive ranks."""
+    import torch.distributed as tdist
+
+    key = (group, tdist.get_world_size(group))  # the default group's size may change
+    if key not in _SPANS:
+        ranks = (tdist.get_process_group_ranks(group) if group is not None
+                 else range(key[1]))
+        _SPANS[key] = (len(ranks), len({r // CARDS_PER_NODE for r in ranks}) > 1)
+    return _SPANS[key]
+
+
+def _collective(kind: str, nbytes: int, t, run, group=None):
+    """``run(t)``, counted under ``kind`` with ``nbytes`` and ``group``'s size
+    and node span, and timed (on the card by two CUDA events around it on
+    the current stream: the span from the end of the work queued before it
+    to its result; a meta or CPU tensor on the host clock)."""
     src = t.contiguous()
-    st = _STATS.setdefault(kind, {"calls": 0, "bytes": 0, "max_bytes": 0, "seconds": 0.0})
+    st = _STATS.setdefault(kind, {"calls": 0, "bytes": 0, "max_bytes": 0, "seconds": 0.0,
+                                  "groups": {}})
     st["calls"] += 1
     st["bytes"] += nbytes
     st["max_bytes"] = max(st["max_bytes"], nbytes)
+    by_group = st["groups"].setdefault(_group_span(group), {"calls": 0, "bytes": 0})
+    by_group["calls"] += 1
+    by_group["bytes"] += nbytes
     if src.is_cuda:
         _drain(wait=False)
         stream = torch.cuda.current_stream(src.device)
@@ -175,14 +210,22 @@ def _nbytes(t) -> int:
 
 
 def _is_nccl(group) -> bool:
+    """Whether ``group`` takes the tensor forms of the collectives: NCCL, and
+    the ``fake`` backend, which stands in for NCCL ranks; gloo takes the list
+    forms.  ``ValueError`` for any other backend."""
     import torch.distributed as tdist
 
-    return tdist.get_backend(group) == "nccl"
+    backend = str(tdist.get_backend(group))
+    if backend not in ("nccl", "fake", "gloo"):
+        raise ValueError(f"no counted collectives for backend {backend!r}: "
+                         "nccl, gloo or fake")
+    return backend != "gloo"
 
 
-def all_gather(t, group=None):
+def all_gather(t, group=None, kind: str = "all_gather"):
     """(world, *t.shape): every rank's ``t``, in rank order, on every rank
-    (NCCL: ``all_gather_into_tensor``; gloo: ``all_gather`` into its rows)."""
+    (NCCL: ``all_gather_into_tensor``; gloo: ``all_gather`` into its rows);
+    counted under ``kind`` (FSDP's weight gathers as ``fsdp_gather``)."""
     import torch.distributed as tdist
 
     world = tdist.get_world_size(group)
@@ -195,7 +238,7 @@ def all_gather(t, group=None):
             tdist.all_gather(list(out.unbind(0)), src, group=group)
         return out
 
-    return _collective("all_gather", world * _nbytes(t), t, run)
+    return _collective(kind, world * _nbytes(t), t, run, group)
 
 
 def all_reduce(t, op: str = "sum", group=None):
@@ -205,12 +248,14 @@ def all_reduce(t, op: str = "sum", group=None):
 
     ops = {"sum": tdist.ReduceOp.SUM, "max": tdist.ReduceOp.MAX}
 
+    _is_nccl(group)  # an unknown backend raises
+
     def run(src):
         out = src.clone()
         tdist.all_reduce(out, op=ops[op], group=group)
         return out
 
-    return _collective({"sum": "psum", "max": "pmax"}[op], _nbytes(t), t, run)
+    return _collective({"sum": "psum", "max": "pmax"}[op], _nbytes(t), t, run, group)
 
 
 def reduce_scatter(t, group=None):
@@ -236,7 +281,7 @@ def reduce_scatter(t, group=None):
         tdist.all_reduce(out, group=group)
         return out[rank * rows:(rank + 1) * rows].clone()
 
-    return _collective("psum_scatter", _nbytes(t), t, run)
+    return _collective("psum_scatter", _nbytes(t), t, run, group)
 
 
 # ---------------------------------------------------------------------------

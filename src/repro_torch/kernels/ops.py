@@ -2,7 +2,8 @@
 
 The rule is the tensor's device, nothing else: a CUDA tensor launches the
 kernel (or the kernel wrapper raises), a CPU tensor takes the plain version.
-There is no fallback from one to the other.
+There is no fallback from one to the other.  A meta tensor (the dry run's
+counting pass, shapes without data) takes the plain version's shapes.
 
 Two levels.  ``distance_matrix_branch``, ``pair_scores``,
 ``frontier_gather_scores`` and ``nndescent_round_scores`` score ONE
@@ -26,7 +27,7 @@ from repro_torch.kernels.ref import distance_matrix_ref, gather_scores_ref, two_
 
 
 def _device_type(t) -> str:
-    if t.device.type not in ("cuda", "cpu"):
+    if t.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"no kernel path for device {t.device}")
     return t.device.type
 

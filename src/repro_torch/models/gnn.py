@@ -256,12 +256,15 @@ def sample_subgraph(generator, table, seed_nodes, fanouts, *, picks=None) -> dic
 
 
 def sampled_forward(params: GCNParams, features, labels, sub: dict, cfg: GNNConfig,
-                    n_seed: int):
+                    n_seed: int, *, edge_sharded: bool = False):
     """GCN forward over a sampled subgraph in the global node-id space (no
     self loops: the sampled edges only).  Returns (mean cross-entropy of the
-    seed nodes, their logits (n_seed, n_classes))."""
+    seed nodes, their logits (n_seed, n_classes)).  ``edge_sharded`` under a
+    mesh: ``sub``'s ``senders`` and ``receivers`` are this rank's slice of the
+    sampled edges over the data axes (``forward``'s edge-sharded sums)."""
     n = features.shape[0]
-    x = _layers(params, features, sub["senders"], sub["receivers"], n, cfg)
+    axes = batch_axes() if edge_sharded else ()
+    x = _layers(params, features, sub["senders"], sub["receivers"], n, cfg, axes)
     seed = sub["nodes"][:n_seed].long()
     logits = x[seed]
     return torch.mean(_nll(logits, labels[seed])), logits

@@ -23,12 +23,34 @@ Each layer's FFN is the SwiGLU MLP or ``models/moe.py``'s ``moe_ffn``,
 whose load-balance aux ``forward`` sums over the layers.
 
 On a mesh (the local view of ``sharding/api.py``) the batch is this rank's
-block over the data axes and the dense weights are replicated: under
-``use_mesh`` each dense weight's gradient is summed over the data axes
-(``pvary``), the MoE FFN runs expert-parallel, and ``decode_step(mesh=)``
-attends sequence-parallel over its block of the cache (``kv_cache_specs``)
-with an exact log-sum-exp combine.  ``param_specs`` is ``repro``'s
-FSDP x TP layout, the layout a dry run reckons with.
+block over the data axes, the MoE FFN runs expert-parallel, and
+``decode_step(mesh=)`` attends sequence-parallel over its block of the
+cache (``kv_cache_specs``) with an exact log-sum-exp combine.  The dense
+weights are either replicated (each one's gradient summed over the data
+axes by ``pvary``) or, when the parameters carry ``specs`` (``shard_params``,
+``param_specs``' FSDP x TP layout, the layout a dry run reckons with),
+this rank's blocks:
+
+  - each layer's weight blocks are all-gathered over their data (FSDP) axes
+    just before use (``fsdp_gather``; the backward reduce-scatters the
+    gradient), inside the layer's checkpoint, so a gathered layer lives
+    only while it runs;
+  - ``wq`` and the MLP's ``w_gate``/``w_up`` are column-parallel over the TP
+    axis ("model"): this rank's heads and d_ff block; ``wo`` and ``w_down``
+    row-parallel, followed by a ``psum`` over it;
+  - a rank's query heads need whole KV heads, and q head h uses kv head
+    h % Hkv: ``wk``/``wv`` are gathered over "model" too and the rank takes
+    the columns of its heads' kv heads (one kv head per q head), unless its
+    own block is exactly those (no full LM has it: 8 kv heads on 16 ranks);
+  - ``embed`` is a vocab-sharded lookup (a masked take and a ``psum``), the
+    head (the tied ``embed`` or ``lm_head``) is vocab-sharded: ``forward``
+    and ``prefill`` all-gather the logits over "model", ``lm_loss`` feeds
+    its block to ``sharded_xent``;
+  - ``prefill`` returns this rank's block of the cache, sequence over
+    "model" (``kv_cache_specs``): all kv heads at its block of positions,
+    from the whole ``wk``/``wv``;
+  - ``decode_step`` all-gathers the step's q, k and v over "model", attends
+    sequence-parallel, then takes its heads for the row-parallel ``wo``.
 """
 
 from __future__ import annotations
@@ -51,7 +73,8 @@ from repro_torch.models.layers import (
     swiglu,
 )
 from repro_torch.models.moe import init_moe_layer, moe_ffn, moe_layer_shapes, moe_layer_specs
-from repro_torch.sharding.api import P, batch_axes, current_mesh, pmax, psum, pvary
+from repro_torch.sharding.api import (P, _axes, all_gather, batch_axes, current_mesh, flatten,
+                                      fsdp_gather, pmax, psum, pvary, shard, use_mesh)
 
 
 def _dt(cfg: LMConfig) -> torch.dtype:
@@ -76,14 +99,38 @@ def layer_shapes(cfg: LMConfig) -> dict:
 
 class LMParams(nn.Module):
     """``repro``'s param dict as module attributes: ``embed``, ``ln_f``,
-    ``layers.<name>`` (stacked over L) and ``lm_head`` (None when tied)."""
+    ``layers.<name>`` (stacked over L) and ``lm_head`` (None when tied).
 
-    def __init__(self, embed, ln_f, layers: dict, lm_head=None):
+    ``specs``: None for whole (replicated) tensors, else the flat
+    {parameter name: ``P``} layout of this rank's blocks (``param_specs``)."""
+
+    def __init__(self, embed, ln_f, layers: dict, lm_head=None, specs=None):
         super().__init__()
         self.embed = nn.Parameter(embed)
         self.ln_f = nn.Parameter(ln_f)
         self.layers = nn.ParameterDict({k: nn.Parameter(w) for k, w in layers.items()})
         self.lm_head = None if lm_head is None else nn.Parameter(lm_head)
+        self.specs = None if specs is None else flatten(specs)
+
+
+def param_shapes(cfg: LMConfig) -> dict:
+    """{parameter name: (global shape, dtype)}, ``LMParams``' names."""
+    dt, d = _dt(cfg), cfg.d_model
+    out = {"embed": ((cfg.vocab_size, d), dt), "ln_f": ((d,), dt)}
+    out.update({f"layers.{k}": v for k, v in layer_shapes(cfg).items()})
+    if not cfg.tie_embeddings:
+        out["lm_head"] = ((d, cfg.vocab_size), dt)
+    return out
+
+
+def shard_params(params: LMParams, specs, mesh) -> LMParams:
+    """This rank's blocks of the whole ``params`` under ``specs``
+    (``param_specs``' tree), carrying the specs: the FSDP x TP layout."""
+    flat = flatten(specs)
+    with torch.no_grad():
+        blocks = {k: shard(p.detach(), flat[k], mesh) for k, p in params.named_parameters()}
+    layers = {k.removeprefix("layers."): w for k, w in blocks.items() if k.startswith("layers.")}
+    return LMParams(blocks["embed"], blocks["ln_f"], layers, blocks.get("lm_head"), specs=flat)
 
 
 # ---------------------------------------------------------------------------
@@ -151,13 +198,14 @@ def kv_cache_specs(seq_axes=("model",), batch_axes=("data",)):
     return {"k": kv, "v": kv, "length": P(ba)}
 
 
-def _wo_masked(wo, cfg: LMConfig):
+def _wo_masked(wo, cfg: LMConfig, head0: int = 0):
     """o-proj with hard-zeroed rows for padded heads: the padded model is
-    exactly the unpadded one."""
+    exactly the unpadded one.  ``wo``'s rows are the heads from ``head0`` on
+    (a TP rank's block)."""
     if cfg.n_heads_padded == cfg.n_heads:
         return wo
-    mask = torch.arange(cfg.n_heads_padded, device=wo.device) < cfg.n_heads
-    mask = torch.repeat_interleave(mask, cfg.d_head).to(wo.dtype)
+    heads = torch.arange(head0, head0 + wo.shape[0] // cfg.d_head, device=wo.device)
+    mask = torch.repeat_interleave(heads < cfg.n_heads, cfg.d_head).to(wo.dtype)
     return wo * mask[:, None]
 
 
@@ -174,11 +222,65 @@ def _replicated(w):
     return pvary(w, batch_axes()) if current_mesh() is not None else w
 
 
+class _Sharded:
+    """FSDP x TP of the dense layers in the local view: the mesh, the
+    parameters' flat specs, the TP axes (those of ``wq``'s columns), this
+    rank's TP index and query heads, and the kv head of each of them."""
+
+    def __init__(self, params: LMParams, cfg: LMConfig, mesh):
+        if mesh is None:
+            raise ValueError("parameters laid out by specs run only under a mesh "
+                             "(use_mesh, or decode_step(mesh=))")
+        self.mesh, self.specs = mesh, params.specs
+        self.tp = _axes(self.specs["layers.wq"][2])
+        self.n_tp = mesh.size_of(self.tp)
+        self.r = mesh.index(self.tp) if self.tp else 0
+        hq, hkv = cfg.n_heads_padded, cfg.n_kv_heads
+        if hq % self.n_tp or cfg.vocab_size % self.n_tp:
+            raise ValueError(f"{hq} heads and a vocab of {cfg.vocab_size} must split over "
+                             f"{self.n_tp} TP ranks")
+        self.hq = hq // self.n_tp
+        self.head0 = self.r * self.hq
+        self.kv = [(self.head0 + i) % hkv for i in range(self.hq)]
+        own = (list(range(self.r * hkv // self.n_tp, (self.r + 1) * hkv // self.n_tp))
+               if hkv % self.n_tp == 0 else None)
+        self.own_kv = own == self.kv  # the kv block is exactly the heads' kv heads
+        if cfg.is_moe and ("model" not in mesh.axis_names
+                           or cfg.moe.n_experts % mesh.shape["model"]):
+            raise ValueError("an MoE model's blocks run expert-parallel: the mesh needs a "
+                             "\"model\" axis that divides the experts")
+
+    def w(self, name: str, w):
+        """A weight (one layer's slice of a stacked one) whole over its FSDP axes."""
+        spec = self.specs[name]
+        spec = P(*spec[1:]) if name.startswith("layers.") else spec
+        return fsdp_gather(w, spec, self.tp, self.mesh)
+
+    def tp_in(self, x):
+        """``x``, replicated over TP, entering this rank's column block."""
+        return pvary(x, self.tp, self.mesh)
+
+    def tp_sum(self, x):
+        return psum(x, self.tp, self.mesh)
+
+    def tp_whole(self, x, varying: bool = True):
+        """``x`` all-gathered over TP along its last dim (its column blocks)."""
+        return all_gather(x, self.tp, x.ndim - 1, tiled=True, varying=varying, mesh=self.mesh)
+
+    def kv_columns(self, w_whole, cfg: LMConfig):
+        """The columns of each of this rank's query heads' kv head, (d, hq dh)."""
+        d = w_whole.shape[0]
+        idx = torch.tensor(self.kv, device=w_whole.device)
+        return w_whole.reshape(d, cfg.n_kv_heads, cfg.d_head)[:, idx].reshape(d, -1)
+
+
 def _layer_views(params: LMParams, cfg: LMConfig):
     """Per layer: a dict of its weights (views), and its window (0 = none).
-    The MoE weights enter the expert-parallel region as they are."""
+    The MoE weights enter the expert-parallel region as they are; so do the
+    blocks of parameters laid out by specs (each layer gathers its own)."""
     moe = moe_layer_shapes(cfg) if cfg.is_moe else {}
-    per_name = {k: torch.unbind(w if k in moe else _replicated(w), 0)
+    keep = params.specs is not None
+    per_name = {k: torch.unbind(w if k in moe or keep else _replicated(w), 0)
                 for k, w in params.layers.items()}
     windows = [cfg.sliding_window if loc else 0 for loc in layer_locality(cfg).tolist()]
     return [({k: w[i] for k, w in per_name.items()}, windows[i])
@@ -216,43 +318,124 @@ def _ffn_block(x, lp, cfg: LMConfig):
     return x + out, aux
 
 
-def _layer(x, lp, cfg, positions, window, block_q, block_kv):
+def _layer(x, lp, cfg, positions, window, block_q, block_kv, sh=None):
+    if sh is not None:
+        x, _ = _sharded_attention(x, lp, cfg, sh, positions, window, block_q=block_q,
+                                  block_kv=block_kv)
+        return _sharded_ffn(x, lp, cfg, sh)
     x, _, _ = _attention_block(x, lp, cfg, positions, window, block_q=block_q,
                                block_kv=block_kv)
     return _ffn_block(x, lp, cfg)
 
 
-def _embed(params: LMParams, tokens, cfg: LMConfig):
+def _sharded_attention(x, lp, cfg: LMConfig, sh: _Sharded, positions, window: int, *,
+                       block_q: int, block_kv: int, cache_at=None):
+    """The residual stream after attention with this rank's heads (FSDP x TP,
+    module docstring).  ``cache_at`` = (lo, hi): also this rank's block of
+    the cache, every kv head at positions lo..hi (prefill), else None."""
+    B, T, _ = x.shape
+    dh = cfg.d_head
+    h = rms_norm(x, sh.w("layers.ln_attn", lp["ln_attn"]), cfg.norm_eps)
+    ht = sh.tp_in(h)
+    q = (ht @ sh.w("layers.wq", lp["wq"])).reshape(B, T, sh.hq, dh)
+    wk, wv = sh.w("layers.wk", lp["wk"]), sh.w("layers.wv", lp["wv"])
+    if cache_at is not None or not sh.own_kv:
+        wk, wv = sh.tp_whole(wk), sh.tp_whole(wv)
+        wk_h, wv_h = sh.kv_columns(wk, cfg), sh.kv_columns(wv, cfg)
+    else:
+        wk_h, wv_h = wk, wv
+    k = apply_rope((ht @ wk_h).reshape(B, T, sh.hq, dh), positions, cfg.rope_theta)
+    v = (ht @ wv_h).reshape(B, T, sh.hq, dh)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    out = blockwise_attention(q, k, v, window=window, block_q=block_q, block_kv=block_kv)
+    wo = _wo_masked(sh.w("layers.wo", lp["wo"]), cfg, sh.head0)
+    x = x + sh.tp_sum(out.reshape(B, T, -1) @ wo)
+    if cache_at is None:
+        return x, None
+    lo, hi = cache_at
+    hb = h[:, lo:hi]
+    kb = apply_rope((hb @ wk).reshape(B, hi - lo, cfg.n_kv_heads, dh), positions[:, lo:hi],
+                    cfg.rope_theta)
+    return x, (kb, (hb @ wv).reshape(B, hi - lo, cfg.n_kv_heads, dh))
+
+
+def _sharded_ffn(x, lp, cfg: LMConfig, sh: _Sharded):
+    """The residual stream after the FFN: the SwiGLU MLP over this rank's
+    d_ff block and a ``psum``, or the expert-parallel MoE region on the MoE
+    blocks (its shared experts FSDP x TP there too)."""
+    h = rms_norm(x, sh.w("layers.ln_mlp", lp["ln_mlp"]), cfg.norm_eps)
+    if cfg.is_moe:
+        with use_mesh(sh.mesh):
+            out, aux = moe_ffn(h, {k: lp[k] for k in moe_layer_shapes(cfg)}, cfg)
+        return x + out, aux
+    ht = sh.tp_in(h)
+    out = swiglu(ht, sh.w("layers.w_gate", lp["w_gate"]), sh.w("layers.w_up", lp["w_up"]),
+                 sh.w("layers.w_down", lp["w_down"]))
+    return x + sh.tp_sum(out), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _embed(params: LMParams, tokens, cfg: LMConfig, sh=None):
     tokens = tokens.long()
     B, T = tokens.shape
     positions = torch.arange(T, device=tokens.device).expand(B, T)
-    return _replicated(params.embed)[tokens].to(_dt(cfg)), positions
+    if sh is None:
+        return _replicated(params.embed)[tokens].to(_dt(cfg)), positions
+    # vocab-sharded: this rank's rows of the gathered table, a psum over TP
+    emb = sh.w("embed", params.embed)
+    rel = tokens - sh.r * emb.shape[0]
+    inside = (rel >= 0) & (rel < emb.shape[0])
+    x = emb[rel.clamp(0, emb.shape[0] - 1)] * inside[..., None].to(emb.dtype)
+    return sh.tp_sum(x).to(_dt(cfg)), positions
+
+
+def _sharding(params: LMParams, cfg: LMConfig, mesh=None):
+    """The ``_Sharded`` view of ``params`` on ``mesh`` (default: the current
+    one), or None for whole parameters."""
+    if params.specs is None:
+        return None
+    return _Sharded(params, cfg, mesh if mesh is not None else current_mesh())
 
 
 def forward_hidden(params: LMParams, tokens, cfg: LMConfig, *, block_q: int = 512,
                    block_kv: int = 512):
     """tokens (B, T) -> final-norm hidden states (B, T, d), and the MoE aux
     summed over the layers (0 for a dense model).  ``cfg.remat`` recomputes
-    each layer in the backward (``torch.utils.checkpoint``)."""
-    x, positions = _embed(params, tokens, cfg)
+    each layer in the backward (``torch.utils.checkpoint``); with FSDP x TP
+    parameters that recompute gathers the layer's weights again."""
+    sh = _sharding(params, cfg)
+    x, positions = _embed(params, tokens, cfg, sh)
     auxes = []
     for lp, window in _layer_views(params, cfg):
         fn = functools.partial(_layer, lp=lp, cfg=cfg, positions=positions, window=window,
-                               block_q=block_q, block_kv=block_kv)
+                               block_q=block_q, block_kv=block_kv, sh=sh)
         x, aux = checkpoint(fn, x, use_reentrant=False) if cfg.remat else fn(x)
         auxes.append(aux)
-    return rms_norm(x, _replicated(params.ln_f), cfg.norm_eps), torch.stack(auxes).sum()
+    ln_f = _replicated(params.ln_f) if sh is None else sh.w("ln_f", params.ln_f)
+    return rms_norm(x, ln_f, cfg.norm_eps), torch.stack(auxes).sum()
 
 
 def lm_head(params: LMParams, cfg: LMConfig):
     return params.embed.T if cfg.tie_embeddings else params.lm_head
 
 
+def sharded_head(params: LMParams, cfg: LMConfig, mesh=None):
+    """FSDP x TP parameters: this rank's vocab block of the head, (d, V / tp),
+    gathered over its FSDP axes (the tied ``embed``'s rows transposed)."""
+    sh = _sharding(params, cfg, mesh)
+    if cfg.tie_embeddings:
+        return sh.w("embed", params.embed).T
+    return sh.w("lm_head", params.lm_head)
+
+
 def forward(params: LMParams, tokens, cfg: LMConfig, *, block_q: int = 512,
             block_kv: int = 512):
-    """tokens (B, T) -> logits (B, T, V) in the param dtype, and aux."""
+    """tokens (B, T) -> logits (B, T, V) in the param dtype, and aux.  With
+    FSDP x TP parameters: this rank's batch block, every vocab column."""
     x, aux = forward_hidden(params, tokens, cfg, block_q=block_q, block_kv=block_kv)
-    return x @ _replicated(lm_head(params, cfg)), aux
+    sh = _sharding(params, cfg)
+    if sh is None:
+        return x @ _replicated(lm_head(params, cfg)), aux
+    return sh.tp_whole(sh.tp_in(x) @ sharded_head(params, cfg), varying=False), aux
 
 
 # ---------------------------------------------------------------------------
@@ -277,6 +460,8 @@ def prefill(params: LMParams, tokens, cfg: LMConfig, *, max_len: int | None = No
     Returns (last-position logits (B, V), cache); the cache's sequence axis
     is padded to ``max_len`` (decode continues into the padding).
     """
+    if params.specs is not None:
+        return _sharded_prefill(params, tokens, cfg, max_len, block_q, block_kv)
     B, T = tokens.shape
     x, positions = _embed(params, tokens, cfg)
     cache = init_kv_cache(cfg, B, max_len or T, device=x.device)
@@ -291,6 +476,56 @@ def prefill(params: LMParams, tokens, cfg: LMConfig, *, max_len: int | None = No
     return x @ lm_head(params, cfg), cache
 
 
+def _sharded_prefill(params: LMParams, tokens, cfg: LMConfig, max_len, block_q, block_kv):
+    """``prefill`` with FSDP x TP parameters under the current mesh: the
+    rank's batch block's last-position logits (every vocab column) and its
+    block of the cache, ``kv_cache_specs(("model",), data axes)``: the
+    sequence split over the TP axes."""
+    sh = _sharding(params, cfg)
+    B, T = tokens.shape
+    x, positions = _embed(params, tokens, cfg, sh)
+    S = max_len or T
+    if S % sh.n_tp:
+        raise ValueError(f"a cache of {S} positions does not split over {sh.n_tp} ranks")
+    S_loc = S // sh.n_tp
+    lo, hi = sh.r * S_loc, min(T, (sh.r + 1) * S_loc)
+    cache = init_kv_cache(cfg, B, S_loc, device=x.device)
+    for i, (lp, window) in enumerate(_layer_views(params, cfg)):
+        x, (kb, vb) = _sharded_attention(x, lp, cfg, sh, positions, window, block_q=block_q,
+                                         block_kv=block_kv, cache_at=(lo, max(lo, hi)))
+        x, _ = _sharded_ffn(x, lp, cfg, sh)
+        cache["k"][i, :, :kb.shape[1]] = kb
+        cache["v"][i, :, :vb.shape[1]] = vb
+    cache["length"].fill_(T)
+    x = rms_norm(x[:, -1], sh.w("ln_f", params.ln_f), cfg.norm_eps)
+    return sh.tp_whole(x @ sharded_head(params, cfg), varying=False), cache
+
+
+def _sharded_decode(params: LMParams, cache, tokens, cfg: LMConfig, mesh, seq_axes):
+    """``decode_step(mesh=)`` with FSDP x TP parameters (module docstring)."""
+    sh = _sharding(params, cfg, mesh)
+    B, dh = tokens.shape[0], cfg.d_head
+    x, _ = _embed(params, tokens[:, None], cfg, sh)  # (B, 1, d)
+    length = cache["length"]
+    positions = length[:, None].long()
+    hq, hkv = cfg.n_heads_padded, cfg.n_kv_heads
+    for i, (lp, window) in enumerate(_layer_views(params, cfg)):
+        h = rms_norm(x, sh.w("layers.ln_attn", lp["ln_attn"]), cfg.norm_eps)
+        q, k_new, v_new = (sh.tp_whole(h @ sh.w(f"layers.{n}", lp[n]), varying=False)
+                           for n in ("wq", "wk", "wv"))
+        q = apply_rope(q.reshape(B, 1, hq, dh), positions, cfg.rope_theta)[:, 0]
+        k_new = apply_rope(k_new.reshape(B, 1, hkv, dh), positions, cfg.rope_theta)
+        out = _sp_decode_attention(q, cache["k"][i], cache["v"][i], length, k_new,
+                                   v_new.reshape(B, 1, hkv, dh), window, mesh, seq_axes)
+        mine = out[:, sh.head0:sh.head0 + sh.hq].to(x.dtype).reshape(B, 1, -1)
+        wo = _wo_masked(sh.w("layers.wo", lp["wo"]), cfg, sh.head0)
+        x = x + sh.tp_sum(mine @ wo)
+        x, _ = _sharded_ffn(x, lp, cfg, sh)
+    cache = {"k": cache["k"], "v": cache["v"], "length": length + 1}
+    x = rms_norm(x, sh.w("ln_f", params.ln_f), cfg.norm_eps)
+    return sh.tp_whole(x @ sharded_head(params, cfg, mesh), varying=False)[:, 0], cache
+
+
 @torch.no_grad()
 def decode_step(params: LMParams, cache, tokens, cfg: LMConfig, *, mesh=None,
                 seq_axes=("model",), dp=None):
@@ -302,7 +537,7 @@ def decode_step(params: LMParams, cache, tokens, cfg: LMConfig, *, mesh=None,
     (``kv_cache_specs(seq_axes, dp)``) and ``tokens`` its batch block over
     ``dp`` (None: the data axes not in ``seq_axes``; () for a batch
     replicated on every rank); the logits are the block's, replicated over
-    ``seq_axes``."""
+    ``seq_axes``.  FSDP x TP parameters need ``mesh``."""
     if mesh is not None:
         seq_axes = tuple(seq_axes)
         if dp is None:
@@ -310,6 +545,10 @@ def decode_step(params: LMParams, cache, tokens, cfg: LMConfig, *, mesh=None,
         if set(dp) & set(seq_axes) or not set(dp) | set(seq_axes) <= set(mesh.axis_names):
             raise ValueError(f"batch axes {dp} and sequence axes {seq_axes} must be disjoint "
                              f"axes of the mesh {mesh.axis_names}")
+    if params.specs is not None:
+        if mesh is None:
+            raise ValueError("FSDP x TP parameters decode only with mesh=")
+        return _sharded_decode(params, cache, tokens.long(), cfg, mesh, seq_axes)
     tokens = tokens.long()
     B = tokens.shape[0]
     x = params.embed[tokens].to(_dt(cfg))[:, None, :]  # (B, 1, d)

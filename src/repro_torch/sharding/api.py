@@ -8,8 +8,12 @@ Under ``use_mesh(mesh)`` a region's entry point takes the rank's local
 blocks of its inputs, laid out by ``repro``'s ``in_specs``, and returns the
 rank's block of the output, laid out by ``out_specs``; a ``P()`` output is
 the replicated value.  Outside the regions the dense layers run on
-replicated weights.  ``shard(x, spec, mesh)`` takes a global tensor to this
-rank's block and ``unshard(x_local, spec, mesh)`` all-gathers it back.
+replicated weights, or on FSDP x TP blocks where the parameters carry their
+specs (``models/transformer.py``): ``fsdp_gather`` all-gathers a block over
+its data axes just before use, and its backward is the reduce-scatter of
+the gradient.  ``shard(x, spec, mesh)`` takes a global tensor to this
+rank's block and ``unshard(x_local, spec, mesh)`` all-gathers it back;
+``local_shape`` and ``global_shape`` convert shapes.
 
 A spec entry is None (the dim is whole on every rank), an axis name, or a
 tuple of names; a dim over several axes is split row-major over them in the
@@ -120,8 +124,9 @@ class Mesh:
                     g = tdist.new_group([globals_[r] for r in members])
                     if self.rank in members:
                         self._groups[key] = (g, members)
-        # a psum_scatter on gloo is an all-reduce and the rank's block
-        self.composed = ({} if self.backend == "nccl"
+        # a psum_scatter on gloo is an all-reduce and the rank's block; the
+        # fake test backend takes NCCL's forms (core.distributed)
+        self.composed = ({} if self.backend in ("nccl", "fake")
                          else {"psum_scatter": "all_reduce + the rank's block"})
 
     def __repr__(self):
@@ -215,10 +220,10 @@ def _all_reduce(x, axes: tuple, mesh: Mesh, op: str = "sum"):
     return cd.all_reduce(x, op, group)
 
 
-def _gather_blocks(x, axes: tuple, mesh: Mesh) -> list:
+def _gather_blocks(x, axes: tuple, mesh: Mesh, kind: str = "all_gather") -> list:
     """Every rank's ``x`` over ``axes``, in block-index order."""
     group, order = mesh._group(axes)
-    parts = cd.all_gather(x, group)  # in group-rank order
+    parts = cd.all_gather(x, group, kind)  # in group-rank order
     return [parts[g] for g in order]
 
 
@@ -242,8 +247,8 @@ def _reduce_scatter(x, axes: tuple, dim: int, mesh: Mesh):
     return cd.reduce_scatter(by_rank, group)[0]
 
 
-def _gather(x, axes: tuple, dim: int, tiled: bool, mesh: Mesh):
-    parts = _gather_blocks(x, axes, mesh)
+def _gather(x, axes: tuple, dim: int, tiled: bool, mesh: Mesh, kind: str = "all_gather"):
+    parts = _gather_blocks(x, axes, mesh, kind)
     return torch.cat(parts, dim) if tiled else torch.stack(parts, dim)
 
 
@@ -280,9 +285,9 @@ class _PMax(torch.autograd.Function):
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, axes, dim, tiled, varying, mesh):
+    def forward(ctx, x, axes, dim, tiled, varying, mesh, kind="all_gather"):
         ctx.args = (axes, dim, tiled, varying, mesh)
-        return _gather(x, axes, dim, tiled, mesh)
+        return _gather(x, axes, dim, tiled, mesh, kind)
 
     @staticmethod
     def backward(ctx, g):
@@ -292,7 +297,7 @@ class _AllGather(torch.autograd.Function):
         cut = dim if tiled else 0
         out = _reduce_scatter(g, axes, cut, mesh) if varying else _block(g, axes, cut, mesh)
         out = out if tiled else out.squeeze(0)
-        return out.contiguous(), None, None, None, None, None
+        return out.contiguous(), None, None, None, None, None, None
 
 
 class _PsumScatter(torch.autograd.Function):
@@ -369,9 +374,56 @@ def pvary(x, axes, mesh=None):
     return _PVary.apply(x, axes, _mesh(mesh)) if axes else x
 
 
+def spec_axes(spec) -> tuple:
+    """Every axis that ``spec`` names, in its order."""
+    return tuple(a for e in spec for a in _axes(e))
+
+
+def fsdp_gather(w, spec, tp_axes=("model",), mesh=None):
+    """The weight block ``w`` (laid out by ``spec``) whole along every dim
+    split over axes other than ``tp_axes``: FSDP's all-gather just before
+    use, whose backward is the reduce-scatter of the gradient over those
+    axes (the gathered weight is used with each rank's own batch block).
+    A data axis of the mesh that ``spec`` does not name is one the weight is
+    replicated over and used on rank-varying data: it is ``pvary``ed, so
+    its gradient sums there too.  The dims over ``tp_axes`` stay this
+    rank's blocks; a dim split over both kinds raises."""
+    mesh = _mesh(mesh)
+    tp_axes = tuple(tp_axes or ())
+    for dim, entry in enumerate(spec):
+        axes = _axes(entry)
+        fsdp = tuple(a for a in axes if a not in tp_axes)
+        if fsdp and len(fsdp) != len(axes):
+            raise ValueError(f"dim {dim} of spec {spec} is split over both FSDP and TP axes")
+        if fsdp:  # counted as "fsdp_gather"
+            w = _AllGather.apply(w, fsdp, dim, True, True, mesh, "fsdp_gather")
+    named = spec_axes(spec)
+    rest = tuple(a for a in ("pod", "data") if a in mesh.axis_names and a not in named)
+    return pvary(w, rest, mesh)
+
+
 # ---------------------------------------------------------------------------
 # global <-> local
 # ---------------------------------------------------------------------------
+
+
+def local_shape(shape, spec, mesh) -> tuple:
+    """This rank's block shape of a global ``shape`` under ``spec``."""
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        n = mesh.size_of(_axes(entry))
+        if out[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not split over {entry} ({n})")
+        out[dim] //= n
+    return tuple(out)
+
+
+def global_shape(shape, spec, mesh) -> tuple:
+    """The global shape whose block under ``spec`` has ``shape``."""
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        out[dim] *= mesh.size_of(_axes(entry))
+    return tuple(out)
 
 
 class _Shard(torch.autograd.Function):

@@ -2,11 +2,14 @@
 
 ``make_train_step`` returns ``step(model, opt_state, batch) -> (model,
 opt_state, metrics)``: the loss and its gradients (``torch.autograd``),
-accumulated over ``accum_steps`` microbatches when asked, a global-norm
-clip, the optimizer's update added to the parameters in place.  Losses: the
-LM's next-token cross-entropy with the MoE aux (on a mesh with a "model" axis through
-``sharded_xent``), the GCN's node cross-entropy, the two-tower in-batch
-softmax and the ranking models' binary cross-entropy.
+accumulated over ``accum_steps`` microbatches when asked (in
+``accum_dtype``), a global-norm clip at ``grad_clip``, the optimizer's
+update added to the parameters in place.  A model that carries ``specs``
+(its blocks' layout on the current mesh) is clipped by the norm of the
+global gradient: each block's squares summed over its spec's axes.
+Losses: the LM's next-token cross-entropy with the MoE aux (on a mesh with
+a "model" axis through ``sharded_xent``), the GCN's node cross-entropy, the
+two-tower in-batch softmax and the ranking models' binary cross-entropy.
 """
 
 from __future__ import annotations
@@ -18,22 +21,22 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.gnn import loss_fn as gnn_loss_fn
 from repro_torch.models.recsys import bce_loss, inbatch_softmax_loss
-from repro_torch.models.transformer import forward, forward_hidden, lm_head
+from repro_torch.models.transformer import forward, forward_hidden, lm_head, sharded_head
 from repro_torch.sharding.api import (P, all_gather, batch_axes, current_mesh, pmean, psum,
                                       pvary, shard)
 from repro_torch.train.optimizer import Optimizer, clip_by_global_norm
 
-GRAD_CLIP = 1.0  # repro's make_train_step default
-ACCUM_DTYPE = torch.float32  # its microbatch gradient accumulator
 AUX_WEIGHT = 0.01  # its lm_loss weight of the MoE aux loss
 
 
-def sharded_xent(hidden, head, labels, mesh, *, tp_axis: str = "model", t_chunk: int = 512):
+def sharded_xent(hidden, head, labels, mesh, *, tp_axis: str = "model", t_chunk: int = 512,
+                 gathered: bool = False):
     """Cross-entropy with the LM head fused inside ``repro``'s ``shard_map``
     region, in the local view: ``hidden`` (B_local, T, d) and ``labels``
     (B_local, T) are this rank's blocks over the data axes, ``head`` (d,
     V_local) its vocab block over ``tp_axis``; returns the replicated mean
-    over the global B x T.
+    over the global B x T.  ``gathered``: ``head`` comes from an FSDP gather
+    over the data axes, whose backward already sums its gradient there.
 
     Logits exist only as (B_local, t_chunk, V_local) float32 chunks, each
     recomputed in the backward (``torch.utils.checkpoint``, whose recompute
@@ -51,7 +54,7 @@ def sharded_xent(hidden, head, labels, mesh, *, tp_axis: str = "model", t_chunk:
     # hidden is replicated over tp_axis and head over the data axes, and each
     # rank uses its copy with its own vocab block or tokens
     x = pvary(hidden, tp_axis, mesh)
-    head_l = pvary(head, dp, mesh)
+    head_l = head if gathered else pvary(head, dp, mesh)
     cols = torch.arange(V_local, device=hidden.device)
 
     def chunk_nll(xc, lc):
@@ -75,14 +78,19 @@ def lm_loss(model, batch, cfg, **fwd_kw):
     batch: ``tokens`` and ``labels`` (B, T).  ``fwd_kw``: the attention blocks.
 
     On a mesh (the local view: the batch is this rank's block over the data
-    axes, the weights replicated) the loss is the mean over the global batch:
-    with a "model" axis through ``sharded_xent`` on this rank's vocab block of
-    the head, else the ``pmean`` of the blocks' means over the data axes."""
+    axes, the weights replicated or FSDP x TP blocks) the loss is the mean
+    over the global batch: with a "model" axis through ``sharded_xent`` on
+    this rank's vocab block of the head, else the ``pmean`` of the blocks'
+    means over the data axes."""
     mesh = current_mesh()
     if mesh is not None and "model" in mesh.axis_names:
         hidden, aux = forward_hidden(model, batch["tokens"], cfg, **fwd_kw)
-        head = shard(lm_head(model, cfg), P(None, "model"), mesh)
-        nll = sharded_xent(hidden, head, batch["labels"], mesh)
+        if model.specs is not None:
+            head = sharded_head(model, cfg)
+            nll = sharded_xent(hidden, head, batch["labels"], mesh, gathered=True)
+        else:
+            head = shard(lm_head(model, cfg), P(None, "model"), mesh)
+            nll = sharded_xent(hidden, head, batch["labels"], mesh)
     else:
         logits, aux = forward(model, batch["tokens"], cfg, **fwd_kw)
         logits = logits.float()
@@ -109,14 +117,18 @@ def recsys_loss(model, batch, cfg):
     return loss, {"nll": loss.detach()}
 
 
-def make_train_step(loss_fn: Callable, optimizer: Optimizer, *, accum_steps: int = 1):
+def make_train_step(loss_fn: Callable, optimizer: Optimizer, *, grad_clip: float = 1.0,
+                    accum_steps: int = 1, accum_dtype=torch.float32):
     """``step(model, opt_state, batch)``; ``loss_fn(model, batch) -> (loss, aux)``.
 
     ``opt_state`` is ``optimizer.init`` of ``dict(model.named_parameters())``.
     With ``accum_steps > 1`` the batch's leading axis is split into
     microbatches; each microbatch's loss and gradient is divided by
-    ``accum_steps`` and summed (gradients in ``ACCUM_DTYPE``); aux is the last
-    microbatch's.  Metrics: ``loss`` and ``grad_norm`` (the norm before
+    ``accum_steps`` and summed (gradients in ``accum_dtype``: bfloat16 halves
+    the accumulator, as ``repro`` does for models over 10^11 parameters); aux
+    is the last microbatch's.  The gradients are clipped to global norm
+    ``grad_clip`` (of the global gradient when ``model.specs`` lays out its
+    blocks).  Metrics: ``loss`` and ``grad_norm`` (the norm before
     clipping), plus aux.
     """
     def grads_of(model, params, batch):
@@ -130,18 +142,18 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer, *, accum_steps: int
         split = {k: v.reshape((accum_steps, v.shape[0] // accum_steps) + v.shape[1:])
                  for k, v in batch.items()}
         acc_loss = 0.0
-        acc = {k: torch.zeros(p.shape, dtype=ACCUM_DTYPE, device=p.device)
+        acc = {k: torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
                for k, p in params.items()}
         for i in range(accum_steps):
             loss, aux, grads = grads_of(model, params, {k: v[i] for k, v in split.items()})
             acc_loss = acc_loss + loss.detach() / accum_steps
-            acc = {k: a + (grads[k] / accum_steps).to(ACCUM_DTYPE) for k, a in acc.items()}
+            acc = {k: a + (grads[k] / accum_steps).to(accum_dtype) for k, a in acc.items()}
         return acc_loss, aux, acc
 
     def step(model, opt_state, batch):
         params = dict(model.named_parameters())
         loss, aux, grads = compute_grads(model, params, batch)
-        grads, gnorm = clip_by_global_norm(grads, GRAD_CLIP)
+        grads, gnorm = clip_by_global_norm(grads, grad_clip, getattr(model, "specs", None))
         updates, opt_state = optimizer.update(grads, opt_state, params)
         with torch.no_grad():
             for k, p in params.items():

@@ -657,6 +657,23 @@ def test_no_wrapper_reaches_a_plain_version_on_the_card(cuda, monkeypatch, tmp_p
     finally:
         tdist.destroy_process_group()
 
+    # the dry run's two-tower retrieval cell on rank 0 of the (16, 16) mesh
+    # (a fake group of 256): its scan scores the rank's 3,908 rows in one launch
+    from repro_torch.launch import cells, dryrun
+    from repro_torch.sharding.api import use_mesh
+
+    mesh = dryrun.make_mesh("single_pod_16x16")
+    try:
+        cell = next(c for c in cells.list_cells()
+                    if c.cell_id == "two-tower-retrieval::retrieval_cand")
+        built = cells.build_cell(cell, mesh, device=cuda)
+        with use_mesh(mesh):
+            d, ids = counted("retrieval cell", lambda: built["fn"](*built["args"]))
+        assert launched["retrieval cell"]["distance_matrix"] == 1
+        assert d.shape == ids.shape == (1, 100)
+    finally:
+        tdist.destroy_process_group()
+
 
 def _count_scheduler_sites(sched):
     """Count the scheduler's device calls by site: admissions, ticks' steps
@@ -1231,3 +1248,28 @@ def test_mesh_path_on_the_card_matches_the_cpu_ranks(path, mesh_runs, cuda):
         for k in keys:
             np.testing.assert_allclose(card[k], cpu[k], rtol=rtol, atol=atol,
                                        err_msg=f"rank {r} {k}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell_id", ["llama3.2-1b::decode_32k", "gemma3-12b::decode_32k",
+                                     "two-tower-retrieval::retrieval_cand", "autoint::serve_p99",
+                                     "gcn-cora::molecule"])
+def test_dryrun_cell_executes_one_rank_on_the_card(cell_id, cuda, tmp_path):
+    """One rank of the (16, 16) production mesh (a fake group of 256), the
+    cell's step executed on the card: ``ok``, its measured peak within 80 GB
+    and within a factor 2 of the meta pass's reckoned peak."""
+    import torch.distributed as tdist
+
+    from repro_torch.launch import cells, dryrun
+
+    mesh = dryrun.make_mesh("single_pod_16x16")
+    try:
+        cell = next(c for c in cells.list_cells() if c.cell_id == cell_id)
+        rec = dryrun.run_cell(cell, mesh, "single_pod_16x16", str(tmp_path), cuda)
+    finally:
+        tdist.destroy_process_group()
+    assert rec["status"] == "ok", rec.get("traceback")
+    mem = rec["memory"]
+    print(f"[dry run] {cell_id}: measured {mem['measured_peak_bytes']} reckoned "
+          f"{mem['reckoned_peak_bytes']} step {mem['step_ms']:.2f} ms")
+    assert mem["fits"] and mem["measured_peak_bytes"] <= 2 * mem["reckoned_peak_bytes"] + 2**30
