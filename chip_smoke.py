@@ -342,6 +342,22 @@ Every phase is fatal on failure; nothing is caught and passed over.
     to 0 just before its step and read just after).  ``distance_matrix`` is
     timed at that cell's per-rank shape (1 x 3,908 x 256, negdot).
 
+31. strict mode on the card (``core/runtime_checks.py``): under
+    ``enable_strict_mode({"REPRO_STRICT": "1"})`` (CUDA sync debug ``warn``)
+    with every warning recorded, at the serve defaults (n=20,000, d=32, KL,
+    NN-descent NN 15): (a) one batch of STRICT_BATCH queries through the
+    static searcher (ef 96, frontier 4), (b) the slot scheduler's
+    ``run_stream`` over STRICT_STREAM queries (48 slots, frontier 12, 4
+    lock-steps per tick).  Each synchronizing call is counted by its site
+    (the innermost frame of the repo on the warning's stack).  Held: (a)
+    one ``.item()`` per lock-step plus SEARCH_SYNCS_FIXED (the loop's last
+    check, the seeding's scalar upload and the readback); (b) per stepping
+    tick one ``done`` read, per admission ADMIT_SYNCS uploads, per retiring
+    tick RETIRE_SYNCS (the retiring rows' index upload and their copy);
+    results equal to the same calls without strict mode.  Then, under
+    ``REPRO_STRICT_TRANSFER=disallow``, a tick whose slots were admitted
+    before must raise at its ``done`` read; strict mode is then turned off.
+
 Phase 10 also times each kernel at the sharded paths' shapes and, each held
 to the plain version, at the shapes phases 21-23 give it: gather_scores at
 the tuner's search step (64, 60) at m'=32, BM25's search step (32, 30) at
@@ -355,6 +371,7 @@ three lines are the card line, a JSON object with the kernels' numbers, and
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import json
@@ -574,6 +591,30 @@ STEP_TOL = dict(rtol=2e-6, atol=2e-6)
 PRODUCTION_CELLS = ("llama3.2-1b::train_4k", "llama3.2-1b::decode_32k", "gemma3-12b::decode_32k",
                     "two-tower-retrieval::retrieval_cand", "autoint::serve_p99")
 PROFILER_FALLBACKS = []  # timings read from CUDA events where the profiler fell short
+# phase 31: strict mode (CUDA sync debug) at the serve defaults; the host syncs held,
+# site by site, to the counts the card showed (PERF.md §3).  A site is (file,
+# function, a piece of its source line); each count is per unit of the run
+STRICT_BATCH, STRICT_STREAM = 64, 256
+# the static search: (site, per lock-step, per call)
+SEARCH_SYNC_SITES = (
+    # the loop's condition, once per lock-step and once more to end it
+    (("src/repro_torch/core/batched_beam.py", "batched_beam_search", "st.done.all().item()"),
+     1, 1),
+    # seed_beams' upload of the scalar True
+    (("src/repro_torch/core/batched_beam.py", "_pack_bits", "mask[ids.long()] = True"), 0, 1),
+    # the readback of ids and evals
+    (("chip_smoke.py", "searched", ".cpu().numpy()"), 0, 2),
+)
+# the slot scheduler: (site, per stepping tick, per admission, per retiring tick)
+SCHED_SYNC_SITES = (
+    (("src/repro_torch/core/scheduler.py", "tick", "done.cpu()"), 1, 0, 0),
+    (("src/repro_torch/core/scheduler.py", "tick", "torch.as_tensor(ctl,"), 0, 1, 0),
+    (("src/repro_torch/core/scheduler.py", "tick", "torch.as_tensor(Q_new,"), 0, 1, 0),
+    (("src/repro_torch/core/batched_beam.py", "_pack_bits", "mask[ids.long()] = True"), 0, 1, 0),
+    (("src/repro_torch/core/scheduler.py", "tick", "torch.as_tensor(idx,"), 0, 0, 1),
+    (("src/repro_torch/core/scheduler.py", "tick", ".cpu().numpy()  # the retiring rows"),
+     0, 0, 1),
+)
 
 
 def log(msg: str) -> None:
@@ -1159,6 +1200,173 @@ def check_rank_launches(label: str, ranks: list, runs: list, wanted: dict) -> No
                     if not launched[phase][name] > 0:
                         raise AssertionError(f"{label}: rank {r} did not launch {name} in its "
                                              f"{phase}: {launched}")
+
+
+def sync_sites(fn):
+    """``fn()`` with every synchronizing CUDA call counted by its site: the
+    innermost frame of this repo on the warning's stack, as (path, line,
+    function, source).  Returns (fn's result, Counter of sites)."""
+    import traceback
+    import warnings
+
+    sites = collections.Counter()
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing CUDA operation" not in str(message):
+            log(f"phase 31: another warning under strict mode: {category.__name__}: {message}")
+            return
+        here = [f for f in traceback.extract_stack()[:-1]
+                if f.filename.startswith(str(ROOT)) and f.name != "sync_sites"]
+        f = here[-1] if here else traceback.FrameSummary(filename, lineno, "?")
+        where = os.path.relpath(f.filename, ROOT) if f.filename.startswith(str(ROOT)) else f.filename
+        sites[(where, f.lineno, f.name, (f.line or "").strip())] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        out = fn()
+    return out, sites
+
+
+def held_sites(sites, table, units) -> dict:
+    """Each measured site's count beside the one ``table`` gives it for
+    ``units`` (a tuple of unit counts, one per column of the table), as
+    {"path:line function: source": [measured, held to]}.  A site that no
+    row names, or that more than one row names, is held to 0; a row that
+    names no measured site is held to its count as "<missing> ..."."""
+    out, matched = {}, collections.Counter()
+    for (where, line, name, src), n in sites.items():
+        rows = [i for i, ((f, fn, piece), *_) in enumerate(table)
+                if f == where and fn == name and piece in src]
+        want = sum(u * c for u, c in zip(units, table[rows[0]][1:])) if len(rows) == 1 else 0
+        if len(rows) == 1:
+            matched[rows[0]] += 1
+        out[f"{where}:{line} {name}: {src}"] = [n, want]
+    for i, ((f, fn, piece), *counts) in enumerate(table):
+        if not matched[i]:
+            out[f"<missing> {f} {fn}: {piece}"] = [0, sum(u * c for u, c in zip(units, counts))]
+    return out
+
+
+def phase31() -> dict:
+    """Strict mode on the card: the host syncs of the static searcher and of the
+    slot scheduler at the serve defaults, by site, held to the counts PERF.md
+    states; then the transfer guard's ``disallow`` on the scheduler's done read."""
+    from repro_torch.core import batched_beam
+    from repro_torch.core.index import ANNIndex
+    from repro_torch.core.runtime_checks import disable_strict_mode, enable_strict_mode
+    from repro_torch.core.spec import RetrievalSpec
+    from repro_torch.data.synthetic import lda_like_histograms, split_queries
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)  # build_and_serve's data at the serve defaults
+    data = lda_like_histograms(rng, 20_000 + STRICT_STREAM, 32, device="cuda")
+    Q, rest = split_queries(data, STRICT_STREAM, rng)
+    X = rest[:20_000]
+    spec = RetrievalSpec(distance="kl", builder="nndescent", NN=15, ef_construction=100,
+                         n_entries=4, k=10, ef_search=96, frontier=4, slots=SCHED_SLOTS,
+                         sched_frontier=SCHED_FRONTIER, steps_per_sync=4)
+    idx = ANNIndex.build(X, spec=spec, generator=torch.Generator(device="cuda").manual_seed(0))
+    search, Qb, Q_host = idx.searcher(), Q[:STRICT_BATCH], Q.cpu().numpy()
+
+    def searched():
+        _, ids, evals, _ = search(Qb)
+        return ids.cpu().numpy(), evals.cpu().numpy()
+
+    def scheduled(sched):
+        res = sched.run_stream(Q_host, warm=False)
+        return np.stack([r.ids for r in res]), np.asarray([r.n_evals for r in res])
+
+    want_search = searched()  # also the warm-up
+    plain = idx.scheduler()
+    want_stream = scheduled(plain)
+    torch.cuda.synchronize()
+
+    steps = {"n": 0}
+    step0 = batched_beam.beam_step
+
+    def counted_step(*args, **kwargs):
+        steps["n"] += 1
+        return step0(*args, **kwargs)
+
+    sched = idx.scheduler()
+    calls = count_sites(sched)
+    tick0, retiring = sched.tick, {"n": 0}
+
+    def tick(now=0.0):
+        out = tick0(now)
+        retiring["n"] += bool(out)
+        return out
+
+    sched.tick = tick
+    ops.reset_launch_counts()
+    applied = enable_strict_mode({"REPRO_STRICT": "1"})
+    try:
+        batched_beam.beam_step = counted_step
+        try:
+            got_search, search_sites = sync_sites(searched)
+        finally:
+            batched_beam.beam_step = step0
+        got_stream, stream_sites = sync_sites(lambda: scheduled(sched))
+    finally:
+        disable_strict_mode()
+    launches = ops.launch_counts()
+    if applied["sync_debug_mode"] != "warn" or torch.cuda.get_sync_debug_mode() != 0:
+        raise AssertionError(f"phase 31: strict mode applied {applied}, left "
+                             f"{torch.cuda.get_sync_debug_mode()} behind")
+    for label, got, want in (("search", got_search, want_search),
+                             ("stream", got_stream, want_stream)):
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"phase 31: the {label} under strict mode differs from "
+                                 f"the same call without it")
+    search_held = held_sites(search_sites, SEARCH_SYNC_SITES, (steps["n"], 1))
+    search_line = {"lock_steps": steps["n"], "syncs": sum(search_sites.values()),
+                   "held_to": sum(w for _, w in search_held.values()), "sites": search_held}
+    stream_held = held_sites(stream_sites, SCHED_SYNC_SITES,
+                             (calls["step"], calls["admit"], retiring["n"]))
+    stream_line = {"requests": STRICT_STREAM, "ticks": calls["tick"],
+                   "stepping_ticks": calls["step"], "admissions": calls["admit"],
+                   "retiring_ticks": retiring["n"], "lock_steps": 4 * calls["step"],
+                   "syncs": sum(stream_sites.values()),
+                   "held_to": sum(w for _, w in stream_held.values()), "sites": stream_held}
+    log("phase 31 (a) static search, one batch of 64: " + json.dumps(search_line))
+    log("phase 31 (b) slot scheduler, 256 queries: " + json.dumps(stream_line))
+    for label, line in (("(a) search", search_line), ("(b) scheduler", stream_line)):
+        off = {site: c for site, c in line["sites"].items() if c[0] != c[1]}
+        if off or line["syncs"] != line["held_to"]:
+            raise AssertionError(f"phase 31 {label}: {line['syncs']} synchronizing calls, "
+                                 f"held to {line['held_to']}; sites off their count "
+                                 f"[measured, held to]: {off}")
+    if not launches["gather_scores"] > 0:
+        raise AssertionError(f"phase 31: gather_scores not launched: {launches}")
+
+    # disallow: slots admitted without strict mode, then a tick that only steps
+    guard = idx.scheduler()
+    guard.reset()
+    for q in Q_host[:guard.S]:
+        guard.submit(q)
+    guard.tick()
+    if guard.n_pending or not guard.n_inflight:
+        raise AssertionError("phase 31: the guard's first tick left requests pending or "
+                             "retired every slot")
+    enable_strict_mode({"REPRO_STRICT": "1", "REPRO_STRICT_TRANSFER": "disallow"})
+    raised = None
+    try:
+        guard.tick()
+    except RuntimeError as e:
+        import traceback
+        raised = [f for f in traceback.extract_tb(e.__traceback__)
+                  if f.filename.startswith(str(SRC))][-1]
+    finally:
+        disable_strict_mode()
+    if raised is None or "done" not in (raised.line or ""):
+        raise AssertionError(f"phase 31: disallow did not raise at the done read: {raised}")
+    disallow = f"{os.path.relpath(raised.filename, ROOT)}:{raised.lineno}: {raised.line.strip()}"
+    log(f"phase 31: disallow raised at {disallow}")
+    return {"applied": {k: list(v) if isinstance(v, tuple) else v for k, v in applied.items()},
+            "search": search_line, "scheduler": stream_line, "launches": launches,
+            "disallow_raised_at": disallow, "s": time.perf_counter() - t0}
 
 
 def phase19(kl) -> dict:
@@ -4822,6 +5030,11 @@ def main() -> int:
 
     lap("30 fsdp x tp and the dry run")
 
+    # -- 31. strict mode on the card: the host syncs of search and scheduler by site ---
+    strict31 = phase31()
+
+    lap("31 strict mode")
+
     def err_of(kernel_name):
         return max(v for k, v in max_err.items() if k[0] == kernel_name and k[1] == "kl")
 
@@ -4970,6 +5183,7 @@ def main() -> int:
     log("recsys: " + json.dumps(recsys28))
     log("mesh: " + json.dumps(mesh29))
     log("fsdp x tp and the dry run: " + json.dumps(fsdp30))
+    log("strict mode: " + json.dumps(strict31))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"timings read from CUDA events, the profiler having fallen short: "
         f"{len(PROFILER_FALLBACKS)} {PROFILER_FALLBACKS}")

@@ -1,5 +1,5 @@
 """Core retrieval modules: distances, engine, builders, index, spec, metrics,
-tuning and learned construction distances."""
+tuning, learned construction distances and the runtime checks."""
 
 from repro_torch.core.distances import (
     Distance,
@@ -89,25 +89,36 @@ from repro_torch.core.learned import (
     learned_terms,
     mahalanobis_weights,
 )
-from repro_torch.core.metrics import recall_at_k, speedup_model
+from repro_torch.core.metrics import order_aware_recall, recall_at_k, speedup_model
+from repro_torch.core.runtime_checks import (
+    RecompileError,
+    disable_strict_mode,
+    dispatch_cache_size,
+    enable_strict_mode,
+    recompile_guard,
+    strict_mode_requested,
+)
 
 __all__ = [
     "ANNIndex", "BatchBeamState", "Blend", "Candidate", "CombinedDistance", "Distance",
     "DistancePolicy", "GraphView", "LEARNED_ARTIFACT_KIND", "Learned", "LearnedDistance",
     "LearnedResult", "LearnedTerms", "MahalanobisDraws", "MaxSym", "OnlineIndex",
-    "RankBlend", "RetrievalSpec", "ReversedDistance", "SYM_MODES", "ShardedSlotScheduler",
-    "SlotResult", "SlotScheduler", "SymmetrizedDistance", "TUNED_ARTIFACT_KIND", "TuneDraws",
-    "TuneResult", "ViewedDistance", "apply_post", "autotune", "available_distances",
-    "batched_beam_search", "beam_search_impl", "beam_step", "build_cost_proxy",
-    "build_local_subgraphs", "build_nndescent", "build_sharded", "build_swgraph",
-    "build_swgraph_wave", "calibrate_tau", "default_axes", "dominates", "draw_mahalanobis",
-    "filter_and_refine", "fit_construction_distance", "fit_mahalanobis_map", "get_distance",
-    "get_learned_weights", "ground_truth", "itakura_saito", "kc_sweep", "kl_divergence", "knn_scan",
-    "l2_proxy", "l2_squared", "learn_mahalanobis", "learned_artifact", "learned_terms",
-    "learned_weights_fingerprint", "load_learned_artifact", "load_spec", "load_tuned_artifact",
-    "mahalanobis_weights", "make_batched_searcher", "make_step_searcher", "neg_inner_product",
-    "pad_to_shards", "pareto_frontier", "recall_at_k", "register_learned_weights",
-    "renyi_divergence", "rerank", "reverse_edge_merge", "seed_beams", "select_entries",
-    "sharded_graph_search", "sharded_knn_scan", "speedup_model", "symmetrized", "true_neighbor_ids",
-    "tuned_artifact"
+    "RankBlend", "RecompileError", "RetrievalSpec", "ReversedDistance", "SYM_MODES",
+    "ShardedSlotScheduler", "SlotResult", "SlotScheduler", "SymmetrizedDistance",
+    "TUNED_ARTIFACT_KIND", "TuneDraws", "TuneResult", "ViewedDistance", "apply_post",
+    "autotune", "available_distances", "batched_beam_search", "beam_search_impl",
+    "beam_step", "build_cost_proxy", "build_local_subgraphs", "build_nndescent",
+    "build_sharded", "build_swgraph", "build_swgraph_wave", "calibrate_tau", "default_axes",
+    "disable_strict_mode", "dispatch_cache_size", "dominates", "draw_mahalanobis",
+    "enable_strict_mode", "filter_and_refine", "fit_construction_distance",
+    "fit_mahalanobis_map", "get_distance", "get_learned_weights", "ground_truth",
+    "itakura_saito", "kc_sweep", "kl_divergence", "knn_scan", "l2_proxy", "l2_squared",
+    "learn_mahalanobis", "learned_artifact", "learned_terms", "learned_weights_fingerprint",
+    "load_learned_artifact", "load_spec", "load_tuned_artifact", "mahalanobis_weights",
+    "make_batched_searcher", "make_step_searcher", "neg_inner_product",
+    "order_aware_recall", "pad_to_shards", "pareto_frontier", "recall_at_k",
+    "recompile_guard", "register_learned_weights", "renyi_divergence", "rerank",
+    "reverse_edge_merge", "seed_beams", "select_entries", "sharded_graph_search",
+    "sharded_knn_scan", "speedup_model", "strict_mode_requested", "symmetrized",
+    "true_neighbor_ids", "tuned_artifact"
 ]

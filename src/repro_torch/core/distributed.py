@@ -479,16 +479,28 @@ class ShardedSlotScheduler(SchedulerHost):
     replicated global top-k, a slot is done when no rank has it live, evals
     are summed and hops maxed.  The host reads ``done`` once per tick and
     copies the retiring rows only when something retires.  No QoS ladder:
-    one full rung.  The host state stays identical on every rank: while
-    arrivals remain to be submitted the stream's clock is agreed across
-    ranks (``_agree``), so every rank admits the same requests into the
-    same slots; after the last submission each rank keeps its own clock,
-    which only stamps ``t_admit`` and ``t_done``.
+    one full rung, and no admission control: ``slo_ms`` is the default SLO
+    that ``submit`` stamps on a request, as in ``repro``, and the tick serves
+    every request in full.  The host state stays identical on every rank:
+    while arrivals remain to be submitted the stream's clock is agreed
+    across ranks (``_agree``), so every rank admits the same requests into
+    the same slots; after the last submission each rank keeps its own
+    clock, which only stamps ``t_admit`` and ``t_done``.
+
+    ``neighbors_local=None`` builds this rank's subgraph here with
+    ``build_local_subgraphs`` (``NN``, ``nnd_iters``, ``builder``, ``seed``,
+    ``nnd_draws``).  ``compact`` bounds a lock-step's merge width,
+    ``max_steps`` a beam's steps (default ``n_local``), ``tenant_weights``
+    sets the DRR weights and ``background_fn`` is called once per idle tick.
     """
 
     def __init__(self, dist, X_local, neighbors_local, n_real: int, *, slots: int = 32,
-                 ef: int = 96, k: int = 10, frontier: int = 1, steps_per_sync: int = 1,
-                 drop_shards: int = 0, group=None):
+                 ef: int = 96, k: int = 10, frontier: int = 1, compact: int = 32,
+                 steps_per_sync: int = 1, max_steps: Optional[int] = None,
+                 drop_shards: int = 0, NN: int = 15, nnd_iters: int = 8,
+                 builder: str = "nndescent", seed: int = 0, nnd_draws=None,
+                 slo_ms: Optional[float] = None, tenant_weights: Optional[dict] = None,
+                 background_fn=None, group=None):
         if ef < k:
             raise ValueError(f"ef {ef} < k {k}")
         if frontier < 1:
@@ -498,6 +510,10 @@ class ShardedSlotScheduler(SchedulerHost):
         if not 0 <= drop_shards < self.n_shards:
             raise ValueError(f"drop_shards {drop_shards} outside [0, {self.n_shards})")
         self.n_local = int(X_local.shape[0])
+        if neighbors_local is None:
+            neighbors_local = build_local_subgraphs(
+                dist, X_local, NN=NN, nnd_iters=nnd_iters, builder=builder, seed=seed,
+                nnd_draws=nnd_draws, group=group)
         _check_layout(self.n_local, n_real, self.n_shards, neighbors_local.shape[0])
         self.n_real = int(n_real)
         self.drop_shards = int(drop_shards)
@@ -506,17 +522,17 @@ class ShardedSlotScheduler(SchedulerHost):
         self.dim = int(X_local.shape[1])
         self.S, self.ef, self.k = int(slots), int(ef), int(k)
         self.T = int(min(frontier, ef))
-        self.C = frontier_compact_width(self.T, int(neighbors_local.shape[1]), 32)
-        self.max_steps = self.n_local
+        self.C = frontier_compact_width(self.T, int(neighbors_local.shape[1]), compact)
+        self.max_steps = int(self.n_local if max_steps is None else max_steps)
         self.steps_per_sync = int(max(1, steps_per_sync))
         self._dev = X_local.device
         self._neighbors = neighbors_local.to(torch.int32).contiguous()
         self._consts = prepped(dist.prep_scan(X_local))
         self._entries = torch.zeros((1,), dtype=torch.int32, device=self._dev)
         self.rungs = [Rung(ef=self.ef, name="full")]
-        self.slo_s = None  # no admission control: every request runs the full rung
-        self._background = None  # no index maintenance to hang on idle ticks
-        self._init_host_queue()
+        self.slo_s = None if slo_ms is None else float(slo_ms) / 1e3
+        self._background = background_fn
+        self._init_host_queue(tenant_weights)
         self.reset()
 
     # ------------------------------------------------------------ device steps
@@ -620,6 +636,10 @@ class ShardedSlotScheduler(SchedulerHost):
             if write.any():
                 self.state = self._admit(self.state, torch.as_tensor(Q_new, device=self._dev),
                                          torch.as_tensor(write, device=self._dev))
+        if (self._background is not None and not self._n_pending
+                and (self._slot_rid < 0).any()):
+            # idle capacity this tick: the maintenance hook
+            self._background()
         if not (self._slot_rid >= 0).any():
             return []
 

@@ -4,6 +4,11 @@
     idx = ANNIndex.build(X, spec=spec)      # X on the card (or the CPU)
     dists, ids, n_evals, hops = idx.searcher()(Q)
 
+The historical keyword arguments (``index_sym``/``query_sym`` strings and
+the loose builder knobs) still build through ``repro``'s shim, which folds
+the arguments passed into the equivalent spec (a ``DeprecationWarning`` on
+the two strings); the result is the ``spec=`` build's.
+
 Builders: NN-descent, and SW-graph with the wave-parallel or the
 sequential engine, under any build policy (the graph-construction
 distance).  Engines: the batched lock-step engine and the single-query
@@ -20,6 +25,7 @@ index, static or mutable.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable, Optional
 
 import torch
@@ -51,6 +57,35 @@ def bind_policies(spec: RetrievalSpec, dist, X, natural: Optional[Callable] = No
     return build_policy, search_policy, build_dist, search_dist
 
 
+def _legacy_spec(index_sym, query_sym, builder, build_engine, wave, build_frontier, NN,
+                 ef_construction, M_max, nnd_iters, n_entries, capacity) -> RetrievalSpec:
+    """Deprecation shim: the old loose keyword arguments folded into one
+    spec.  Only the arguments passed are forwarded, so the spec's own field
+    defaults apply once."""
+    if index_sym is not None or query_sym is not None:
+        warnings.warn(
+            "index_sym/query_sym string kwargs are deprecated; pass a "
+            "RetrievalSpec (spec=...) with build_policy/search_policy instead",
+            DeprecationWarning,
+            stacklevel=3,
+        )
+    passed = {
+        "build_policy": index_sym,
+        "search_policy": query_sym,
+        "builder": builder,
+        "build_engine": build_engine,
+        "wave": wave,
+        "build_frontier": build_frontier,
+        "NN": NN,
+        "ef_construction": ef_construction,
+        "M_max": M_max,
+        "nnd_iters": nnd_iters,
+        "n_entries": n_entries,
+        "capacity": capacity,
+    }
+    return RetrievalSpec(**{k: v for k, v in passed.items() if v is not None})
+
+
 @dataclasses.dataclass
 class ANNIndex:
     """A built neighborhood-graph index over a database X.
@@ -78,9 +113,18 @@ class ANNIndex:
 
     @classmethod
     def build(cls, X, dist=None, *, spec: Optional[RetrievalSpec] = None,
+              index_sym: Optional[str] = None, query_sym: Optional[str] = None,
+              builder: Optional[str] = None, build_engine: Optional[str] = None,
+              wave: Optional[int] = None, build_frontier: Optional[int] = None,
+              NN: Optional[int] = None, ef_construction: Optional[int] = None,
+              M_max: Optional[int] = None, nnd_iters: Optional[int] = None,
+              n_entries: Optional[int] = None, capacity: Optional[int] = None,
               generator: Optional[torch.Generator] = None,
               natural: Optional[Callable] = None) -> "ANNIndex":
-        """Build an index from a ``RetrievalSpec``.
+        """Build an index from a ``RetrievalSpec``, or from the legacy keyword
+        arguments (``index_sym`` ... ``capacity``, folded into the equivalent
+        spec; ``spec.distance`` then records ``dist.name`` when ``dist`` is
+        given).  Passing both raises ``ValueError``.
 
         Args:
             X: (n, m) float32 database on the device the index should live on.
@@ -97,7 +141,17 @@ class ANNIndex:
             natural: optional callable returning the distance-specific
                 natural symmetrization (Eq. 4), for the ``natural`` policy.
         """
-        spec = spec if spec is not None else RetrievalSpec()
+        legacy = (index_sym, query_sym, builder, build_engine, wave, build_frontier, NN,
+                  ef_construction, M_max, nnd_iters, n_entries, capacity)
+        if spec is None:
+            spec = _legacy_spec(*legacy)
+            if dist is not None and getattr(dist, "name", None):
+                # record the distance actually run, so build_info and its
+                # fingerprint describe the scenario
+                spec = spec.replace(distance=dist.name)
+        elif any(v is not None for v in legacy):
+            raise ValueError("pass EITHER spec=... or the legacy kwargs, not both "
+                             "(use spec.replace(...) to tweak a spec)")
         if dist is None:
             dist = spec.base_distance()
         if generator is None:

@@ -1,6 +1,7 @@
 """Retrieval quality / efficiency metrics (paper SS3).
 
-recall@k is the average fraction of true neighbors found, order-insensitive.
+recall@k is the average fraction of true neighbors found, order-insensitive;
+``order_aware_recall`` weights each true neighbor by its rank (a diagnostic).
 The hardware-independent efficiency metric is the distance-computation
 reduction n_db / n_evals, which the paper's wall-clock speedup tracks when
 the distance dominates.
@@ -38,3 +39,20 @@ def speedup_model(n_db: int, n_evals_per_query) -> float:
     """Distance-evaluation reduction vs brute force (model speedup)."""
     ev = float(np.mean(_host(n_evals_per_query)))
     return n_db / max(ev, 1.0)
+
+
+def order_aware_recall(found_ids, true_ids) -> float:
+    """Position-weighted recall: true neighbor of rank r found anywhere in
+    the row earns 1 / log2(r + 2), normalized per query.  The paper breaks
+    ties arbitrarily, so this is a diagnostic, not a headline number."""
+    found = _host(found_ids)
+    true = _host(true_ids)
+    k = true.shape[1]
+    w = 1.0 / np.log2(np.arange(2, k + 2))
+    score, norm = 0.0, w.sum()
+    for f, t in zip(found, true):
+        f_set = set(int(y) for y in f)
+        for rank, x in enumerate(t):
+            if int(x) in f_set:
+                score += w[rank]
+    return score / (norm * found.shape[0])

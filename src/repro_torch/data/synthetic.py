@@ -5,6 +5,7 @@
   Manner       : Zipf-sampled term counts with the BM25 views: query = raw
                  TF, document = saturated TF x IDF, and the natural
                  shared-sqrt(IDF) symmetrization of Eq. (4).
+  LM tokens    : squared-uniform (Zipf-ish) token streams with shifted labels.
   recsys       : criteo-like CTR batches (per-field categorical ids, dense
                  features, behaviour histories).
   graphs       : a skewed random edge list with node features and labels.
@@ -42,6 +43,17 @@ def lda_like_histograms(rng: np.random.Generator, n: int, d: int, alpha: float =
                         device="cuda"):
     """Wiki-d / RCV-d proxy: concentrated Dirichlet topic histograms."""
     return _to_device(rng.dirichlet(np.full(d, alpha), size=n), device)
+
+
+def make_histogram_dataset(name: str, rng: np.random.Generator, n: int, d: int,
+                           device="cuda"):
+    """The histogram family ``name`` names: ``randhist*`` or ``wiki*`` /
+    ``rcv*``; any other name raises ``ValueError``."""
+    if name.startswith("randhist"):
+        return random_histograms(rng, n, d, device=device)
+    if name.startswith(("wiki", "rcv")):
+        return lda_like_histograms(rng, n, d, device=device)
+    raise ValueError(name)
 
 
 def split_queries(X, n_queries: int, rng: np.random.Generator):
@@ -111,6 +123,24 @@ def text_collection(rng: np.random.Generator, n: int, vocab: int = 2048, mean_le
     for i in range(n):
         np.add.at(counts[i], rng.choice(vocab, size=int(lengths[i]), p=probs), 1.0)
     return TextCollection.from_counts(torch.from_numpy(counts).to(resolve_device(device)))
+
+
+def tokens_from_uniforms(u: np.ndarray, vocab_size: int) -> dict:
+    """(B, T + 1) float32 uniforms in [0, 1) -> {"tokens", "labels"} (B, T)
+    int64 CPU tensors: tokens ``u * u * (V - 1)`` truncated (squared
+    uniforms put the mass on low ids, Zipf-ish), labels shifted by one."""
+    toks = torch.from_numpy((u * u * (vocab_size - 1)).astype(np.int64))
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def token_batches(rng: np.random.Generator, vocab_size: int, batch: int, seq_len: int,
+                  n_batches: int, device="cuda"):
+    """``n_batches`` synthetic LM batches on ``device``, each from
+    (batch, seq_len + 1) float32 uniforms of ``rng`` (``tokens_from_uniforms``)."""
+    dev = resolve_device(device)
+    for _ in range(n_batches):
+        u = rng.random((batch, seq_len + 1), dtype=np.float32)
+        yield {k: v.to(dev) for k, v in tokens_from_uniforms(u, vocab_size).items()}
 
 
 def recsys_batch(rng: np.random.Generator, batch: int, vocab_sizes, device="cuda", *,

@@ -31,35 +31,33 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_family, get_smoke_config
 from repro_torch.data.pipeline import DataPipeline
-from repro_torch.data.synthetic import recsys_batch
+from repro_torch.data.synthetic import recsys_batch, tokens_from_uniforms
 from repro_torch.models import recsys, transformer
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train.optimizer import adamw, warmup_cosine
 from repro_torch.train.train_step import lm_loss, make_train_step, recsys_loss
 
-# repro's train_recsys: its peak learning rate, warmup steps and batch key
+# repro's train_recsys: its default peak learning rate, warmup steps and batch key
 PEAK_LR, WARMUP, BATCH_SEED = 1e-3, 10, 1
-# repro's train_lm: its peak learning rate and batch key
+# repro's train_lm: its default peak learning rate and batch key
 LM_PEAK_LR, LM_BATCH_SEED = 3e-4, 0
 
 
-def lm_batch_fn(cfg, batch: int, seq: int):
-    """``make(step)`` -> {"tokens", "labels"} (batch, seq) int64 CPU tensors:
-    tokens ``u * u * (V - 1)`` for u uniform in [0, 1), labels shifted by one."""
+def lm_batch_fn(cfg, batch: int, seq: int, seed: int = LM_BATCH_SEED):
+    """``make(step)`` -> {"tokens", "labels"} (batch, seq) int64 CPU tensors
+    from the uniforms of ``default_rng((seed, step))`` (``tokens_from_uniforms``)."""
     def make(step: int):
-        u = np.random.default_rng((LM_BATCH_SEED, step)).random((batch, seq + 1),
-                                                                dtype=np.float32)
-        toks = torch.from_numpy((u * u * (cfg.vocab_size - 1)).astype(np.int64))
-        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        u = np.random.default_rng((seed, step)).random((batch, seq + 1), dtype=np.float32)
+        return tokens_from_uniforms(u, cfg.vocab_size)
 
     return make
 
 
-def lm_trainer(cfg, steps: int, block: int, device):
+def lm_trainer(cfg, steps: int, block: int, device, peak_lr: float = LM_PEAK_LR):
     """``train_lm``'s model (seed 0), AdamW state and train step for a run of
     ``steps`` steps with attention blocks of ``block``."""
     model = transformer.init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
-    opt = adamw(warmup_cosine(LM_PEAK_LR, max(steps // 20, 5), steps))
+    opt = adamw(warmup_cosine(peak_lr, max(steps // 20, 5), steps))
     step_fn = make_train_step(lambda m, b: lm_loss(m, b, cfg, block_q=block, block_kv=block),
                               opt)
     return model, opt.init(dict(model.named_parameters())), step_fn
@@ -67,7 +65,7 @@ def lm_trainer(cfg, steps: int, block: int, device):
 
 def train_lm(cfg, *, steps: int = 200, batch: int = 8, seq: int = 128,
              ckpt_dir: Optional[str] = None, ckpt_every: int = 50, log_every: int = 10,
-             block: int = 64, device="cuda"):
+             peak_lr: float = LM_PEAK_LR, block: int = 64, device="cuda"):
     """Train an LM config for ``steps`` steps; returns (model, history).
 
     History: per logged step its ``loss``, ``grad_norm``, the MoE ``aux``
@@ -77,7 +75,7 @@ def train_lm(cfg, *, steps: int = 200, batch: int = 8, seq: int = 128,
     resumes from the latest checkpoint.
     """
     dev = resolve_device(device)
-    model, opt_state, step_fn = lm_trainer(cfg, steps, block, dev)
+    model, opt_state, step_fn = lm_trainer(cfg, steps, block, dev, peak_lr)
 
     start, mgr = 0, None
     if ckpt_dir:
@@ -116,14 +114,14 @@ def train_lm(cfg, *, steps: int = 200, batch: int = 8, seq: int = 128,
 
 
 def train_recsys(cfg, *, steps: int = 100, batch: int = 256, log_every: int = 10,
-                 device="cuda"):
+                 peak_lr: float = PEAK_LR, device="cuda"):
     """Train ``cfg``'s model; returns (model, history of {"step", "loss",
     "s"}), ``s`` the seconds since the loop began, read after the loss's host
     copy (which waits for the step).  AdamW updates the whole table densely
     every step, as ``repro``'s does."""
     dev = resolve_device(device)
     model = recsys.init_params(cfg, torch.Generator().manual_seed(0), dev)
-    opt = adamw(warmup_cosine(PEAK_LR, WARMUP, steps))
+    opt = adamw(warmup_cosine(peak_lr, WARMUP, steps))
     opt_state = opt.init(dict(model.named_parameters()))
     step_fn = make_train_step(lambda m, b: recsys_loss(m, b, cfg), opt)
 

@@ -30,10 +30,13 @@ def field_offsets(vocab_sizes: Sequence[int], device="cpu") -> torch.Tensor:
     return torch.from_numpy(off).to(device)
 
 
-def init_table(generator, vocab_sizes: Sequence[int], dim: int, device="cpu") -> torch.Tensor:
-    """(sum(vocab_sizes), dim) float32 table, N(0, 1) x dim^-1/2."""
+def init_table(generator, vocab_sizes: Sequence[int], dim: int, device="cpu",
+               dtype=torch.float32) -> torch.Tensor:
+    """(sum(vocab_sizes), dim) table, N(0, 1) x dim^-1/2 drawn in float32,
+    then cast to ``dtype``."""
     total = int(sum(vocab_sizes))
-    return torch.randn((total, dim), generator=generator, device=device) * dim ** -0.5
+    return (torch.randn((total, dim), generator=generator, device=device)
+            * dim ** -0.5).to(dtype)
 
 
 def table_spec(tp_axis: str = "model", fsdp_axis: str = None):

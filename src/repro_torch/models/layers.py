@@ -30,10 +30,11 @@ NEG_INF = -1e30
 
 
 def dense_init(generator, d_in: int, d_out: int, scale: Optional[float] = None,
-               device="cpu") -> torch.Tensor:
-    """(d_in, d_out) float32 weights, N(0, 1) x ``scale`` (default d_in^-1/2)."""
+               device="cpu", dtype=torch.float32) -> torch.Tensor:
+    """(d_in, d_out) weights, N(0, 1) x ``scale`` (default d_in^-1/2) drawn in
+    float32, then cast to ``dtype``."""
     scale = scale if scale is not None else d_in ** -0.5
-    return torch.randn((d_in, d_out), generator=generator, device=device) * scale
+    return (torch.randn((d_in, d_out), generator=generator, device=device) * scale).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -70,12 +71,13 @@ def apply_rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 
 
-def _tile_mask(q_pos, kv_pos, window: int):
-    """(..., bq, bk) causal bool mask of q positions ``q_pos`` (..., bq)
-    against kv positions ``kv_pos`` (bk,); ``window`` <= 0 means no window
-    limit."""
+def _tile_mask(q_pos, kv_pos, causal: bool, window: int):
+    """(..., bq, bk) bool mask of q positions ``q_pos`` (..., bq) against kv
+    positions ``kv_pos`` (bk,): no later key when ``causal``, and no key
+    ``window`` or more behind (``window`` <= 0: no limit)."""
     diff = q_pos[..., :, None] - kv_pos
-    return (diff >= 0) & ((window <= 0) | (diff < window))
+    m = (window <= 0) | (diff < window)
+    return m & (diff >= 0) if causal else m
 
 
 def _pad_blocks(q, k, v, block_q: int, block_kv: int):
@@ -107,18 +109,18 @@ def _blocks(q, k, v, block_q, block_kv, q_offset):
     return qb, kp, vp, bk, q_pos, kv_pos, kv_pos < Tk
 
 
-def _tile_probs(qb, k_blk, q_pos, kv_pos, valid, window, scale, lse=None):
+def _tile_probs(qb, k_blk, q_pos, kv_pos, valid, causal, window, scale, lse=None):
     """Scores of every q block against one kv block, (B, nq, g, Hkv, bq, bk)
     float32, masked to NEG_INF; with ``lse``, the probabilities (0 where
     masked)."""
     s = torch.einsum("bnqghd,bkhd->bnghqk", qb, k_blk) * scale
-    mask = (_tile_mask(q_pos, kv_pos, window) & valid)[None, :, None, None]
+    mask = (_tile_mask(q_pos, kv_pos, causal, window) & valid)[None, :, None, None]
     if lse is None:
         return torch.where(mask, s, NEG_INF)
     return torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
 
 
-def _flash_fwd(q, k, v, window, block_q, block_kv, q_offset):
+def _flash_fwd(q, k, v, causal, window, block_q, block_kv, q_offset):
     """Tiled forward: (out (B, Tq, Hq, dh) in q's dtype, lse (B, nq, g, Hkv, bq) f32)."""
     B, Tq, Hq, dh = q.shape
     scale = dh ** -0.5
@@ -130,7 +132,7 @@ def _flash_fwd(q, k, v, window, block_q, block_kv, q_offset):
     for j in range(kv_pos.shape[0]):
         k_blk = kp[:, j * bk:(j + 1) * bk].float()
         v_blk = vp[:, j * bk:(j + 1) * bk].float()
-        s = _tile_probs(qb, k_blk, q_pos, kv_pos[j], kv_valid[j], window, scale)
+        s = _tile_probs(qb, k_blk, q_pos, kv_pos[j], kv_valid[j], causal, window, scale)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m - m_new)
@@ -143,7 +145,7 @@ def _flash_fwd(q, k, v, window, block_q, block_kv, q_offset):
     return out[:, :Tq].to(q.dtype), lse
 
 
-def _flash_bwd(q, k, v, lse, dout, window, block_q, block_kv, q_offset):
+def _flash_bwd(q, k, v, lse, dout, causal, window, block_q, block_kv, q_offset):
     """Flash backward: recompute the tiles from ``lse``, never store (T, T) probs."""
     B, Tq, Hq, dh = q.shape
     Tk = k.shape[1]
@@ -159,14 +161,16 @@ def _flash_bwd(q, k, v, lse, dout, window, block_q, block_kv, q_offset):
     # output need not be saved
     delta = torch.zeros_like(lse)
     for j, (k_blk, v_blk) in enumerate(kv):
-        p = _tile_probs(qb, k_blk, q_pos, kv_pos[j], kv_valid[j], window, scale, lse)
+        p = _tile_probs(qb, k_blk, q_pos, kv_pos[j], kv_valid[j], causal, window, scale,
+                        lse)
         dov = torch.einsum("bnqghd,bkhd->bnghqk", dob, v_blk)
         delta = delta + torch.sum(p * dov, dim=-1)
 
     dq = torch.zeros_like(qb)
     dks, dvs = [], []
     for j, (k_blk, v_blk) in enumerate(kv):
-        p = _tile_probs(qb, k_blk, q_pos, kv_pos[j], kv_valid[j], window, scale, lse)
+        p = _tile_probs(qb, k_blk, q_pos, kv_pos[j], kv_valid[j], causal, window, scale,
+                        lse)
         dvs.append(torch.einsum("bnghqk,bnqghd->bkhd", p, dob))
         dp = torch.einsum("bnqghd,bkhd->bnghqk", dob, v_blk)
         ds = p * (dp - delta[..., None]) * scale
@@ -182,30 +186,31 @@ class _FlashAttention(torch.autograd.Function):
     """``repro``'s ``jax.custom_vjp`` of the flash schedule."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window, block_q, block_kv, q_offset):
-        out, lse = _flash_fwd(q, k, v, window, block_q, block_kv, q_offset)
+    def forward(ctx, q, k, v, causal, window, block_q, block_kv, q_offset):
+        out, lse = _flash_fwd(q, k, v, causal, window, block_q, block_kv, q_offset)
         ctx.save_for_backward(q, k, v, lse)
-        ctx.args = (window, block_q, block_kv, q_offset)
+        ctx.args = (causal, window, block_q, block_kv, q_offset)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, lse = ctx.saved_tensors
         dq, dk, dv = _flash_bwd(q, k, v, lse, dout, *ctx.args)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
-def blockwise_attention(q, k, v, *, window: int = 0, block_q: int = 512,
-                        block_kv: int = 512, q_offset: int = 0):
-    """Causal flash attention with its own backward. q: (B, Tq, Hq, dh); k,
-    v: (B, Tk, Hkv, dh).
+def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                        block_q: int = 512, block_kv: int = 512, q_offset: int = 0):
+    """Flash attention with its own backward. q: (B, Tq, Hq, dh); k, v: (B,
+    Tk, Hkv, dh).
 
+    ``causal=False`` lets every query see every key (an encoder);
     ``window`` > 0 = sliding window (a plain int per layer); ``q_offset`` =
     the absolute position of q's first row.  T need not be a multiple of
     the blocks (padded rows and keys are masked).
     """
-    return _FlashAttention.apply(q, k, v, int(window), int(block_q), int(block_kv),
-                                 int(q_offset))
+    return _FlashAttention.apply(q, k, v, bool(causal), int(window), int(block_q),
+                                 int(block_kv), int(q_offset))
 
 
 # ---------------------------------------------------------------------------

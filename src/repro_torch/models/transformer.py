@@ -443,10 +443,12 @@ def forward(params: LMParams, tokens, cfg: LMConfig, *, block_q: int = 512,
 # ---------------------------------------------------------------------------
 
 
-def init_kv_cache(cfg: LMConfig, batch: int, max_len: int, device="cuda"):
+def init_kv_cache(cfg: LMConfig, batch: int, max_len: int, device="cuda", dtype=None):
+    """Zeroed k and v (n_layers, batch, max_len, n_kv_heads, d_head) in
+    ``dtype`` (default the config's) and (batch,) int32 lengths."""
     dev = resolve_device(device)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
-    dt = _dt(cfg)
+    dt = dtype or _dt(cfg)
     return {"k": torch.zeros(shape, dtype=dt, device=dev),
             "v": torch.zeros(shape, dtype=dt, device=dev),
             "length": torch.zeros((batch,), dtype=torch.int32, device=dev)}

@@ -107,17 +107,19 @@ def adamw(lr: Callable, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
 # a stacked tensor (ndim >= 3) of at least this many elements is updated per
 # leading slice, with a per-slice RMS clip (repro's threshold, optimizer.py:157)
 PER_SLICE_MIN_SIZE = 1 << 28
-# repro's Adafactor defaults: beta = 1 - (step + 1)^-ADAFACTOR_DECAY, the
-# floor added to g^2, the RMS the update is clipped to
+# repro's Adafactor defaults: beta = 1 - (step + 1)^-decay, the floor added
+# to g^2, the RMS the update is clipped to
 ADAFACTOR_DECAY, ADAFACTOR_EPS, ADAFACTOR_CLIP = 0.8, 1e-30, 1.0
 
 
-def adafactor(lr: Callable, weight_decay: float = 0.0, min_dim_factored: int = 128,
-              specs=None) -> Optimizer:
+def adafactor(lr: Callable, decay: float = ADAFACTOR_DECAY, eps: float = ADAFACTOR_EPS,
+              clip_threshold: float = ADAFACTOR_CLIP, weight_decay: float = 0.0,
+              min_dim_factored: int = 128, specs=None) -> Optimizer:
     """Adafactor in ``repro``'s order: factored (row ``vr`` and column ``vc``
     statistics) where both trailing dims are >= ``min_dim_factored``, no first
-    moment, beta = 1 - (step + 1)^-ADAFACTOR_DECAY, the update clipped to RMS
-    ``ADAFACTOR_CLIP``, optional weight decay.
+    moment, beta = 1 - (step + 1)^-decay, ``eps`` added to g^2 (and the floor
+    of the row statistics' mean), the update clipped to RMS
+    ``clip_threshold``, optional weight decay.
 
     ``specs`` ({name: ``P``} or ``param_specs``' tree): the parameters are
     this rank's blocks on the current mesh (``init`` and ``update`` run
@@ -157,16 +159,16 @@ def adafactor(lr: Callable, weight_decay: float = 0.0, min_dim_factored: int = 1
     def update(grads: dict, state: dict, params: dict):
         step = state["step"] + 1
         lr_t = lr(step)
-        beta = 1.0 - (torch.tensor(step, dtype=torch.float32) + 1.0) ** -ADAFACTOR_DECAY
+        beta = 1.0 - (torch.tensor(step, dtype=torch.float32) + 1.0) ** -decay
 
         def one_small(g, s, p, ent):
             g = g.float()
             b = beta.to(g.device)
-            g2 = g * g + ADAFACTOR_EPS
+            g2 = g * g + eps
             if "vr" in s:
                 vr = b * s["vr"] + (1 - b) * mean(g2, -1, ent[-1])[..., 0]
                 vc = b * s["vc"] + (1 - b) * mean(g2, -2, ent[-2])[..., 0, :]
-                r = vr / torch.clamp(mean(vr, -1, ent[-2]), min=ADAFACTOR_EPS)
+                r = vr / torch.clamp(mean(vr, -1, ent[-2]), min=eps)
                 u = g / (torch.sqrt(r)[..., None] * torch.sqrt(vc)[..., None, :])
                 new_s = {"vr": vr, "vc": vc}
             else:
@@ -178,7 +180,7 @@ def adafactor(lr: Callable, weight_decay: float = 0.0, min_dim_factored: int = 1
             if axes:
                 sq = pmean(sq, axes, current_mesh())
             rms = torch.sqrt(sq + 1e-30)
-            u = u / torch.clamp(rms / ADAFACTOR_CLIP, min=1.0)
+            u = u / torch.clamp(rms / clip_threshold, min=1.0)
             if weight_decay:
                 u = u + weight_decay * p.detach().float()
             return (-lr_t.to(g.device) * u).to(p.dtype), new_s

@@ -26,7 +26,7 @@ from repro_torch.sharding.api import (P, all_gather, batch_axes, current_mesh, p
                                       pvary, shard)
 from repro_torch.train.optimizer import Optimizer, clip_by_global_norm
 
-AUX_WEIGHT = 0.01  # its lm_loss weight of the MoE aux loss
+AUX_WEIGHT = 0.01  # repro's default lm_loss weight of the MoE aux loss
 
 
 def sharded_xent(hidden, head, labels, mesh, *, tp_axis: str = "model", t_chunk: int = 512,
@@ -73,9 +73,10 @@ def sharded_xent(hidden, head, labels, mesh, *, tp_axis: str = "model", t_chunk:
     return psum(total, dp, mesh) / (B * T)
 
 
-def lm_loss(model, batch, cfg, **fwd_kw):
-    """Next-token cross-entropy (+ MoE aux, 0 for a dense model) in float32;
-    batch: ``tokens`` and ``labels`` (B, T).  ``fwd_kw``: the attention blocks.
+def lm_loss(model, batch, cfg, aux_weight: float = AUX_WEIGHT, **fwd_kw):
+    """Next-token cross-entropy (+ ``aux_weight`` x the MoE aux, 0 for a dense
+    model) in float32; batch: ``tokens`` and ``labels`` (B, T).  ``fwd_kw``:
+    the attention blocks.
 
     On a mesh (the local view: the batch is this rank's block over the data
     axes, the weights replicated or FSDP x TP blocks) the loss is the mean
@@ -97,7 +98,7 @@ def lm_loss(model, batch, cfg, **fwd_kw):
         lse = torch.logsumexp(logits, dim=-1)
         ll = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
         nll = pmean(torch.mean(lse - ll), batch_axes())
-    return nll + AUX_WEIGHT * aux, {"nll": nll.detach(), "aux": aux.detach()}
+    return nll + aux_weight * aux, {"nll": nll.detach(), "aux": aux.detach()}
 
 
 def gnn_loss(model, batch, cfg, **kw):

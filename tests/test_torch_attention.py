@@ -6,7 +6,7 @@ forward on ``tests/test_attention.py``'s grid of (T, block_q, block_kv) and
 windows, with GQA groups 1, 2 and 4 and a ``q_offset``, within rtol = atol =
 2e-5 (``repro``'s own tolerance against its naive attention); (dq, dk, dv) of
 the port's ``autograd.Function`` against ``jax.grad`` through ``repro``'s custom
-VJP within 1e-5; ``decode_attention_local`` and ``lse_combine`` with a window,
+VJP within 1e-5; both again with ``causal=False``; ``decode_attention_local`` and ``lse_combine`` with a window,
 a ``pos_offset`` and a two-part combine.
 """
 
@@ -116,6 +116,51 @@ def test_blockwise_gradients_match_repro_custom_vjp(window, g, T, bq, bk, q_offs
     got = torch.autograd.grad(torch.sum(torch.sin(out)), (tq, tk, tv))
     for a, b, name in zip(got, want, "qkv"):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **GRAD_TOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("T,bq,bk", [(32, 8, 8), (33, 8, 16), (64, 64, 64)])
+@pytest.mark.parametrize("window", [0, 7])
+@pytest.mark.parametrize("g", [1, 2, 4])
+def test_blockwise_noncausal_forward_matches_repro(T, bq, bk, window, g):
+    q, k, v = _qkv(T + g, 2, T, 2 * g, 2, 16)
+    for q_offset in (0, 5):
+        want = jl.blockwise_attention(q, k, v, causal=False, window=window, block_q=bq,
+                                      block_kv=bk, q_offset=q_offset)
+        got = tl.blockwise_attention(*_t(q, k, v), causal=False, window=window, block_q=bq,
+                                     block_kv=bk, q_offset=q_offset)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL)
+
+
+@pytest.mark.parametrize("window", [0, 5])
+@pytest.mark.parametrize("g,T,bq,bk,q_offset", [(2, 24, 8, 8, 0), (1, 21, 8, 16, 3),
+                                                (4, 17, 16, 4, 0)])
+def test_blockwise_noncausal_gradients_match_repro_custom_vjp(window, g, T, bq, bk, q_offset):
+    q, k, v = _qkv(10 + T, 2, T, 2 * g, 2, 8)
+
+    def f(q, k, v):
+        o = jl.blockwise_attention(q, k, v, causal=False, window=window, block_q=bq,
+                                   block_kv=bk, q_offset=q_offset)
+        return jnp.sum(jnp.sin(o))
+
+    want = jax.grad(f, argnums=(0, 1, 2))(q, k, v)
+    tq, tk, tv = _t(q, k, v, grad=True)
+    out = tl.blockwise_attention(tq, tk, tv, causal=False, window=window, block_q=bq,
+                                 block_kv=bk, q_offset=q_offset)
+    got = torch.autograd.grad(torch.sum(torch.sin(out)), (tq, tk, tv))
+    for a, b, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **GRAD_TOL, err_msg=f"d{name}")
+
+
+def test_blockwise_noncausal_sees_later_keys():
+    """Without the causal mask the first query's output moves when the last
+    key's value does; with it, it does not."""
+    q, k, v = _qkv(5, 1, 16, 2, 2, 8)
+    v2 = v.copy()
+    v2[:, -1] += 1.0
+    for causal in (True, False):
+        a = tl.blockwise_attention(*_t(q, k, v), causal=causal, block_q=4, block_kv=4)
+        b = tl.blockwise_attention(*_t(q, k, v2), causal=causal, block_q=4, block_kv=4)
+        assert torch.equal(a[:, 0], b[:, 0]) == causal
 
 
 def test_blockwise_saves_q_k_v_lse_only():

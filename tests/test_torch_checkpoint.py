@@ -207,6 +207,37 @@ def test_lm_batches_are_replayable_and_shaped_as_repro():
     assert abs(float((big < (cfg.vocab_size - 1) / 4).float().mean()) - 0.5) < 0.02
 
 
+def test_lm_batch_fn_seed_and_token_batches():
+    """``lm_batch_fn(seed=)`` draws from ``default_rng((seed, step))``;
+    ``token_batches`` and ``lm_batch_fn`` share ``tokens_from_uniforms``, whose
+    step from uniforms to tokens equals ``repro``'s on ``repro``'s uniforms."""
+    import jax
+
+    from repro.data.synthetic import token_batches as jax_token_batches
+    from repro_torch.data.synthetic import token_batches, tokens_from_uniforms
+
+    cfg = get_smoke_config("llama3.2-1b")
+    a, b = ttrain.lm_batch_fn(cfg, 4, 16)(2), ttrain.lm_batch_fn(cfg, 4, 16, seed=7)(2)
+    assert not torch.equal(a["tokens"], b["tokens"])
+    u = np.random.default_rng((7, 2)).random((4, 17), dtype=np.float32)
+    for key, t in tokens_from_uniforms(u, cfg.vocab_size).items():
+        assert torch.equal(b[key], t), key
+    key = jax.random.PRNGKey(3)
+    want = list(jax_token_batches(key, 1000, 3, 8, 2))
+    for i, w in enumerate(want):  # repro's uniforms for batch i, then the port's step
+        uj = np.asarray(jax.random.uniform(jax.random.fold_in(key, i), (3, 9)))
+        got = tokens_from_uniforms(uj, 1000)
+        for name in ("tokens", "labels"):
+            np.testing.assert_array_equal(got[name].numpy(), np.asarray(w[name]))
+    rng, again = np.random.default_rng(5), np.random.default_rng(5)
+    batches = list(token_batches(rng, 1000, 3, 8, 2, device="cpu"))
+    assert len(batches) == 2
+    for got in batches:
+        want = tokens_from_uniforms(again.random((3, 9), dtype=np.float32), 1000)
+        assert got["tokens"].dtype == torch.int64 and tuple(got["tokens"].shape) == (3, 8)
+        assert all(torch.equal(got[k], want[k]) for k in ("tokens", "labels"))
+
+
 class Crash(Exception):
     pass
 

@@ -5,14 +5,21 @@ One JAX subprocess with 4 forced host devices (the count must be set
 before JAX starts, as in ``tests/test_multidevice.py``) writes every
 oracle: ``pad_to_shards``, ``sharded_knn_scan``, ``build_local_subgraphs``
 (NN-descent and wave), ``sharded_graph_search`` and
-``ShardedSlotScheduler`` at n = 512 and n = 509 (three rows of padding).
+``ShardedSlotScheduler`` at n = 512 and n = 509 (three rows of padding),
+and the scheduler's options at n = 512: a self-built local subgraph with
+``compact`` and ``max_steps`` set, ``tenant_weights``' DRR order on a
+fixed-cost clock, and ``slo_ms`` (the scheduler's and a stream's), which
+``repro``'s sharded tick carries on each request and does not enforce.
 One spawn of 4 gloo ranks, one intra-op thread each, runs every port side
 while the subprocess compiles its searches: the rows and ``repro``'s
 adjacency (written first) are carried across by ``convert.shard_from_jax``
 and the NN-descent draws are replayed from ``repro``'s key splits.  A
 module fixture holds both; each case below reads them.
 
-Tolerances: ids, adjacency and evals exactly equal; searched distances
+``background_fn``, which runs on the host clock's idle ticks, is checked
+on one rank in this process.
+
+Tolerances: ids, adjacency, evals and admission times exactly equal; searched distances
 within rtol 1e-6 (float32 summation order); the exact scan's distances
 within rtol 1e-4 and >= 0.98 of its ids equal, the tolerance of
 ``tests/test_multidevice.py`` (ties may reorder).
@@ -42,6 +49,13 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 SHARDS, N, N_ODD, DIM, NQ = 4, 512, 509, 16, 24
 K, EF, NN, NND_ITERS, WAVE, KEY = 10, 64, 10, 6, 16, 5
 SLOTS, STEPS = 4, 2
+# the scheduler's options: frontier 4 makes compact bind (C = min(4 M, 48)
+# against the default's 32), max_steps cuts the beams short; DRR weights 3:1
+# over alternating tenants
+COMPACT, MAX_STEPS, WEIGHTS = 48, 6, {0: 3.0, 1: 1.0}
+# an SLO no request could meet: repro's sharded scheduler sheds nothing all the same
+SLO_MS = 1e-6
+TENANTS = [i % 2 for i in range(NQ)]
 SEARCHES = {"f1": dict(), "f4": dict(frontier=4), "reference": dict(engine="reference"),
             "drop1": dict(drop_shards=1), "drop3": dict(drop_shards=3)}
 # repro's reference engine equals its batched engine at frontier 1
@@ -91,6 +105,22 @@ for n in ({N}, {N_ODD}):
         out[f"{{tag}}_i"] = np.stack([r.ids for r in res])
         out[f"{{tag}}_d"] = np.stack([r.dists for r in res])
         out[f"{{tag}}_e"] = np.asarray([r.n_evals for r in res])
+sched = ShardedSlotScheduler(mesh, dist, X, slots={SLOTS}, ef={EF}, k={K}, frontier=4,
+                             compact={COMPACT}, max_steps={MAX_STEPS}, steps_per_sync={STEPS},
+                             NN={NN}, nnd_iters={NND_ITERS}, key=key)
+res = sched.run_stream(np.asarray(Q))
+out["opts_i"] = np.stack([r.ids for r in res])
+out["opts_d"] = np.stack([r.dists for r in res])
+out["opts_e"] = np.asarray([r.n_evals for r in res])
+sched = ShardedSlotScheduler(mesh, dist, X, neighbors=out["nnd{N}"], slots={SLOTS}, ef={EF},
+                             k={K}, tenant_weights={WEIGHTS!r}, slo_ms={SLO_MS})
+res = sched.run_stream(np.asarray(Q), tenants={TENANTS!r}, tick_cost=1.0)
+out["drr_i"] = np.stack([r.ids for r in res])
+out["drr_t"] = np.asarray([[r.t_admit, r.t_done] for r in res])
+res = sched.run_stream(np.asarray(Q), tick_cost=1.0, slo_ms={SLO_MS})
+out["slo_i"] = np.stack([r.ids for r in res])
+out["slo_t"] = np.asarray([[r.t_admit, r.t_done] for r in res])
+out["slo_shed"] = np.asarray([r.shed for r in res])
 out["wave{N}"] = build_local_subgraphs(mesh, dist, X, NN={NN}, builder="wave", wave={WAVE})
 save(sys.argv[2], out)
 """
@@ -163,6 +193,26 @@ def _rank_main(rank, store, graphs_path, draws, out_dir):
                     out["poisson_e"] = np.asarray([r.n_evals for r in res])
                     out["poisson_t"] = np.asarray([[r.t_admit, r.t_done] for r in res])
                     out["poisson_last"] = arrivals[-1]
+        blk = shard_from_jax({"X": o["X"][:N], "neighbors": o[f"nnd{N}"]}, rank, SHARDS,
+                             device="cpu")
+        sched = tdd.ShardedSlotScheduler(
+            kl, blk.X, None, blk.n_real, slots=SLOTS, ef=EF, k=K, frontier=4, compact=COMPACT,
+            max_steps=MAX_STEPS, steps_per_sync=STEPS, NN=NN, nnd_iters=NND_ITERS,
+            nnd_draws=NNDescentDraws(*(torch.from_numpy(a) for a in draws[N][rank])))
+        out["opts_nbrs"] = sched._neighbors.numpy()
+        res = sched.run_stream(o["Q"])
+        out["opts_i"] = np.stack([r.ids for r in res])
+        out["opts_d"] = np.stack([r.dists for r in res])
+        out["opts_e"] = np.asarray([r.n_evals for r in res])
+        sched = tdd.ShardedSlotScheduler(kl, blk.X, blk.neighbors, blk.n_real, slots=SLOTS,
+                                         ef=EF, k=K, tenant_weights=WEIGHTS, slo_ms=SLO_MS)
+        res = sched.run_stream(o["Q"], tenants=TENANTS, tick_cost=1.0)
+        out["drr_i"] = np.stack([r.ids for r in res])
+        out["drr_t"] = np.asarray([[r.t_admit, r.t_done] for r in res])
+        res = sched.run_stream(o["Q"], tick_cost=1.0, slo_ms=SLO_MS)
+        out["slo_i"] = np.stack([r.ids for r in res])
+        out["slo_t"] = np.asarray([[r.t_admit, r.t_done] for r in res])
+        out["slo_shed"] = np.asarray([r.shed for r in res])
         X_local, _, _ = tdd.local_block(torch.from_numpy(o["X"]), rank, SHARDS)
         out[f"wave{N}"] = tdd.build_local_subgraphs(kl, X_local, NN=NN, builder="wave",
                                                     wave=WAVE).numpy()
@@ -318,8 +368,55 @@ def test_poisson_trace_on_the_measured_clock(runs):
     assert (t[:, 1] >= t[:, 0]).all()
 
 
+def test_sharded_scheduler_options_equal_repro(runs):
+    """A self-built local subgraph (the NN-descent draws replayed), with
+    ``compact`` and ``max_steps`` set: the subgraph equals ``repro``'s, and
+    the retired results equal its scheduler's; they differ from the
+    defaults' (the options bind)."""
+    want, ranks = runs
+    np.testing.assert_array_equal(np.concatenate([r["opts_nbrs"] for r in ranks]),
+                                  want[f"nnd{N}"])
+    for r in ranks:
+        np.testing.assert_array_equal(r["opts_i"], ranks[0]["opts_i"])
+    got = ranks[0]
+    np.testing.assert_array_equal(got["opts_i"], want["opts_i"])
+    np.testing.assert_array_equal(got["opts_e"], want["opts_e"])
+    np.testing.assert_allclose(got["opts_d"], want["opts_d"], rtol=1e-6)
+    assert (got["opts_e"] != got[f"sched{N}_drop0_e"]).any()
+
+
+def test_sharded_scheduler_tenant_weights_equal_repro(runs):
+    """DRR at weights 3:1 over alternating tenants on a fixed-cost clock
+    (the scheduler built with ``slo_ms``): every request's admission and
+    retire time, and its ids, as ``repro``'s."""
+    want, ranks = runs
+    for r in ranks:
+        np.testing.assert_array_equal(r["drr_t"], ranks[0]["drr_t"])
+    got = ranks[0]
+    np.testing.assert_array_equal(got["drr_t"], want["drr_t"])
+    np.testing.assert_array_equal(got["drr_i"], want["drr_i"])
+    np.testing.assert_array_equal(got["drr_i"], got[f"sched{N}_drop0_i"])
+    t_admit, tenants = got["drr_t"][:, 0], np.asarray(TENANTS)
+    first = np.sort(t_admit)[NQ // 2]  # by the median admission, tenant 0 leads 3:1
+    assert (t_admit[tenants == 0] <= first).sum() > (t_admit[tenants == 1] <= first).sum()
+
+
+def test_sharded_slo_is_carried_as_repro_does(runs):
+    """``slo_ms``, the scheduler's and a stream's, at a budget no request
+    could meet: ``repro``'s sharded tick sheds nothing and serves every
+    request in full, and so does the port's, with the same ids and times."""
+    want, ranks = runs
+    for r in ranks:
+        np.testing.assert_array_equal(r["slo_t"], ranks[0]["slo_t"])
+    got = ranks[0]
+    assert not want["slo_shed"].any() and not got["slo_shed"].any()
+    np.testing.assert_array_equal(got["slo_t"], want["slo_t"])
+    np.testing.assert_array_equal(got["slo_i"], want["slo_i"])
+    np.testing.assert_array_equal(got["slo_i"], got[f"sched{N}_drop0_i"])
+
+
 # ---------------------------------------------------------------------------
-# one rank in this process: the refusals
+# one rank in this process: the refusals, the SLO's default and the idle hook
 # ---------------------------------------------------------------------------
 
 
@@ -346,6 +443,42 @@ def test_layout_and_argument_refusals(one_rank_group):
         tdd.ShardedSlotScheduler(kl, X, nbrs, 40, drop_shards=1)
     with pytest.raises(ValueError, match="ef 4 < k 10"):
         tdd.ShardedSlotScheduler(kl, X, nbrs, 40, ef=4)
+
+
+def _one_rank_scheduler(**kw):
+    rng = np.random.default_rng(0)
+    X = torch.from_numpy(rng.dirichlet(np.full(16, 0.1), 300).astype(np.float32)).clamp(min=1e-6)
+    Q = rng.dirichlet(np.full(16, 0.1), 24).astype(np.float32).clip(1e-6)
+    kl = td.get_distance("kl")
+    return tdd.ShardedSlotScheduler(kl, X, None, 300, slots=4, ef=32, k=5, NN=8, nnd_iters=3,
+                                    **kw), Q
+
+
+def test_sharded_slo_is_the_default_submit_stamps(one_rank_group):
+    """``slo_ms`` becomes ``slo_s``, which ``submit`` stamps on a request that
+    names no SLO of its own; the tick serves it in full all the same."""
+    sched, Q = _one_rank_scheduler(slo_ms=1e-6)
+    plain, _ = _one_rank_scheduler()
+    assert sched.slo_s == 1e-6 / 1e3 and plain.slo_s is None
+    sched.submit(Q[0])
+    sched.submit(Q[1], slo_ms=5.0)
+    queued = [req.slo_s for q in sched._queues[0].values() for req in q]
+    assert queued == [1e-6 / 1e3, 5.0 / 1e3]
+    res = sched.run_stream(Q)
+    assert not any(r.shed for r in res)
+    for r, w in zip(res, plain.run_stream(Q)):
+        np.testing.assert_array_equal(r.ids, w.ids)
+
+
+def test_sharded_background_fn_runs_on_idle_ticks(one_rank_group):
+    calls = []
+    sched, Q = _one_rank_scheduler(background_fn=lambda: calls.append(sched.n_pending))
+    plain, _ = _one_rank_scheduler()
+    arrivals = np.arange(len(Q)) * 10.0  # every request alone: idle gaps between them
+    res = sched.run_stream(Q, arrivals)
+    assert len(calls) >= len(Q) - 1 and set(calls) == {0}  # never with a request waiting
+    for r, w in zip(res, plain.run_stream(Q, arrivals)):
+        np.testing.assert_array_equal(r.ids, w.ids)
 
 
 def test_shard_from_jax_validates_the_layout():

@@ -1273,3 +1273,40 @@ def test_dryrun_cell_executes_one_rank_on_the_card(cell_id, cuda, tmp_path):
     print(f"[dry run] {cell_id}: measured {mem['measured_peak_bytes']} reckoned "
           f"{mem['reckoned_peak_bytes']} step {mem['step_ms']:.2f} ms")
     assert mem["fits"] and mem["measured_peak_bytes"] <= 2 * mem["reckoned_peak_bytes"] + 2**30
+
+
+@pytest.mark.gpu
+def test_strict_mode_and_the_recompile_guard_on_the_card(cuda):
+    """The card's torch has both counterparts of the runtime checks: under
+    ``REPRO_STRICT_TRANSFER=disallow`` a host read raises, under the default
+    ``log`` it warns, and ``disable_strict_mode`` lifts both; a
+    ``torch.compile``d function's dynamo cache holds one graph per shape."""
+    from repro_torch.core.runtime_checks import (RecompileError, disable_strict_mode,
+                                                 dispatch_cache_size, enable_strict_mode,
+                                                 recompile_guard)
+
+    x = torch.ones(4, device=cuda)
+    try:
+        applied = enable_strict_mode({"REPRO_STRICT": "1", "REPRO_STRICT_TRANSFER": "disallow"})
+        assert applied["sync_debug_mode"] == "error" and torch.cuda.get_sync_debug_mode() == 2
+        with pytest.raises(RuntimeError, match="synchronizing"):
+            x.sum().item()
+        assert enable_strict_mode({"REPRO_STRICT": "1"})["sync_debug_mode"] == "warn"
+        with pytest.warns(UserWarning, match="synchronizing"):
+            x.sum().item()
+    finally:
+        off = disable_strict_mode()
+    assert off["sync_debug_mode"] == "default" and torch.cuda.get_sync_debug_mode() == 0
+    assert x.sum().item() == 4.0
+
+    def double(t):
+        return t * 2
+
+    f = torch.compile(double, backend="eager", dynamic=False)
+    f(x)
+    with recompile_guard(f):
+        f(x + 1)
+    assert dispatch_cache_size(f) == 1
+    with pytest.raises(RecompileError, match="double: 2 executables"):
+        with recompile_guard(f):
+            f(torch.ones(5, device=cuda))

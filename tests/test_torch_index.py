@@ -6,6 +6,10 @@
   0.005 of ``repro``'s build on the same data.
 * ``knn_scan`` ids are exactly equal; ``RetrievalSpec`` JSON and
   fingerprints are byte-identical.
+* The legacy ``ANNIndex.build`` keyword arguments build what ``spec=`` builds
+  (fingerprint, adjacency, entries), through the spec ``repro``'s shim folds.
+* ``order_aware_recall`` and ``make_histogram_dataset`` equal ``repro``'s on
+  its ids and its Dirichlet draws.
 * The serve entry point runs end to end on the CPU when asked to.
 * Nothing in ``src/repro_torch/`` or ``chip_smoke.py`` imports JAX or ``repro``.
 """
@@ -97,6 +101,74 @@ def test_own_build_recalls_like_repro(data, jax_index, truth):
     got = tmetrics.recall_at_k(tidx.searcher()(_t(Q))[1], truth)
     assert got >= 0.9
     assert abs(got - want) <= 0.005, (got, want)
+
+
+def test_legacy_build_kwargs_equal_the_spec_build(data):
+    from repro.core.index import _legacy_spec as jax_legacy_spec
+
+    _, db = data
+    X, kl = _t(db[:500]), td.get_distance("kl")
+    kw = dict(builder="nndescent", NN=8, nnd_iters=4, n_entries=2)
+    spec = tspec.RetrievalSpec(distance="kl", **kw)
+    legacy = TIndex.build(X, kl, generator=torch.Generator().manual_seed(3), **kw)
+    direct = TIndex.build(X, spec=spec, generator=torch.Generator().manual_seed(3))
+    assert legacy.spec == spec
+    assert legacy.build_info["spec_fingerprint"] == direct.build_info["spec_fingerprint"]
+    assert torch.equal(legacy.neighbors, direct.neighbors)
+    assert torch.equal(legacy.entries, direct.entries)
+    # repro's shim folds the same arguments into the same spec
+    want = jax_legacy_spec(None, None, "nndescent", None, None, None, 8, None, None, 4, 2,
+                           None).replace(distance="kl")
+    assert legacy.build_info["spec_fingerprint"] == want.fingerprint()
+    assert legacy.build_info["spec"] == want.to_dict()
+    with pytest.warns(DeprecationWarning, match="index_sym/query_sym"):
+        sym = TIndex.build(X, kl, index_sym="min", generator=torch.Generator().manual_seed(3),
+                           **kw)
+    with pytest.warns(DeprecationWarning, match="index_sym/query_sym"):  # repro's, alike
+        want = jax_legacy_spec("min", None, "nndescent", None, None, None, 8, None, None, 4, 2,
+                               None).replace(distance="kl")
+    assert sym.build_info["spec_fingerprint"] == want.fingerprint()
+    assert sym.build_info["index_sym"] == "min"
+    with pytest.raises(ValueError, match="EITHER spec"):
+        TIndex.build(X, spec=spec, NN=8)
+    # the distance actually run names the spec, as repro records it
+    assert TIndex.build(X, td.get_distance("l2"), NN=8, nnd_iters=2).spec.distance == "l2"
+
+
+def test_order_aware_recall_equals_repro(data, jax_index, truth):
+    from repro.core.metrics import order_aware_recall as jax_order_aware_recall
+
+    Q, _ = data
+    found = np.asarray(jax_index.searcher()(Q)[1])
+    for f, t in ((found, truth), (truth, truth), (found[:, ::-1], truth),
+                 (np.full_like(found, -1), truth)):
+        assert tmetrics.order_aware_recall(_t(f), t) == jax_order_aware_recall(f, t)
+    assert tmetrics.order_aware_recall(truth, truth) == pytest.approx(1.0)
+
+
+class _Replay:
+    """A stand-in for ``np.random.Generator`` whose ``dirichlet`` returns
+    ``repro``'s draw for the same alpha (its ``jax.random.dirichlet``)."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def dirichlet(self, alpha, size):
+        return np.asarray(jax.random.dirichlet(self.key, np.asarray(alpha, np.float32), (size,)))
+
+
+@pytest.mark.parametrize("name", ["randhist-8", "wiki-8", "rcv-8"])
+def test_make_histogram_dataset_equals_repro(name):
+    from repro.data.synthetic import make_histogram_dataset as jax_make
+    from repro_torch.data.synthetic import make_histogram_dataset
+
+    key = jax.random.PRNGKey(4)
+    got = make_histogram_dataset(name, _Replay(key), 300, 8, device="cpu")
+    want = np.asarray(jax_make(name, key, 300, 8))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (300, 8)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-9)
+    with pytest.raises(ValueError):
+        make_histogram_dataset("manner", np.random.default_rng(0), 3, 8, device="cpu")
 
 
 @pytest.mark.parametrize("name", ["kl", "itakura_saito", "renyi_0.25", "l2", "negdot"])

@@ -423,6 +423,29 @@ def test_smoke_lm_loss_and_gradients_match_repro(arch, exact_dispatch):
         np.testing.assert_allclose(g.numpy(), np.asarray(want[name]), **GRAD_TOL, err_msg=name)
 
 
+def test_smoke_lm_loss_aux_weight_matches_repro(exact_dispatch):
+    """phi3.5-moe SMOKE with ``aux_weight=0.1`` (the default 0.01): the loss,
+    its parts and the gradients against ``repro``'s."""
+    jcfg, cfg = _arch("phi3.5-moe-42b-a6.6b")
+    jparams = jt.init_params(jcfg, jax.random.PRNGKey(2))
+    model = _model(jparams, cfg)
+    batch = _jax_batch(jcfg, 0)
+    (jl, jaux), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jax_lm_loss(p, batch, jcfg, aux_weight=0.1, **BLOCKS), has_aux=True))(jparams)
+    params = dict(model.named_parameters())
+    tl, taux = lm_loss(model, {k: _t(v) for k, v in batch.items()}, cfg, aux_weight=0.1,
+                       **BLOCKS)
+    grads = torch.autograd.grad(tl, list(params.values()))
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(float(tl.detach()),
+                               float(taux["nll"]) + 0.1 * float(taux["aux"]), rtol=1e-6)
+    default, _ = lm_loss(model, {k: _t(v) for k, v in batch.items()}, cfg, **BLOCKS)
+    assert float(tl.detach()) > float(default.detach())  # aux > 0 weighs 10x more
+    want = _flat(jgrads)
+    for name, g in zip(params, grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want[name]), **GRAD_TOL, err_msg=name)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_smoke_five_adamw_steps_match_repro(arch, exact_dispatch):
     jcfg, cfg = _arch(arch)

@@ -211,6 +211,25 @@ def test_train_main_runs_on_the_cpu():
     assert all(np.isfinite(h["loss"]) for h in history)
 
 
+def test_train_recsys_peak_lr(cfg):
+    """``peak_lr`` scales the whole schedule: at 0 no parameter moves; the
+    default is ``repro``'s."""
+    import inspect
+
+    from repro.launch.train import train_recsys as jax_train_recsys
+
+    init = dict(ttrain.recsys.init_params(cfg, torch.Generator().manual_seed(0),
+                                          "cpu").named_parameters())
+    still, _ = ttrain.train_recsys(cfg, steps=2, batch=16, log_every=10, peak_lr=0.0,
+                                   device="cpu")
+    for name, p in still.named_parameters():
+        assert torch.equal(p, init[name]), name
+    moved, _ = ttrain.train_recsys(cfg, steps=2, batch=16, log_every=10, device="cpu")
+    assert not torch.equal(moved.table, init["table"])
+    default = inspect.signature(jax_train_recsys).parameters["peak_lr"].default
+    assert inspect.signature(ttrain.train_recsys).parameters["peak_lr"].default == default
+
+
 def test_train_recsys_loss_falls(cfg):
     model, history = ttrain.train_recsys(cfg, steps=30, batch=128, log_every=29, device="cpu")
     assert history[-1]["loss"] < history[0]["loss"]

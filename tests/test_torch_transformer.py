@@ -9,7 +9,9 @@ yi-34b SMOKE and a SMOKE variant with ``pad_heads_to``: ``forward``'s logits,
 (``tests/test_smoke_archs.py``'s tolerance); ``layer_locality``.  Then the
 LM loss (1e-6), five AdamW train steps within 2e-6 (the recsys gate's
 tolerance; remat on and off), ``accum_steps = 2``, three Adafactor steps with
-factored and unfactored leaves, and a bf16 variant at a looser tolerance:
+factored and unfactored leaves (also at non-default ``decay``, ``eps`` and
+``clip_threshold``), ``train_lm(peak_lr=...)``'s losses (1e-5) and
+parameters on ``repro``'s init and batches, and a bf16 variant at a looser tolerance:
 the logits' relative (Frobenius) error and their largest error against the
 largest logit both within 2e-2 (torch rounds every bf16 op's output, XLA may
 keep excess precision inside a fusion; 0.7% measured).
@@ -241,6 +243,42 @@ def test_three_adafactor_steps_match_repro():
     model, jparams, losses = _run_steps(jcfg, cfg, jo, to, 3)
     for got, want in losses:
         np.testing.assert_allclose(got, want, rtol=1e-5)
+    _assert_params(model, jparams, STEP_TOL)
+
+
+def test_three_adafactor_steps_with_its_options_match_repro():
+    """``decay``, ``eps`` and ``clip_threshold`` away from their defaults (a
+    clip at 0.5 RMS binds from the first step)."""
+    jcfg, cfg = _cfgs("yi-34b")
+    kw = dict(decay=0.6, eps=1e-20, clip_threshold=0.5, min_dim_factored=32,
+              weight_decay=0.01)
+    model, jparams, losses = _run_steps(jcfg, cfg,
+                                        jopt.adafactor(jopt.warmup_cosine(1e-2, 1, 3), **kw),
+                                        topt.adafactor(topt.warmup_cosine(1e-2, 1, 3), **kw), 3)
+    for got, want in losses:
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+    _assert_params(model, jparams, STEP_TOL)
+
+
+def test_train_lm_peak_lr_matches_repro(monkeypatch):
+    """``train_lm(peak_lr=...)`` against ``repro``'s on its initial parameters
+    and its token batches (both carried across): the logged losses and the
+    final parameters."""
+    from repro.launch.train import train_lm as jax_train_lm
+    from repro_torch.launch import train as ttrain
+
+    jcfg, cfg = _cfgs("llama3.2-1b")
+    # a third of the default 3e-4 (whose run lands 5e-4 away from this one)
+    kw = dict(steps=4, batch=4, seq=16, log_every=1, peak_lr=1e-4, block=8)
+    jparams, jhist = jax_train_lm(jcfg, **kw)
+    init = jt.init_params(jcfg, jax.random.PRNGKey(0))  # repro's train_lm init
+    monkeypatch.setattr(ttrain.transformer, "init_params", lambda *a, **k: _model(init, cfg))
+    monkeypatch.setattr(ttrain, "lm_batch_fn", lambda c, b, s: lambda step: {
+        k: _t(v).long() for k, v in _jax_batch(jcfg, step, b, s).items()})
+    model, hist = ttrain.train_lm(cfg, device="cpu", **kw)
+    assert [h["step"] for h in hist] == [h["step"] for h in jhist] == [0, 1, 2, 3]
+    np.testing.assert_allclose([h["loss"] for h in hist], [h["loss"] for h in jhist],
+                               rtol=1e-5)
     _assert_params(model, jparams, STEP_TOL)
 
 
