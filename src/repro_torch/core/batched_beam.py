@@ -10,7 +10,10 @@ All B queries advance in lock-step.  Each step:
   4. a batched (B, ef + C) stable merge refreshes every beam,
   5. per-query convergence masking freezes finished queries.
 
-The loop is a Python loop that reads ``done.all()`` once per step.  Every
+The loop is a Python loop that reads ``done.all()`` once per step.  Its
+spans (``core.trace``): ``search.batch`` around a searcher's call,
+``search.seed``, ``search.step`` around each lock-step and ``search.sync``
+around each read of ``done``.  Every
 ``jax.lax.top_k`` / ``jnp.argsort`` of the JAX engine becomes a stable
 ``torch.sort``: top_k puts the lower index first on equal values, and
 ``torch.topk`` promises no order for ties, which are common here (two
@@ -28,6 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.trace import span
 from repro_torch.kernels.ops import gathered_scores, prepped, query_distance_matrix
 
 INF = float("inf")
@@ -307,7 +311,8 @@ def batched_beam_search(neighbors, score_rows, entries, B: int, ef: int,
     T = min(frontier, ef)
     if max_steps is None:
         max_steps = n
-    st = seed_beams(score_rows, entries, B, ef, n, n_active=n_active, alive=alive)
+    with span("search.seed"):
+        st = seed_beams(score_rows, entries, B, ef, n, n_active=n_active, alive=alive)
     C = frontier_compact_width(T, M, compact)
     dev = st.beam_d.device
     if adaptive:
@@ -315,13 +320,17 @@ def batched_beam_search(neighbors, score_rows, entries, B: int, ef: int,
         stall = torch.zeros((B,), dtype=torch.int32, device=dev)
         worst = torch.full((B,), INF, dtype=torch.float32, device=dev)
     # one host read of the done mask per step is the loop's only sync
-    while not st.done.all().item():  # jaxlint: disable=JL003 - the loop condition itself
-        if adaptive:
-            st = beam_step(st, neighbors, score_rows, ef, T, C, max_steps, t_active=t_cur)
-            t_cur, stall, worst = adaptive_width_update(st, t_cur, stall, worst, T, patience)
-        else:
-            st = beam_step(st, neighbors, score_rows, ef, T, C, max_steps)
-    return st
+    while True:
+        with span("search.sync"):
+            done = st.done.all().item()  # jaxlint: disable=JL003 - the loop condition itself
+        if done:
+            return st
+        with span("search.step", device=True):
+            if adaptive:
+                st = beam_step(st, neighbors, score_rows, ef, T, C, max_steps, t_active=t_cur)
+                t_cur, stall, worst = adaptive_width_update(st, t_cur, stall, worst, T, patience)
+            else:
+                st = beam_step(st, neighbors, score_rows, ef, T, C, max_steps)
 
 
 def _merge_beams(beam, kept, ef: int):
@@ -369,17 +378,18 @@ def make_step_searcher(dist, neighbors, X, ef: int, k: int, entries=None,
     entries = torch.as_tensor(e[np.sort(first)], dtype=torch.int32, device=X.device)
 
     def search(Q):
-        B = Q.shape[0]
-        qc = prepped(dist.prep_queries(Q))
+        with span("search.batch", device=True):
+            B = Q.shape[0]
+            qc = prepped(dist.prep_queries(Q))
 
-        def score_rows(ids):
-            return gathered_scores(dist, ids, qc, consts)
+            def score_rows(ids):
+                return gathered_scores(dist, ids, qc, consts)
 
-        st = batched_beam_search(
-            neighbors, score_rows, entries, B, ef,
-            max_steps=max_steps, frontier=frontier, compact=compact,
-            adaptive=adaptive, patience=patience,
-        )
-        return st.beam_d[:, :k], st.beam_i[:, :k], st.n_evals, st.hops
+            st = batched_beam_search(
+                neighbors, score_rows, entries, B, ef,
+                max_steps=max_steps, frontier=frontier, compact=compact,
+                adaptive=adaptive, patience=patience,
+            )
+            return st.beam_d[:, :k], st.beam_i[:, :k], st.n_evals, st.hops
 
     return search

@@ -45,8 +45,8 @@ only ones in the port (``sharding.api`` runs the mesh's on them, over its
 subgroups).  Each is counted by kind with its bytes on this rank (an
 all-reduce's operand, an all-gather's result, a reduce-scatter's operand)
 and timed: on the card between two CUDA events on the current stream, read
-once they have passed (each new collective drains the finished ones, so
-only those in flight are held) and so adding no sync; on the CPU on the
+once they have passed (each collective, once queued, drains the finished
+ones, so only those in flight are held) and so adding no sync; on the CPU on the
 host clock.  So ``collective_stats()["seconds"]`` is the collectives
 alone, the wait for the slowest rank included.  Each call also records its
 group's size and whether the group spans nodes of ``CARDS_PER_NODE``
@@ -62,7 +62,6 @@ on the host clock.
 
 from __future__ import annotations
 
-import collections
 import datetime
 import math
 import time
@@ -71,6 +70,7 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import trace
 from repro_torch.core.batched_beam import (BatchBeamState, _smallest, batched_beam_search,
                                            beam_step, frontier_compact_width, seed_beams)
 from repro_torch.core.beam_search import beam_search_impl
@@ -83,9 +83,7 @@ INF = float("inf")
 DEFAULT_TIMEOUT_S = 300.0
 CARDS_PER_NODE = 8  # a DGX H100 node: 8 cards on one NVLink switch fabric
 
-_STATS: dict = {}  # kind -> {"calls", "bytes", "max_bytes", "seconds", "groups"}
 _SPANS: dict = {}  # process group -> (its size, whether its ranks span nodes)
-_PENDING: collections.deque = collections.deque()  # (kind, start, end) CUDA events in flight
 
 
 # ---------------------------------------------------------------------------
@@ -132,24 +130,26 @@ def world_and_rank(group=None) -> tuple[int, int]:
     return tdist.get_world_size(group), tdist.get_rank(group)
 
 
-def _drain(wait: bool) -> None:
-    """Add the times of the collectives that have passed on the card (all
-    of them with ``wait``, waiting for those in flight)."""
-    while _PENDING and (wait or _PENDING[0][2].query()):
-        kind, start, end = _PENDING.popleft()
-        end.synchronize()
-        _STATS[kind]["seconds"] += start.elapsed_time(end) / 1e3
-
-
 def collective_stats() -> dict:
     """Collectives so far in this process: ``calls``, ``bytes`` and
     ``seconds`` in all, and ``kinds``: {kind: {"calls", "bytes",
     "max_bytes", "seconds", "groups"}}, ``groups`` a list of {"size",
     "spans_nodes", "calls", "bytes"} by the groups the calls ran over.
-    Waits for those still in flight on the card."""
-    _drain(wait=True)
+    Waits for those still in flight on the card.  Read from the
+    ``collective.<kind>.<field>`` and ``collective.<kind>.<size>.<spans
+    nodes>.<field>`` counters of ``core.trace``."""
+    stats: dict = {}
+    for key, v in trace.counters("collective.").items():
+        kind, *rest = key.split(".")
+        st = stats.setdefault(kind, {"calls": 0, "bytes": 0, "max_bytes": 0, "seconds": 0.0,
+                                     "groups": {}})
+        if len(rest) == 1:
+            st[rest[0]] = v
+        else:
+            size, spans, field = rest
+            st["groups"].setdefault((int(size), spans == "1"), {"calls": 0, "bytes": 0})[field] = v
     kinds = {}
-    for k, v in _STATS.items():
+    for k, v in stats.items():
         kinds[k] = dict(v, groups=[{"size": g, "spans_nodes": spans, **c}
                                    for (g, spans), c in sorted(v["groups"].items())])
     return {"calls": sum(v["calls"] for v in kinds.values()),
@@ -158,8 +158,7 @@ def collective_stats() -> dict:
 
 
 def reset_collective_stats() -> None:
-    _drain(wait=True)
-    _STATS.clear()
+    trace.reset("collective.")
     _SPANS.clear()
 
 
@@ -182,27 +181,16 @@ def _collective(kind: str, nbytes: int, t, run, group=None):
     the current stream: the span from the end of the work queued before it
     to its result; a meta or CPU tensor on the host clock)."""
     src = t.contiguous()
-    st = _STATS.setdefault(kind, {"calls": 0, "bytes": 0, "max_bytes": 0, "seconds": 0.0,
-                                  "groups": {}})
-    st["calls"] += 1
-    st["bytes"] += nbytes
-    st["max_bytes"] = max(st["max_bytes"], nbytes)
-    by_group = st["groups"].setdefault(_group_span(group), {"calls": 0, "bytes": 0})
-    by_group["calls"] += 1
-    by_group["bytes"] += nbytes
-    if src.is_cuda:
-        _drain(wait=False)
-        stream = torch.cuda.current_stream(src.device)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record(stream)
-        out = run(src)
-        end.record(stream)
-        _PENDING.append((kind, start, end))
-        return out
-    t0 = time.perf_counter()
-    out = run(src)
-    st["seconds"] += time.perf_counter() - t0
-    return out
+    key = f"collective.{kind}."
+    size, spans = _group_span(group)
+    trace.count(key + "calls")
+    trace.count(key + "bytes", nbytes)
+    trace.high(key + "max_bytes", nbytes)
+    trace.count(f"{key}{size}.{int(spans)}.calls")
+    trace.count(f"{key}{size}.{int(spans)}.bytes", nbytes)
+    with trace.timed(key + "seconds", torch.cuda.current_stream(src.device) if src.is_cuda
+                     else None):
+        return run(src)
 
 
 def _nbytes(t) -> int:

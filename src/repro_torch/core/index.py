@@ -39,6 +39,7 @@ from repro_torch.core.online import OnlineIndex
 from repro_torch.core.scheduler import GraphView, Rung, SlotScheduler
 from repro_torch.core.spec import RetrievalSpec
 from repro_torch.core.swgraph import build_swgraph
+from repro_torch.core.trace import span
 from repro_torch.kernels.ops import prepped
 
 
@@ -140,55 +141,58 @@ class ANNIndex:
                 SW-graph builders draw nothing.
             natural: optional callable returning the distance-specific
                 natural symmetrization (Eq. 4), for the ``natural`` policy.
-        """
-        legacy = (index_sym, query_sym, builder, build_engine, wave, build_frontier, NN,
-                  ef_construction, M_max, nnd_iters, n_entries, capacity)
-        if spec is None:
-            spec = _legacy_spec(*legacy)
-            if dist is not None and getattr(dist, "name", None):
-                # record the distance actually run, so build_info and its
-                # fingerprint describe the scenario
-                spec = spec.replace(distance=dist.name)
-        elif any(v is not None for v in legacy):
-            raise ValueError("pass EITHER spec=... or the legacy kwargs, not both "
-                             "(use spec.replace(...) to tweak a spec)")
-        if dist is None:
-            dist = spec.base_distance()
-        if generator is None:
-            generator = torch.Generator(device=X.device).manual_seed(0)
-        build_policy, search_policy, build_dist, search_dist = bind_policies(
-            spec, dist, X, natural)
 
-        if spec.builder == "swgraph" and spec.build_engine == "wave":
-            neighbors, degrees = build_swgraph_wave(
-                build_dist, X, NN=spec.NN, ef_construction=spec.ef_construction,
-                M_max=spec.M_max, wave=spec.wave, frontier=spec.build_frontier,
+        Recorded as the span ``index.build`` (``core.trace``).
+        """
+        with span("index.build"):
+            legacy = (index_sym, query_sym, builder, build_engine, wave, build_frontier, NN,
+                      ef_construction, M_max, nnd_iters, n_entries, capacity)
+            if spec is None:
+                spec = _legacy_spec(*legacy)
+                if dist is not None and getattr(dist, "name", None):
+                    # record the distance actually run, so build_info and its
+                    # fingerprint describe the scenario
+                    spec = spec.replace(distance=dist.name)
+            elif any(v is not None for v in legacy):
+                raise ValueError("pass EITHER spec=... or the legacy kwargs, not both "
+                                 "(use spec.replace(...) to tweak a spec)")
+            if dist is None:
+                dist = spec.base_distance()
+            if generator is None:
+                generator = torch.Generator(device=X.device).manual_seed(0)
+            build_policy, search_policy, build_dist, search_dist = bind_policies(
+                spec, dist, X, natural)
+
+            if spec.builder == "swgraph" and spec.build_engine == "wave":
+                neighbors, degrees = build_swgraph_wave(
+                    build_dist, X, NN=spec.NN, ef_construction=spec.ef_construction,
+                    M_max=spec.M_max, wave=spec.wave, frontier=spec.build_frontier,
+                )
+            elif spec.builder == "swgraph":
+                neighbors, degrees = build_swgraph(
+                    build_dist, X, NN=spec.NN, ef_construction=spec.ef_construction,
+                    M_max=spec.M_max,
+                )
+            else:
+                neighbors, degrees = build_nndescent(
+                    build_dist, X, generator, K=spec.NN, iters=spec.nnd_iters, M_out=spec.M_max,
+                )
+            entries = select_entries(search_dist, X, n_entries=spec.n_entries, generator=generator)
+            idx = cls(
+                X=X,
+                neighbors=neighbors,
+                dist=dist,
+                search_dist=search_dist,
+                query_sym=str(spec.search_policy),
+                entries=entries,
+                build_info=make_build_info(spec, degrees, build_policy, search_policy),
+                build_dist=build_dist,
+                capacity=spec.capacity,
+                spec=spec,
             )
-        elif spec.builder == "swgraph":
-            neighbors, degrees = build_swgraph(
-                build_dist, X, NN=spec.NN, ef_construction=spec.ef_construction,
-                M_max=spec.M_max,
-            )
-        else:
-            neighbors, degrees = build_nndescent(
-                build_dist, X, generator, K=spec.NN, iters=spec.nnd_iters, M_out=spec.M_max,
-            )
-        entries = select_entries(search_dist, X, n_entries=spec.n_entries, generator=generator)
-        idx = cls(
-            X=X,
-            neighbors=neighbors,
-            dist=dist,
-            search_dist=search_dist,
-            query_sym=str(spec.search_policy),
-            entries=entries,
-            build_info=make_build_info(spec, degrees, build_policy, search_policy),
-            build_dist=build_dist,
-            capacity=spec.capacity,
-            spec=spec,
-        )
-        if spec.capacity is not None:
-            idx.ensure_online()
-        return idx
+            if spec.capacity is not None:
+                idx.ensure_online()
+            return idx
 
     # ----------------------------------------------------------------- online
 

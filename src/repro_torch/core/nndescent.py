@@ -25,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.trace import span
 from repro_torch.kernels.ops import prepped, round_scores, row_scores
 
 INF = float("inf")
@@ -96,48 +97,64 @@ def build_nndescent(dist, X, generator=None, K: int = 16, iters: int = 8,
 
     ``M_out`` defaults to 2K when ``add_reverse`` (forward + sampled reverse
     edges).  ``draws`` replaces the generator's draws (see ``draw_nndescent``).
+
+    Spans (``core.trace``; those marked * timed on the card too):
+    ``build.nndescent``* over ``build.init``, one ``build.round``* per round
+    (its ``build.join``*, the candidate block and its scores, and
+    ``build.dedup``*, ``_dedup_topk``) and ``build.reverse``.
     """
+    with span("build.nndescent", device=True):
+        return _build(dist, X, generator, K, iters, n_random, M_out, add_reverse, draws)
+
+
+def _build(dist, X, generator, K, iters, n_random, M_out, add_reverse, draws):
     n = X.shape[0]
     K = min(K, n - 1)
     M_out = M_out or (2 * K if add_reverse else K)
-    if draws is None:
-        draws = draw_nndescent(n, K, iters, n_random, M_out, generator, X.device)
-    elif (draws.init.shape != (n, K) or draws.rev_slots.shape != (iters, K)
-          or draws.rnd.shape != (iters, n, n_random) or draws.final_slots.shape != (K,)):
-        raise ValueError(f"draws do not fit n={n}, K={K}, iters={iters}, n_random={n_random}")
-    consts = prepped(dist.prep_scan(X))
-    qc_all = prepped(dist.prep_queries(X))  # the whole database prepped as queries once
-    iota = torch.arange(n, dtype=torch.int32, device=X.device)
+    with span("build.init"):
+        if draws is None:
+            draws = draw_nndescent(n, K, iters, n_random, M_out, generator, X.device)
+        elif (draws.init.shape != (n, K) or draws.rev_slots.shape != (iters, K)
+              or draws.rnd.shape != (iters, n, n_random) or draws.final_slots.shape != (K,)):
+            raise ValueError(f"draws do not fit n={n}, K={K}, iters={iters}, "
+                             f"n_random={n_random}")
+        consts = prepped(dist.prep_scan(X))
+        qc_all = prepped(dist.prep_queries(X))  # the whole database prepped as queries once
+        iota = torch.arange(n, dtype=torch.int32, device=X.device)
 
-    # --- init: random neighbors (exclude self by +1 shift mod n) ---
-    init_ids = (iota[:, None] + 1 + draws.init.to(X.device)) % n
-    init_d = _score_rows(dist, consts, qc_all, init_ids)
-    adj_d, adj = _dedup_topk(init_d, init_ids, K)
+        # --- init: random neighbors (exclude self by +1 shift mod n) ---
+        init_ids = (iota[:, None] + 1 + draws.init.to(X.device)) % n
+        init_d = _score_rows(dist, consts, qc_all, init_ids)
+        adj_d, adj = _dedup_topk(init_d, init_ids, K)
 
     KK = K * K
     width = K + KK + K + n_random  # current neighbours, then the round's candidates
     for r in range(iters):
-        safe = torch.where(adj >= 0, adj, 0)
-        ids = torch.empty((n, width), dtype=torch.int32, device=X.device)
-        d = torch.empty((n, width), dtype=torch.float32, device=X.device)
-        ids[:, :K] = adj
-        d[:, :K] = adj_d
-        cand = ids[:, K:]
-        cand[:, :KK] = safe[safe.reshape(-1).long()].reshape(n, KK)
-        cand[:, KK:KK + K] = _sampled_reverse(adj, K, draws.rev_slots[r])
-        cand[:, KK + K:] = draws.rnd[r]
-        cand.masked_fill_(cand == iota[:, None], -1)  # no self loops
-        round_scores(dist, safe, cand[:, KK:], qc_all, consts, out=d[:, K:])
-        adj_d, adj = _dedup_topk(d, ids, K)
+        with span("build.round", device=True):
+            with span("build.join", device=True):
+                safe = torch.where(adj >= 0, adj, 0)
+                ids = torch.empty((n, width), dtype=torch.int32, device=X.device)
+                d = torch.empty((n, width), dtype=torch.float32, device=X.device)
+                ids[:, :K] = adj
+                d[:, :K] = adj_d
+                cand = ids[:, K:]
+                cand[:, :KK] = safe[safe.reshape(-1).long()].reshape(n, KK)
+                cand[:, KK:KK + K] = _sampled_reverse(adj, K, draws.rev_slots[r])
+                cand[:, KK + K:] = draws.rnd[r]
+                cand.masked_fill_(cand == iota[:, None], -1)  # no self loops
+                round_scores(dist, safe, cand[:, KK:], qc_all, consts, out=d[:, K:])
+            with span("build.dedup", device=True):
+                adj_d, adj = _dedup_topk(d, ids, K)
 
-    if add_reverse:
-        rev = _sampled_reverse(adj, M_out - K, draws.final_slots)
-        # drop reverse edges that duplicate forward ones
-        dup = (rev[:, :, None] == adj[:, None, :]).any(dim=2)
-        rev = torch.where(dup, -1, rev)
-        neighbors = torch.cat([adj, rev], dim=1)
-    else:
-        neighbors = adj[:, :M_out]
+    with span("build.reverse"):
+        if add_reverse:
+            rev = _sampled_reverse(adj, M_out - K, draws.final_slots)
+            # drop reverse edges that duplicate forward ones
+            dup = (rev[:, :, None] == adj[:, None, :]).any(dim=2)
+            rev = torch.where(dup, -1, rev)
+            neighbors = torch.cat([adj, rev], dim=1)
+        else:
+            neighbors = adj[:, :M_out]
 
     degrees = (neighbors >= 0).sum(dim=1, dtype=torch.int32)
     return neighbors.to(torch.int32).contiguous(), degrees

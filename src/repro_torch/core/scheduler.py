@@ -65,6 +65,7 @@ import torch
 
 from repro_torch.core.batched_beam import (BatchBeamState, adaptive_width_update, beam_step,
                                            frontier_compact_width, seed_beams)
+from repro_torch.core.trace import span
 from repro_torch.kernels.ops import gathered_scores, prepped
 
 INF = float("inf")
@@ -370,6 +371,10 @@ class SchedulerHost:
         ``tenants`` / ``priorities`` (per-request arrays) and ``slo_ms``
         forward to ``submit``.  Returns results in request order with
         ``t_arrival`` / ``t_admit`` / ``t_done`` on the chosen clock.
+
+        Spans (``core.trace``): ``sched.submit`` per burst of arrivals
+        handed in, ``sched.wait`` while idle, the tick, ``sched.collect``
+        over its results.
         """
         if realtime and tick_cost is not None:
             raise ValueError("tick_cost is a virtual-clock mode; incompatible with realtime=True")
@@ -392,22 +397,25 @@ class SchedulerHost:
                 clock = time.perf_counter() - t0
                 if i < n_req:
                     clock = self._agree(clock)
-            while i < n_req and arrivals[order[i]] <= clock:
-                rid = int(order[i])
-                self.submit(Q[rid], rid=rid, t_arrival=float(arrivals[rid]),
-                            tenant=0 if tenants is None else int(tenants[rid]),
-                            priority=0 if priorities is None else int(priorities[rid]),
-                            slo_ms=slo_ms)
-                i += 1
+            if i < n_req and arrivals[order[i]] <= clock:
+                with span("sched.submit"):  # the burst of arrivals now due
+                    while i < n_req and arrivals[order[i]] <= clock:
+                        rid = int(order[i])
+                        self.submit(Q[rid], rid=rid, t_arrival=float(arrivals[rid]),
+                                    tenant=0 if tenants is None else int(tenants[rid]),
+                                    priority=0 if priorities is None else int(priorities[rid]),
+                                    slo_ms=slo_ms)
+                        i += 1
             if not self._n_pending and not (self._slot_rid >= 0).any():
                 # idle: background maintenance, then jump (or sleep) to the next arrival
-                if self._background is not None:
-                    self._background()
-                nxt = float(arrivals[order[i]])
-                if realtime:
-                    time.sleep(max(0.0, nxt - (time.perf_counter() - t0)))
-                else:
-                    clock = nxt
+                with span("sched.wait"):
+                    if self._background is not None:
+                        self._background()
+                    nxt = float(arrivals[order[i]])
+                    if realtime:
+                        time.sleep(max(0.0, nxt - (time.perf_counter() - t0)))
+                    else:
+                        clock = nxt
                 continue
             tick_t0 = time.perf_counter()
             finished = self.tick(now=clock)
@@ -419,9 +427,10 @@ class SchedulerHost:
                 clock += time.perf_counter() - tick_t0
                 if i < n_req:
                     clock = self._agree(clock)
-            for r in finished:
-                r.t_done = clock
-                results[r.rid] = r
+            with span("sched.collect"):
+                for r in finished:
+                    r.t_done = clock
+                    results[r.rid] = r
         return [results[j] for j in range(n_req)]
 
 
@@ -633,59 +642,79 @@ class SlotScheduler(SchedulerHost):
         Host syncs: one read of ``done``; when something retires, one copy
         of the retiring rows (distances, ids, evals, hops and, on a mutable
         index, ``alive`` at those ids), and for the rerank one copy back.
-        """
-        g = self.graph_fn()
-        shed_out: list[SlotResult] = []
-        free = np.flatnonzero(self._slot_rid < 0)
-        if len(free) and self._n_pending:
-            Q_new = np.full((self.S, self.dim), 1.0 / self.dim, np.float32)
-            # rows: write, ef_new, ad_new (one upload)
-            ctl = np.zeros((3, self.S), np.int32)
-            ctl[1] = self.ef
-            ctl[2] = self.adaptive
-            fi = 0
-            # a shed frees no slot: keep drawing until the free slots are
-            # filled or the queues drain
-            while fi < len(free) and self._n_pending:
-                for req in self._drr_select(len(free) - fi):
-                    lvl = req.level
-                    if lvl is None:
-                        lvl = self.admission.decide(
-                            elapsed=now - req.t_arrival, slo_s=req.slo_s,
-                            base_level=min(req.priority, len(self.rungs) - 1))
-                    if lvl is None:
-                        # load-shed: answered at once without a slot; demotion
-                        # was already ruled out by decide()
-                        shed_out.append(SlotResult(
-                            rid=req.rid, dists=np.full((self.k,), np.inf, np.float32),
-                            ids=np.full((self.k,), -1, np.int64), n_evals=0, hops=0,
-                            t_arrival=req.t_arrival, t_admit=now, tenant=req.tenant,
-                            priority=req.priority, level=-1, shed=True))
-                        continue
-                    rung = self.rungs[lvl]
-                    s = free[fi]
-                    fi += 1
-                    Q_new[s] = req.q
-                    ctl[:, s] = (1, rung.ef, rung.adaptive)
-                    self._slot_rid[s] = req.rid
-                    self._meta[req.rid] = (req.t_arrival, now, g.epoch, req.tenant,
-                                           req.priority, lvl)
-            if ctl[0].any():
-                ctl_d = torch.as_tensor(ctl, device=self._dev)
-                self.state = self._admit(self.state, torch.as_tensor(Q_new, device=self._dev),
-                                         ctl_d[0].bool(), ctl_d[1], ctl_d[2].bool(), g)
-        if (self._background is not None and not self._n_pending
-                and (self._slot_rid < 0).any()):
-            # idle capacity this tick: one slice of background maintenance
-            self._background()
-        if not (self._slot_rid >= 0).any():
-            return shed_out
 
-        self.state = self._step(self.state, g)
-        done = self.state.core.done.cpu().numpy()  # the tick's sync
-        finished = done & (self._slot_rid >= 0)
-        if not finished.any():
-            return shed_out
+        Spans (``core.trace``): ``sched.tick`` (timed on the card too) over
+        ``sched.admit`` (DRR selection to the seeding's launches),
+        ``sched.step``, ``sched.sync`` (the read of ``done``) and
+        ``sched.retire`` (the retiring rows' copy to the last result).
+        """
+        with span("sched.tick", device=True):
+            g = self.graph_fn()
+            shed_out: list[SlotResult] = []
+            free = np.flatnonzero(self._slot_rid < 0)
+            if len(free) and self._n_pending:
+                with span("sched.admit"):
+                    shed_out = self._admit_pending(free, g, now)
+            if (self._background is not None and not self._n_pending
+                    and (self._slot_rid < 0).any()):
+                # idle capacity this tick: one slice of background maintenance
+                self._background()
+            if not (self._slot_rid >= 0).any():
+                return shed_out
+            with span("sched.step"):
+                self.state = self._step(self.state, g)
+            with span("sched.sync"):
+                done = self.state.core.done.cpu().numpy()  # the tick's sync
+            finished = done & (self._slot_rid >= 0)
+            if not finished.any():
+                return shed_out
+            with span("sched.retire"):
+                return shed_out + self._retire(finished, g, now)
+
+    def _admit_pending(self, free, g: GraphView, now: float) -> list[SlotResult]:
+        """Fill the ``free`` slots from the queues (DRR, then SLO admission per
+        request) and seed them; returns the load-shed responses."""
+        shed_out: list[SlotResult] = []
+        Q_new = np.full((self.S, self.dim), 1.0 / self.dim, np.float32)
+        # rows: write, ef_new, ad_new (one upload)
+        ctl = np.zeros((3, self.S), np.int32)
+        ctl[1] = self.ef
+        ctl[2] = self.adaptive
+        fi = 0
+        # a shed frees no slot: keep drawing until the free slots are
+        # filled or the queues drain
+        while fi < len(free) and self._n_pending:
+            for req in self._drr_select(len(free) - fi):
+                lvl = req.level
+                if lvl is None:
+                    lvl = self.admission.decide(
+                        elapsed=now - req.t_arrival, slo_s=req.slo_s,
+                        base_level=min(req.priority, len(self.rungs) - 1))
+                if lvl is None:
+                    # load-shed: answered at once without a slot; demotion
+                    # was already ruled out by decide()
+                    shed_out.append(SlotResult(
+                        rid=req.rid, dists=np.full((self.k,), np.inf, np.float32),
+                        ids=np.full((self.k,), -1, np.int64), n_evals=0, hops=0,
+                        t_arrival=req.t_arrival, t_admit=now, tenant=req.tenant,
+                        priority=req.priority, level=-1, shed=True))
+                    continue
+                rung = self.rungs[lvl]
+                s = free[fi]
+                fi += 1
+                Q_new[s] = req.q
+                ctl[:, s] = (1, rung.ef, rung.adaptive)
+                self._slot_rid[s] = req.rid
+                self._meta[req.rid] = (req.t_arrival, now, g.epoch, req.tenant,
+                                       req.priority, lvl)
+        if ctl[0].any():
+            ctl_d = torch.as_tensor(ctl, device=self._dev)
+            self.state = self._admit(self.state, torch.as_tensor(Q_new, device=self._dev),
+                                     ctl_d[0].bool(), ctl_d[1], ctl_d[2].bool(), g)
+        return shed_out
+
+    def _retire(self, finished, g: GraphView, now: float) -> list[SlotResult]:
+        """The results of the ``finished`` slots, which are freed."""
         idx = np.flatnonzero(finished)
         rows = torch.as_tensor(idx, device=self._dev)
         # a mutable index reads the whole ef-wide beam: voided entries
@@ -744,7 +773,7 @@ class SlotScheduler(SchedulerHost):
                                   hops=int(hops[j]), t_arrival=t_arr, t_admit=t_adm,
                                   tenant=tenant, priority=priority, level=lvl))
             self._slot_rid[s] = -1
-        return shed_out + out
+        return out
 
 
 def _tree_map2(fn, a, b):

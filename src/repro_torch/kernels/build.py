@@ -101,6 +101,13 @@ def check_tensor(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def count_launch(name: str) -> None:
+    """Count one launch of kernel ``name`` (``ops.launch_counts``)."""
+    from repro_torch.core import trace  # here: the core package imports the kernels
+
+    trace.count("launches." + name)
+
+
 def build_log(name: str) -> str:
     """The nvcc command and ptxas report of the last build of ``name``."""
     log = library_path(name).with_suffix(".log")

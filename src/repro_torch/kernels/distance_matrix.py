@@ -18,7 +18,7 @@ on the card, and ``build_sharded``'s stitch.  Design and source:
 ``csrc/distance_matrix.cu``.
 
 The wrapper launches on the current stream and does not synchronise; it
-counts its launches in ``distance_matrix.launches``.
+counts its launches (``ops.launch_counts``).
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import check_tensor, load
+from repro_torch.kernels.build import check_tensor, count_launch, load
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -72,8 +72,5 @@ def distance_matrix(q_rep, x_rep, q_bias, x_bias, post_id: int, c0: float = 0.0)
                  out.data_ptr(), B, N, m, _DTYPES[q_rep.dtype], post_id, c0, stream)
     if err != 0:
         raise RuntimeError(f"distance_matrix launch failed: cudaError_t {err}")
-    distance_matrix.launches += 1
+    count_launch("distance_matrix")
     return out
-
-
-distance_matrix.launches = 0

@@ -19,7 +19,7 @@ n=1e6, K=30 reads each (K, m') block once and each query row once per edge,
 about 31 GB (about 10 ms).  Design and source: ``csrc/frontier_gather.cu``.
 
 The wrappers launch on the current stream and do not synchronise; each
-counts its launches (``frontier_scores.launches``, ``two_hop_scores.launches``).
+counts its launches (``ops.launch_counts``).
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import check_tensor as _check
-from repro_torch.kernels.build import load
+from repro_torch.kernels.build import count_launch, load
 
 EDGES_PER_ITEM = 32  # edges of one middle node scored by one block (kEdges)
 MAX_K = 64  # rows per middle node the join kernel stages
@@ -106,11 +106,8 @@ def frontier_scores(ids, q_rep, q_bias, x_rep, x_bias, post_id: int, c0: float =
                  post_id, c0, _stream(device))
     if err != 0:
         raise RuntimeError(f"frontier_scores launch failed: cudaError_t {err}")
-    frontier_scores.launches += 1
+    count_launch("frontier_scores")
     return out
-
-
-frontier_scores.launches = 0
 
 
 def two_hop_work_list(safe_adj):
@@ -181,8 +178,5 @@ def two_hop_scores(safe_adj, q_rep, q_bias, x_rep, x_bias, post_id: int, c0: flo
                  out.data_ptr(), K, m, out.stride(0), post_id, c0, _stream(device))
     if err != 0:
         raise RuntimeError(f"two_hop_scores launch failed: cudaError_t {err}")
-    two_hop_scores.launches += 1
+    count_launch("two_hop_scores")
     return out
-
-
-two_hop_scores.launches = 0

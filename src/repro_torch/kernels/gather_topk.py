@@ -20,7 +20,7 @@ beats the per-query kernel) and the wave builder's reverse edges;
 Bound: device-memory bytes.  Design and source: ``csrc/gather_topk.cu``.
 
 The wrapper launches on the current stream and does not synchronise; it
-counts its launches in ``gather_scores.launches``.
+counts its launches (``ops.launch_counts``).
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import check_tensor, load
+from repro_torch.kernels.build import check_tensor, count_launch, load
 
 
 def _lib():
@@ -72,8 +72,5 @@ def gather_scores(ids, q_rep, q_bias, x_rep, x_bias, post_id: int, c0: float = 0
                  x_bias.data_ptr(), out.data_ptr(), B, M, m, post_id, c0, stream)
     if err != 0:
         raise RuntimeError(f"gather_scores launch failed: cudaError_t {err}")
-    gather_scores.launches += 1
+    count_launch("gather_scores")
     return out
-
-
-gather_scores.launches = 0

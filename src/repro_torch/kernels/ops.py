@@ -185,16 +185,20 @@ def beam_gather_scores(dist, ids, Q, X):
     return gathered_scores(dist, ids, prepped(dist.prep_queries(Q)), prepped(dist.prep_scan(X)))
 
 
-KERNELS = {"frontier_scores": frontier_scores, "two_hop_scores": two_hop_scores,
-           "gather_scores": gather_scores, "distance_matrix": distance_matrix}
+KERNELS = ("frontier_scores", "two_hop_scores", "gather_scores", "distance_matrix")
 
 
 def launch_counts() -> dict:
-    """Launches of each CUDA kernel wrapper so far in this process, by name."""
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    """Launches of each CUDA kernel wrapper so far in this process, by name
+    (the ``launches.<name>`` counters of ``core.trace``)."""
+    from repro_torch.core import trace
+
+    counts = trace.counters("launches.")
+    return {name: counts.get(name, 0) for name in KERNELS}
 
 
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    for fn in KERNELS.values():
-        fn.launches = 0
+    from repro_torch.core import trace
+
+    trace.reset("launches.")

@@ -56,10 +56,10 @@ def _case(name, dev, B, R, n, m, seed=0):
 def test_kernel_matches_plain(name, shape, cuda):
     B, R, m = shape
     dist, ids, (q_rep, q_bias, x_rep, x_bias) = _case(name, cuda, B, R, 5000, m)
-    before = frontier_scores.launches
+    before = ops.launch_counts()["frontier_scores"]
     got = ops.frontier_gather_scores(dist, ids, q_rep, q_bias, x_rep, x_bias)
     torch.cuda.synchronize()
-    assert frontier_scores.launches == before + 1
+    assert ops.launch_counts()["frontier_scores"] == before + 1
     want = gather_scores_ref(ids, q_rep, x_rep, q_bias, x_bias, dist.post_id, dist.c0)
     assert torch.equal(torch.isinf(got), ids < 0)
     torch.testing.assert_close(got, want, **TOL)
@@ -101,10 +101,10 @@ def test_distance_matrix_matches_plain(name, shape, cuda):
     Q = torch.from_numpy(rng.dirichlet(np.full(m, 0.1), size=B).astype(np.float32))
     X = torch.from_numpy(rng.dirichlet(np.full(m, 0.1), size=N).astype(np.float32))
     Q, X = Q.clamp(min=1e-6).to(cuda), X.clamp(min=1e-6).to(cuda)
-    before = distance_matrix.launches
+    before = ops.launch_counts()["distance_matrix"]
     got = ops.query_distance_matrix(dist, Q, X)
     torch.cuda.synchronize()
-    assert distance_matrix.launches == before + 1
+    assert ops.launch_counts()["distance_matrix"] == before + 1
     want = distance_matrix_ref(dist.prep_right(Q), dist.prep_left(X), dist.bias_right(Q),
                                dist.bias_left(X), dist.post_id, dist.c0)
     assert torch.equal(torch.isinf(got), torch.isinf(want))
@@ -136,10 +136,10 @@ def test_distance_matrix_bf16_reps(cuda):
 def test_gather_scores_matches_plain(name, shape, cuda):
     B, M, m = shape
     dist, ids, (q_rep, q_bias, x_rep, x_bias) = _case(name, cuda, B, M, 5000, m)
-    before = gather_scores.launches
+    before = ops.launch_counts()["gather_scores"]
     got = ops.pair_scores(dist, ids, q_rep, q_bias, x_rep, x_bias)
     torch.cuda.synchronize()
-    assert gather_scores.launches == before + 1
+    assert ops.launch_counts()["gather_scores"] == before + 1
     want = gather_scores_ref(ids, q_rep, x_rep, q_bias, x_bias, dist.post_id, dist.c0)
     assert torch.equal(torch.isinf(got), ids < 0)
     torch.testing.assert_close(got, want, **TOL)
@@ -220,10 +220,10 @@ def test_tensor_core_distance_matrix_at_the_smoke_shapes(name, shape, cuda):
     rng = np.random.default_rng(4)
     dist = get_distance(name)
     Q, X = _hist(rng, B, m, cuda), _hist(rng, N, m, cuda)
-    before = distance_matrix.launches
+    before = ops.launch_counts()["distance_matrix"]
     got = ops.query_distance_matrix(dist, Q, X)
     torch.cuda.synchronize()
-    assert distance_matrix.launches == before + 1
+    assert ops.launch_counts()["distance_matrix"] == before + 1
     want = distance_matrix_ref(dist.prep_right(Q), dist.prep_left(X), dist.bias_right(Q),
                                dist.bias_left(X), dist.post_id, dist.c0)
     assert torch.equal(torch.isinf(got), torch.isinf(want))
@@ -301,10 +301,10 @@ def test_knn_scan_at_a_width_tma_cannot_read(name, mode, cuda):
     rng = np.random.default_rng(10)
     dist = get_distance(name)
     Q, X = _hist(rng, 64, 30, cuda), _hist(rng, 3000, 30, cuda)
-    before = distance_matrix.launches
+    before = ops.launch_counts()["distance_matrix"]
     got_d, got_i = knn_scan(dist, Q, X, 10, chunk=1024, mode=mode)
     torch.cuda.synchronize()
-    assert distance_matrix.launches == before + 3
+    assert ops.launch_counts()["distance_matrix"] == before + 3
     want_d, want_i = knn_scan(dist, Q.cpu(), X.cpu(), 10, chunk=1024, mode=mode)
     torch.testing.assert_close(got_d.cpu(), want_d, **TOL)
     assert float((got_i.cpu() == want_i).float().mean()) >= 0.99
